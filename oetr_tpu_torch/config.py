@@ -1,0 +1,64 @@
+"""Configuration dataclasses of the port.
+
+Own copies of the fields of ``oetr_tpu/config.py`` that the ported OETR
+forward reads: the port imports nothing of the JAX package. Field names
+and defaults are the same, so a config written for one package reads the
+same in the other.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+
+
+@dataclass(frozen=True)
+class BackboneConfig:
+    depth: int = 50                 # resnet 18/34/50/101/152
+    stop_layer: str = "layer3"      # 'layer3' (stride 16) | 'layer4' (stride 32)
+    last_layer: int = 1024          # channels at stop_layer
+    fused_stem: bool = False        # GN+ReLU+max-pool stem as one CUDA kernel
+    norm_input: bool = True         # (x - 0.45) / 0.225
+
+
+@dataclass(frozen=True)
+class NeckConfig:
+    d_model: int = 256
+    attention: str = "linear"
+    # 'linear' | 'full' (plain torch ops) | 'linear:cuda': the encoder
+    # sublayer runs as one CUDA kernel (the port of 'linear:pallas').
+    max_shape: tuple[int, int] = (100, 100)  # positional-encoding grid cap
+    patch_sizes: tuple[int, ...] = (4, 8, 16)
+    nhead: int = 8
+    num_layers: int = 4             # encoder (self + cross) pairs
+    num_decoder_layers: int = 2
+    legacy_pos_enc: bool = True     # keep the reference's div_term quirk
+
+
+@dataclass(frozen=True)
+class OETRConfig:
+    backbone: BackboneConfig = field(default_factory=BackboneConfig)
+    neck: NeckConfig = field(default_factory=NeckConfig)
+    dtype: str = "float32"          # compute dtype: 'float32' | 'bfloat16'
+
+    @property
+    def d_model(self) -> int:
+        return self.neck.d_model
+
+
+def replace(cfg, **kwargs):
+    """Functional config update: ``replace(cfg, dtype='bfloat16')``."""
+    return dataclasses.replace(cfg, **kwargs)
+
+
+def oetr_r50_config() -> OETRConfig:
+    """ResNet50 cut at layer3, 1024 channels, d_model 256 (the flagship)."""
+    return OETRConfig()
+
+
+def oetr_r50_kernels_config(dtype: str = "bfloat16") -> OETRConfig:
+    """The flagship with both CUDA kernels switched on: the fused encoder
+    sublayer (``attention='linear:cuda'``) and the fused stem."""
+    base = oetr_r50_config()
+    return OETRConfig(
+        backbone=replace(base.backbone, fused_stem=True),
+        neck=replace(base.neck, attention="linear:cuda"), dtype=dtype)

@@ -1,0 +1,161 @@
+"""K2: the fused pre-norm encoder attention sublayer.
+
+``linear_encoder_attention`` is the port of
+``oetr_tpu/ops/pallas_attention.py::linear_encoder_attention_pallas``:
+LayerNorm of x and of the source (eps 1e-5, f32), plus the positional
+encodings, the q/k/v projections (no bias) and masked linear attention,
+giving the pre-merge message [B, L, C]. On a CUDA tensor it launches the
+hand-written kernel in ``csrc/linear_encoder.cu``; on a CPU tensor it runs
+``linear_encoder_attention_reference``, its plain torch version.
+
+Weights are in torch's ``nn.Linear`` layout [C_out, C_in] (the transpose of
+the flax kernels), f32; ``lnq``/``lnkv`` stack LayerNorm (weight, bias) as
+[2, C] f32.
+"""
+from __future__ import annotations
+
+import torch
+
+from ._build import check_launch, load_library
+
+
+def _rounded_inv(n: int, dtype: torch.dtype) -> float:
+    """1/n as the I/O type holds it: the Pallas kernel multiplies V by the
+    Python float 1/S, which JAX casts to the array's type."""
+    return float(torch.tensor(1.0 / n, dtype=dtype))
+
+
+def _elu_p1(x: torch.Tensor) -> torch.Tensor:
+    x32 = x.float()
+    return torch.where(x32 > 0, x32 + 1.0, torch.exp(x32)).to(x.dtype)
+
+
+def _layernorm_f32(t: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    t32 = t.float()
+    mu = t32.mean(dim=-1, keepdim=True)
+    cen = t32 - mu
+    var = (cen * cen).mean(dim=-1, keepdim=True)
+    return cen * torch.rsqrt(var + 1e-5) * p[0] + p[1]
+
+
+def linear_encoder_attention_reference(x, source, x_pos, s_pos, lnq, lnkv,
+                                       wq, wk, wv, q_mask=None, kv_mask=None,
+                                       nhead: int = 8, eps: float = 1e-6):
+    """Plain torch version of K2.
+
+    The math of ``linear_encoder_attention_xla``, rounded to x's dtype at
+    the points where the Pallas kernel rounds (q/kv inputs; q, k, v after
+    projection; V/S; KV and ΣK before the last products), with the kernel's
+    ``max(den, eps)``. In float32 the rounding is a no-op and
+    ``max(den, eps)`` equals ``den + eps`` to float precision.
+    """
+    dt = x.dtype
+    b, l, c = x.shape
+    s = source.shape[1]
+    d = c // nhead
+    q_in = (_layernorm_f32(x, lnq) + x_pos.float()).to(dt)
+    kv_in = (_layernorm_f32(source, lnkv) + s_pos.float()).to(dt)
+
+    def proj(t, w):  # f32 accumulation, result rounded to the I/O type
+        return (t.float() @ w.to(dt).float().T).to(dt)
+
+    q = proj(q_in, wq).reshape(b, l, nhead, d)
+    k = proj(kv_in, wk).reshape(b, s, nhead, d)
+    v = proj(kv_in, wv).reshape(b, s, nhead, d)
+    qm = (torch.ones(b, l, dtype=dt, device=x.device) if q_mask is None
+          else q_mask.to(dt))[:, :, None, None]
+    km = (torch.ones(b, s, dtype=dt, device=x.device) if kv_mask is None
+          else kv_mask.to(dt))[:, :, None, None]
+    Q = (_elu_p1(q) * qm).float()
+    K = (_elu_p1(k) * km).float()
+    V = ((v * km).float() * _rounded_inv(s, dt)).to(dt).float()
+
+    kv = torch.einsum("bshd,bshe->bhde", K, V).to(dt).float()
+    k_sum = K.sum(dim=1).to(dt).float()                      # [B, H, D]
+    den = torch.einsum("blhd,bhd->blh", Q, k_sum)
+    z = 1.0 / torch.clamp(den, min=eps)
+    out = torch.einsum("blhd,bhde->blhe", Q, kv) * z[..., None] * s
+    return out.to(dt).reshape(b, l, c)
+
+
+def _check(name, t, shape, dtype, device):
+    if t.device != device or t.dtype != dtype or tuple(t.shape) != shape:
+        raise ValueError(f"{name}: expected {dtype} {shape} on {device}, got "
+                         f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _pos_batch_stride(name, pos, b, n, c, dtype, device):
+    if pos.dim() != 3 or pos.shape[0] not in (1, b):
+        raise ValueError(f"{name}: expected [1 or {b}, {n}, {c}], got "
+                         f"{tuple(pos.shape)}")
+    _check(name, pos, (pos.shape[0], n, c), dtype, device)
+    return 0 if pos.shape[0] == 1 else n * c
+
+
+def _mask_ptr(name, mask, shape, device):
+    if mask is None:
+        return None, None
+    if tuple(mask.shape) != shape or mask.device != device:
+        raise ValueError(f"{name}: expected {shape} on {device}, got "
+                         f"{tuple(mask.shape)} on {mask.device}")
+    mask = mask.to(torch.bool).contiguous()
+    return mask, mask.data_ptr()
+
+
+def linear_encoder_attention(x, source, x_pos, s_pos, lnq, lnkv, wq, wk, wv,
+                             q_mask=None, kv_mask=None, nhead: int = 8,
+                             eps: float = 1e-6):
+    """Fused pre-norm + PE + projections + masked linear attention (K2).
+
+    x [B, L, C]; source [B, S, C]; x_pos/s_pos [1 or B, L/S, C] in x's
+    dtype; lnq/lnkv [2, C] f32; wq/wk/wv [C, C] f32 in [out, in] layout;
+    q_mask [B, L] / kv_mask [B, S] bool or None. Returns [B, L, C] in x's
+    dtype. A CPU tensor runs the plain version; a CUDA tensor launches the
+    kernel (float32 or bfloat16, C/nhead <= 32) or raises.
+    """
+    if x.device.type == "cpu":
+        return linear_encoder_attention_reference(
+            x, source, x_pos, s_pos, lnq, lnkv, wq, wk, wv, q_mask, kv_mask,
+            nhead, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"linear_encoder_attention: no kernel for {x.device}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"linear_encoder_attention: dtype {x.dtype}")
+    if x.dim() != 3 or source.dim() != 3:
+        raise ValueError("x and source must be [B, N, C]")
+    b, l, c = x.shape
+    s = source.shape[1]
+    if c % nhead != 0 or c // nhead > 32 or c % 32 != 0:
+        raise ValueError(f"linear_encoder_attention: C={c}, nhead={nhead} "
+                         "needs C % 32 == 0 and C / nhead <= 32")
+    dev = x.device
+    _check("x", x, (b, l, c), x.dtype, dev)
+    _check("source", source, (b, s, c), x.dtype, dev)
+    xps = _pos_batch_stride("x_pos", x_pos, b, l, c, x.dtype, dev)
+    sps = _pos_batch_stride("s_pos", s_pos, b, s, c, x.dtype, dev)
+    for name, t in (("lnq", lnq), ("lnkv", lnkv)):
+        _check(name, t, (2, c), torch.float32, dev)
+    for name, t in (("wq", wq), ("wk", wk), ("wv", wv)):
+        _check(name, t, (c, c), torch.float32, dev)
+    q_mask, qm_ptr = _mask_ptr("q_mask", q_mask, (b, l), dev)
+    kv_mask, km_ptr = _mask_ptr("kv_mask", kv_mask, (b, s), dev)
+
+    lib, _ = load_library()
+    entry = (lib.oetr_linear_encoder_f32 if x.dtype == torch.float32
+             else lib.oetr_linear_encoder_bf16)
+    out = torch.empty_like(x)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = entry(x.data_ptr(), source.data_ptr(), x_pos.data_ptr(), xps,
+                   s_pos.data_ptr(), sps, lnq.data_ptr(), lnkv.data_ptr(),
+                   wq.data_ptr(), wk.data_ptr(), wv.data_ptr(), qm_ptr, km_ptr,
+                   out.data_ptr(), b, l, s, c, nhead, eps,
+                   _rounded_inv(s, x.dtype), stream)
+    check_launch(lib, rc, "linear_encoder_attention")
+    linear_encoder_attention.launches += 1
+    return out
+
+
+linear_encoder_attention.launches = 0

@@ -1,0 +1,149 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+These need a CUDA card and nvcc and skip without them. They need nothing
+of the JAX test set-up in ``tests/conftest.py``; run them on the card
+without it:
+
+    python -m pytest --noconftest -q tests/test_torch_port_gpu.py
+
+The cases reach what the flagship shapes in ``chip_smoke.py`` do not:
+head widths below 32, per-batch positional encodings, no masks, single
+tokens, small and non-square images, and the inputs the kernels refuse.
+"""
+import pytest
+import torch
+
+import oetr_tpu_torch as port
+from oetr_tpu_torch import ops
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _tol(out_ref, dtype):
+    """f32: the two versions differ in summation order only. bf16: they
+    round at the same points, so an order difference flips a rounding by
+    at most about one step (2^-7 relative) per stage."""
+    scale = max(1.0, out_ref.float().abs().max().item())
+    return (2.0 ** -6 if dtype == torch.bfloat16 else 1e-4) * scale
+
+
+def _encoder_args(dev, dtype, b, l, s, c, pos_batch, masked, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rn = lambda *shape: torch.randn(*shape, generator=g, device=dev)
+    pb = b if pos_batch else 1
+    lnq = torch.stack([1 + 0.1 * rn(c), 0.1 * rn(c)])
+    lnkv = torch.stack([1 + 0.1 * rn(c), 0.1 * rn(c)])
+    ws = [rn(c, c) * c ** -0.5 for _ in range(3)]
+    qm = rn(b, l) > -1.0 if masked else None
+    km = rn(b, s) > -1.0 if masked else None
+    return (rn(b, l, c).to(dtype), rn(b, s, c).to(dtype),
+            (0.5 * rn(pb, l, c)).to(dtype), (0.5 * rn(pb, s, c)).to(dtype),
+            lnq, lnkv, *ws, qm, km)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,l,s,c,nhead,pos_batch,masked", [
+    (2, 5, 7, 32, 4, False, True),       # D=8, fewer rows than warps
+    (3, 33, 17, 64, 2, True, False),     # D=32, per-batch pos, no masks
+    (1, 1, 1, 256, 8, False, True),      # one token each side
+    (2, 40, 56, 128, 8, True, True),     # D=16
+])
+def test_linear_encoder_kernel_matches_plain(cuda, dtype, b, l, s, c, nhead,
+                                             pos_batch, masked):
+    args = _encoder_args(cuda, dtype, b, l, s, c, pos_batch, masked, seed=l)
+    before = ops.linear_encoder_attention.launches
+    out = ops.linear_encoder_attention(*args, nhead=nhead)
+    ref = ops.linear_encoder_attention_reference(*args, nhead=nhead)
+    torch.cuda.synchronize()
+    assert ops.linear_encoder_attention.launches == before + 1
+    assert out.dtype == dtype and out.shape == (b, l, c)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0,
+                               atol=_tol(ref, dtype))
+
+
+def test_linear_encoder_kernel_refuses(cuda):
+    args = list(_encoder_args(cuda, torch.float32, 2, 8, 8, 64, False, True,
+                              seed=0))
+    with pytest.raises(ValueError, match="C / nhead"):
+        ops.linear_encoder_attention(*args, nhead=1)       # D = 64 > 32
+    bad = list(args)
+    bad[2] = args[2].to(torch.bfloat16)
+    with pytest.raises(ValueError, match="x_pos"):
+        ops.linear_encoder_attention(*bad, nhead=4)
+    bad = list(args)
+    bad[1] = torch.randn(2, 64, 8, device=cuda).transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.linear_encoder_attention(*bad, nhead=4)
+    # 3·C·D weights and 16 row buffers in f32 exceed the 227 KB of shared
+    # memory a block may have: the launch is refused and the wrapper raises.
+    big = _encoder_args(cuda, torch.float32, 1, 8, 8, 512, False, False, 0)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        ops.linear_encoder_attention(*big, nhead=16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 2, 2, 32), (2, 6, 10, 64),
+                                   (3, 8, 8, 96), (2, 34, 18, 64)])
+def test_gn_pool_kernel_matches_plain(cuda, dtype, shape):
+    g = torch.Generator(device=cuda).manual_seed(shape[1])
+    x = (torch.randn(*shape, generator=g, device=cuda) * 2 + 0.5).to(dtype)
+    c = shape[-1]
+    gamma = 1 + 0.1 * torch.randn(c, generator=g, device=cuda)
+    beta = 0.1 * torch.randn(c, generator=g, device=cuda)
+    before = ops.groupnorm_relu_maxpool.launches
+    out = ops.groupnorm_relu_maxpool(x, gamma, beta)
+    ref = ops.groupnorm_relu_maxpool_reference(x, gamma, beta)
+    torch.cuda.synchronize()
+    assert ops.groupnorm_relu_maxpool.launches == before + 1
+    b, h, w, _ = shape
+    assert out.shape == (b, h // 2, w // 2, c) and out.dtype == dtype
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0,
+                               atol=_tol(ref, dtype) / 2)
+
+
+def test_gn_pool_kernel_refuses(cuda):
+    gamma, beta = torch.ones(64, device=cuda), torch.zeros(64, device=cuda)
+    with pytest.raises(ValueError, match="even"):
+        ops.groupnorm_relu_maxpool(torch.zeros(1, 6, 5, 64, device=cuda),
+                                   gamma, beta)
+    x = torch.zeros(1, 64, 6, 6, device=cuda).permute(0, 2, 3, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.groupnorm_relu_maxpool(x, gamma, beta)
+    with pytest.raises(ValueError, match="dtype"):
+        ops.groupnorm_relu_maxpool(torch.zeros(1, 6, 6, 64, device=cuda,
+                                               dtype=torch.float16),
+                                   gamma, beta)
+
+
+def test_small_forward_on_card_matches_cpu(cuda):
+    """The whole port, small config, f32: the card (kernels) against the
+    CPU (plain versions) with the same weights and images."""
+    cfg = port.OETRConfig(
+        backbone=port.BackboneConfig(depth=18, last_layer=256,
+                                     fused_stem=True),
+        neck=port.NeckConfig(d_model=64, nhead=4, num_layers=1,
+                             num_decoder_layers=1, attention="linear:cuda"))
+    on_card = port.build_oetr(cfg, device=cuda)
+    on_cpu = port.build_oetr(cfg, device="cpu")
+    on_cpu.load_state_dict({k: v.cpu() for k, v in
+                            on_card.state_dict().items()})
+    g = torch.Generator().manual_seed(0)
+    im1, im2 = torch.rand(2, 2, 160, 160, 3, generator=g)
+    mask = torch.rand(2, 5, 5, generator=g) > 0.2
+    before = ops.linear_encoder_attention.launches
+    with torch.inference_mode():
+        a = on_card(im1.to(cuda), im2.to(cuda), mask.to(cuda), mask.to(cuda))
+        b = on_cpu(im1, im2, mask, mask)
+    assert ops.linear_encoder_attention.launches == before + 4
+    for key in b:
+        torch.testing.assert_close(a[key].cpu(), b[key], rtol=1e-4,
+                                   atol=1e-3, msg=key)
