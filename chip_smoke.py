@@ -6,10 +6,18 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``oetr_tpu_torch/csrc`` with nvcc,
-holds each kernel against its plain torch version at the flagship shapes in
-float32 and bfloat16, then drives the flagship OETR forward (ResNet50 to
-layer3, d_model 256, 640x640 pairs, seeded random weights) with both kernel
-switches on, and checks it against the same model with both switches off.
+holds each kernel against its plain torch version at the main path's shapes
+(K2 and K3 in float32 and bfloat16, K4 in float32), then drives two paths
+with seeded random weights:
+  * ``slice``: the flagship OETR forward (ResNet50 to layer3, d_model 256,
+    640x640 pairs) with both kernel switches on, against the same model
+    with both off;
+  * ``sparse``: the overlap-guided pipeline (OETR -> heatmap boxes -> crop
+    onto 832x832 -> SuperPoint, k = 2048 -> SuperGlue, 9 layers, 30
+    Sinkhorn iterations) on 8 pairs in bf16 with K2, K3 and K4 on, against
+    the same pipeline with only the Sinkhorn kernel off; its rate with every
+    switch on and off; one call whose low-match pairs take the full-image
+    retry; and 2 pairs in float32, all switches on against all off.
 One JSON line per phase, each with ``t_s``, seconds since start. The last
 line is ``{"ok": true, "device": {...}}``; it is printed only when every
 check passed. Without a CUDA card, or without the port beside it, the
@@ -26,6 +34,7 @@ import time
 
 T0 = time.perf_counter()
 BUDGET_S = 300.0
+DEV = "cuda"
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}   # dense, no TF32
 BATCH_PAIRS = 8
@@ -38,6 +47,23 @@ IMAGE_HW = 640
 # the float32 forward), so the bound is 2.5% of the side. Each bf16 path is
 # also held to the same bound against the float32 forward.
 BOX_TOL_PX = {"bfloat16": 16.0, "float32": 0.02}
+# Sparse pipeline at bench stage 4's shapes.
+CANVAS_HW = 832
+SPARSE_K = 2048
+SINKHORN_ITERS = 30
+# K4 against its plain version, unmasked entries and dustbins: 1e-4
+# absolute (__expf and the online rescaling round differently from
+# torch.logsumexp), or 16 float32 ulps of the pair's scale, its largest
+# unmasked |entry|, where that is more. The potentials u and v live at
+# that scale even where C + u + v is small (they cancel), each of the 30
+# iterations rounds them once in each version, and random-weight
+# SuperGlue scores reach several hundred, where one ulp is 1e-5..6e-5.
+# Masked entries (the -1e9 sentinel): both <= -1e8.
+K4_TOL_ABS = 1e-4
+K4_TOL_ULPS = 16
+K4_MASKED = -1e8
+MATCH_AGREE_MIN = 0.99   # matches0 agreement, K4 on vs off, valid keypoints
+SFU_PER_CLK_PER_SM = 16  # exponentials per clock per SM (Hopper SFUs)
 
 
 def elapsed() -> float:
@@ -78,12 +104,18 @@ def nbytes(*tensors) -> int:
     return total
 
 
-def bound(byte_count: int, ops: int, dtype: str) -> tuple[float, str]:
-    """Least time on the card (ms): the larger of bytes over the memory rate
-    and operations over the peak rate for the dtype."""
-    t_bytes = byte_count / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def bound(byte_count: int, ops: int, dtype: str, transcendentals: int = 0,
+          sfu_per_s: float | None = None) -> tuple[float, str]:
+    """Least time on the card (ms) and the term that sets it: the largest of
+    bytes over the memory rate, operations over the peak rate for the
+    dtype, and transcendentals (exponentials) over the special-function
+    units' rate ``sfu_per_s``."""
+    terms = {"bytes": byte_count / HBM_BYTES_PER_S * 1e3,
+             "operations": ops / PEAK_OPS_PER_S[dtype] * 1e3}
+    if transcendentals:
+        terms["transcendentals"] = transcendentals / sfu_per_s * 1e3
+    term = max(terms, key=terms.get)
+    return terms[term], term
 
 
 def tolerance(dtype: str, ref_max: float, bf16_ulps: float,
@@ -99,7 +131,7 @@ def check_linear_encoder(torch, F, ops, dtype_name, b, l, s, seed,
                          q_masked):
     """K2 against its plain version; returns the phase fields."""
     dt = getattr(torch, dtype_name)
-    dev = "cuda"
+    dev = DEV
     c, nhead = 256, 8
     d = c // nhead
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -163,7 +195,7 @@ def check_gn_pool(torch, F, ops, load_library, dtype_name, b, h, w, c,
                   seed):
     """K3 against its plain version; returns the phase fields."""
     dt = getattr(torch, dtype_name)
-    dev = "cuda"
+    dev = DEV
     g = torch.Generator(device=dev).manual_seed(seed)
     x = (torch.randn(b, h, w, c, generator=g, device=dev) * 2 + 0.5).to(dt)
     gamma = 1 + 0.1 * torch.randn(c, generator=g, device=dev)
@@ -215,6 +247,85 @@ def check_gn_pool(torch, F, ops, load_library, dtype_name, b, h, w, c,
             "bound_by": bound_by}
 
 
+def k4_compare(torch, out, ref):
+    """K4's check: (max abs error over unmasked entries, the largest ratio
+    of error to tolerance); raises on a masked/unmasked disagreement or a
+    non-finite value."""
+    if not (torch.isfinite(out).all() and torch.isfinite(ref).all()):
+        raise AssertionError("K4: non-finite values")
+    masked = ref <= K4_MASKED
+    if not torch.equal(out <= K4_MASKED, masked):
+        raise AssertionError("K4: masked entries disagree")
+    scale = torch.where(masked, 0.0, ref.abs()).amax(dim=(1, 2))
+    tol = torch.clamp(K4_TOL_ULPS * torch.finfo(torch.float32).eps * scale,
+                      min=K4_TOL_ABS)[:, None, None].expand_as(ref)[~masked]
+    err = (out[~masked] - ref[~masked]).abs()
+    return err.max().item(), (err / tol).max().item()
+
+
+def check_sinkhorn(torch, ops, load_library, b, k, iters, seed, sfu_per_s):
+    """K4 against its plain version on SuperGlue's transport problem at
+    k keypoints a side: two pairs with ~10% of keypoints masked, one with
+    k1 != k0 valid; returns the phase fields."""
+    from oetr_tpu_torch.ops.sinkhorn import augment_scores, sinkhorn_chunk
+
+    dev = DEV
+    g = torch.Generator(device=dev).manual_seed(seed)
+    scores = torch.randn(b, k, k, generator=g, device=dev) * 3
+    mask0 = torch.ones(b, k, dtype=torch.bool, device=dev)
+    mask1 = torch.ones(b, k, dtype=torch.bool, device=dev)
+    for i in (0, 1):
+        mask0[i] = torch.rand(k, generator=g, device=dev) >= 0.1
+        mask1[i] = torch.rand(k, generator=g, device=dev) >= 0.1
+    mask1[2, k * 4 // 5:] = False
+    aug, mu, nu, _ = augment_scores(scores, 1.0, mask0, mask1)
+    out = ops.log_sinkhorn_cuda(aug, mu, nu, iters)
+    ref = ops.log_sinkhorn(aug, mu, nu, iters)
+    torch.cuda.synchronize()
+    err, worst = k4_compare(torch, out, ref)
+    if not worst <= 1.0:
+        raise AssertionError(f"K4 [{b},{k + 1},{k + 1}]: max_abs_err {err}, "
+                             f"{worst:.2f} x its tolerance")
+
+    lib, _ = load_library()
+    _, m, n = aug.shape
+    u, v, buf = torch.zeros_like(mu), torch.zeros_like(nu), torch.empty_like(aug)
+
+    def chunked(chunk):  # the kernel alone with `chunk` pairs per L2 pass
+        u.zero_()
+        v.zero_()
+        rc = lib.oetr_log_sinkhorn_f32(
+            aug.data_ptr(), mu.data_ptr(), nu.data_ptr(), u.data_ptr(),
+            v.data_ptr(), buf.data_ptr(), b, m, n, iters, chunk,
+            torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"K4 launch failed: cudaError {rc}")
+
+    ms = time_ms(torch, lambda: ops.log_sinkhorn_cuda(aug, mu, nu, iters))
+    chunk_ms = {str(c): time_ms(torch, lambda c=c: chunked(c), reps=10)
+                for c in sorted({1, sinkhorn_chunk(m, n), b})}
+    plain_ms = time_ms(torch, lambda: ops.log_sinkhorn(aug, mu, nu, iters),
+                       reps=10)
+    bound_ms, bound_term = bound(nbytes(aug, mu, nu, out),
+                                 4 * b * iters * m * n, "float32",
+                                 transcendentals=2 * b * iters * m * n,
+                                 sfu_per_s=sfu_per_s)
+    return {"kernel": "log_sinkhorn_cuda", "dtype": "float32",
+            "shape": {"B": b, "M": m, "N": n, "iters": iters},
+            "masked_pairs": [0, 1], "k1_ne_k0_pair": 2,
+            "max_abs_err": err, "err_over_tol": worst,
+            "tol": {"abs": K4_TOL_ABS, "ulps": K4_TOL_ULPS},
+            "kernel_ms": ms, "chunk": sinkhorn_chunk(m, n),
+            # one wrapper call (the count) = (2 passes x iters + epilogue)
+            # CUDA launches per chunk of pairs
+            "cuda_launches_per_call": (2 * iters + 1)
+            * -(-b // sinkhorn_chunk(m, n)),
+            "kernel_ms_by_chunk": chunk_ms, "plain_ms": plain_ms,
+            "library_ms": None, "bound_ms": bound_ms,
+            "bound_by": "bytes" if bound_term == "bytes" else "operations",
+            "bound_term": bound_term}
+
+
 # ----------------------------------------------------------------- slice --
 
 def slice_configs(port, dtype_name):
@@ -263,15 +374,15 @@ def run_slice(torch, port, ops, dtype_name, b, timed):
     model with the same weights (and, in bf16, both against the float32
     forward); returns the phase fields and the main path's launches."""
     cfg_on, cfg_off = slice_configs(port, dtype_name)
-    model = port.build_oetr(cfg_on, device="cuda",
+    model = port.build_oetr(cfg_on, device=DEV,
                             generator=torch.Generator().manual_seed(0))
     state = model.state_dict()
-    plain = port.build_oetr(cfg_off, device="cuda",
+    plain = port.build_oetr(cfg_off, device=DEV,
                             generator=torch.Generator().manual_seed(1))
     plain.load_state_dict(state)
-    g = torch.Generator(device="cuda").manual_seed(2)
-    im1 = torch.rand(b, IMAGE_HW, IMAGE_HW, 3, generator=g, device="cuda")
-    im2 = torch.rand(b, IMAGE_HW, IMAGE_HW, 3, generator=g, device="cuda")
+    g = torch.Generator(device=DEV).manual_seed(2)
+    im1 = torch.rand(b, IMAGE_HW, IMAGE_HW, 3, generator=g, device=DEV)
+    im2 = torch.rand(b, IMAGE_HW, IMAGE_HW, 3, generator=g, device=DEV)
     d = cfg_on.d_model
     tol = BOX_TOL_PX[dtype_name]
 
@@ -298,7 +409,7 @@ def run_slice(torch, port, ops, dtype_name, b, timed):
                   "box_tol_px": tol}
         if dtype_name != "float32":
             truth_cfg = port.replace(cfg_off, dtype="float32")
-            truth = port.build_oetr(truth_cfg, device="cuda",
+            truth = port.build_oetr(truth_cfg, device=DEV,
                                     generator=torch.Generator().manual_seed(1))
             truth.load_state_dict(state)
             f32 = truth(im1, im2)
@@ -328,6 +439,206 @@ def run_slice(torch, port, ops, dtype_name, b, timed):
     return fields, launches
 
 
+# ---------------------------------------------------------------- sparse --
+
+KERNELS = ("linear_encoder_attention", "groupnorm_relu_maxpool",
+           "log_sinkhorn_cuda")
+
+
+def launch_counts(ops):
+    return {name: getattr(ops, name).launches for name in KERNELS}
+
+
+def reset_counts(ops):
+    for name in KERNELS:
+        getattr(ops, name).launches = 0
+
+
+class Capture:
+    """A SuperGlue as the pipeline's match_fn that keeps its last output."""
+
+    def __init__(self, matcher):
+        self.matcher, self.last = matcher, None
+
+    def __call__(self, data):
+        self.last = self.matcher(data)
+        return self.last
+
+
+def sparse_models(torch, port, dtype_name, kernels, like=None):
+    """(OETR, SuperPoint, SuperGlue) at bench stage 4's widths with every
+    kernel switch on or off; seeded weights, or ``like``'s."""
+    dt = getattr(torch, dtype_name)
+    cfg = (port.oetr_r50_kernels_config(dtype_name) if kernels
+           else port.replace(port.oetr_r50_config(), dtype=dtype_name))
+    models = (
+        port.build_oetr(cfg, device=DEV,
+                        generator=torch.Generator().manual_seed(0)),
+        port.build_superpoint(device=DEV, max_keypoints=SPARSE_K,
+                              dtype=dt,
+                              generator=torch.Generator().manual_seed(3)),
+        port.build_superglue(device=DEV, dtype=dt, cuda_sinkhorn=kernels,
+                             generator=torch.Generator().manual_seed(4)))
+    if like is not None:
+        for mine, theirs in zip(models, like):
+            mine.load_state_dict(theirs.state_dict())
+    return models
+
+
+def sparse_inputs(torch, b):
+    """bench stage 4's batch: uniform 832² pairs, their 640² OETR copies."""
+    g = torch.Generator(device=DEV).manual_seed(5)
+    rand = lambda *shape: torch.rand(*shape, generator=g, device=DEV)
+    im0, im1 = rand(b, CANVAS_HW, CANVAS_HW, 3), rand(b, CANVAS_HW,
+                                                       CANVAS_HW, 3)
+    o0, o1 = rand(b, IMAGE_HW, IMAGE_HW, 3), rand(b, IMAGE_HW, IMAGE_HW, 3)
+    hw = torch.full((b, 2), CANVAS_HW, dtype=torch.int32, device=DEV)
+    sc = torch.full((b, 2), CANVAS_HW / IMAGE_HW, device=DEV)
+    return (im0, im1, hw, hw, o0, o1, sc, sc)
+
+
+def pipeline(port, models, matcher, min_matches):
+    oetr, sp, _ = models
+    cfg = port.PipelineConfig(canvas_hw=(CANVAS_HW, CANVAS_HW),
+                              oetr_hw=(IMAGE_HW, IMAGE_HW),
+                              fallback_min_matches=min_matches,
+                              box_source="heatmap")
+    return port.SparsePipeline(sp, matcher, oetr=oetr, cfg=cfg)
+
+
+def match_agreement(a, b, valid):
+    """Share of valid keypoints whose matches0 entries agree."""
+    return ((a == b) & valid).sum().item() / max(1, valid.sum().item())
+
+
+def pairs_per_s(torch, pipe, args, reps):
+    for _ in range(2):
+        pipe(*args)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        pipe(*args)
+    torch.cuda.synchronize()
+    return reps * args[0].shape[0] / (time.perf_counter() - t)
+
+
+def run_sparse(torch, port, ops, b):
+    """The sparse pipeline in bf16 at 8 pairs: (a) K2, K3 and K4 on against
+    only K4 off, (b) rates with every switch on and off, then one call with
+    the full-image retry. Returns the phase fields of both and the main
+    path's launches."""
+    from oetr_tpu_torch.ops.sinkhorn import extract_matches
+
+    # Both runs of (a) must pick the same convolution algorithms.
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    on = sparse_models(torch, port, "bfloat16", kernels=True)
+    sg_k4_off = port.build_superglue(device=DEV, dtype=torch.bfloat16,
+                                     cuda_sinkhorn=False)
+    sg_k4_off.load_state_dict(on[2].state_dict())
+    cap_on, cap_off = Capture(on[2]), Capture(sg_k4_off)
+    pipe_on = pipeline(port, on, cap_on, 0)
+    pipe_k4_off = pipeline(port, on, cap_off, 0)
+    args = sparse_inputs(torch, b)
+
+    with torch.inference_mode():
+        # The main path, once, with the launch counts read around it.
+        reset_counts(ops)
+        out = pipe_on(*args)
+        torch.cuda.synchronize()
+        launches = launch_counts(ops)
+        want = dict(zip(KERNELS, (16, 1, 1)))
+        if launches != want:
+            raise AssertionError(f"sparse launches {launches} != {want}")
+        ref = pipe_k4_off(*args)
+        torch.cuda.synchronize()
+        for key in ("bbox0", "bbox1", "keypoints0", "keypoints1", "valid0",
+                    "valid1"):
+            if not torch.equal(out[key], ref[key]):
+                raise AssertionError(f"sparse: {key} differs with K4 off")
+        la_on = cap_on.last["log_assignment"]
+        la_off = cap_off.last["log_assignment"]
+        err, worst = k4_compare(torch, la_on, la_off)
+        v0, v1 = out["valid0"], out["valid1"]
+        at_02 = match_agreement(out["matches0"], ref["matches0"], v0)
+        m0_on = extract_matches(la_on, 0.0, v0, v1)[0]
+        m0_off = extract_matches(la_off, 0.0, v0, v1)[0]
+        at_00 = match_agreement(m0_on, m0_off, v0)
+        if not (worst <= 1.0 and at_02 >= MATCH_AGREE_MIN
+                and at_00 >= MATCH_AGREE_MIN):
+            raise AssertionError(
+                f"sparse K4 on vs off: log_assignment err {err} "
+                f"({worst:.2f} x tol), matches agree {at_02} / {at_00}")
+        n_kpts = [int(x) for x in v0.sum(-1).tolist()]
+        fields = {
+            "dtype": "bfloat16", "pairs": b, "canvas_hw": CANVAS_HW,
+            "keypoints": SPARSE_K, "launches_per_call": launches,
+            "log_assignment_err": err, "log_assignment_err_over_tol": worst,
+            "matches_agree_thr_0.2": at_02, "matches_agree_thr_0.0": at_00,
+            "matches_per_pair_thr_0.2": out["num_matches"].tolist(),
+            "matches_per_pair_thr_0.0": ((m0_on > -1) & v0).sum(-1).tolist(),
+            "valid_keypoints_per_pair": n_kpts,
+            "pairs_used_overlap": int(out["used_overlap"].sum()),
+            "bbox0_first_pair": out["bbox0"][0].tolist()}
+
+        # (b) rates: every switch on, then every switch off.
+        torch.cuda.reset_peak_memory_stats()
+        fields["pairs_per_s"] = pairs_per_s(torch, pipe_on, args, reps=5)
+        fields["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        del pipe_k4_off, sg_k4_off
+        off = sparse_models(torch, port, "bfloat16", kernels=False, like=on)
+        pipe_off = pipeline(port, off, off[2], 0)
+        fields["plain_pairs_per_s"] = pairs_per_s(torch, pipe_off, args,
+                                                  reps=5)
+        del pipe_off, off
+
+        # One call with the reference's rule: < 30 matches -> full image.
+        need = ((out["num_matches"] < 30) & out["used_overlap"]).cpu()
+        n_retry = int(need.sum())
+        reset_counts(ops)
+        retried = pipeline(port, on, on[2], 30)(*args)
+        torch.cuda.synchronize()
+        retry_launches = launch_counts(ops)
+        want_k4 = 1 + -(-n_retry // 2)      # retry_batch 2
+        used_after = retried["used_overlap"].cpu()
+        if (retry_launches["log_sinkhorn_cuda"] != want_k4
+                or not torch.equal(used_after,
+                                   out["used_overlap"].cpu() & ~need)):
+            raise AssertionError(f"retry: {n_retry} pairs, launches "
+                                 f"{retry_launches}, used {used_after}")
+        retry = {"fallback_min_matches": 30, "retry_batch": 2,
+                 "pairs_retried": n_retry, "launches": retry_launches,
+                 "matches_per_pair": retried["num_matches"].tolist()}
+    return fields, retry, launches
+
+
+def run_sparse_f32(torch, port, b):
+    """2 pairs in float32, every switch on against every switch off."""
+    on = sparse_models(torch, port, "float32", kernels=True)
+    off = sparse_models(torch, port, "float32", kernels=False, like=on)
+    args = [a[:b] for a in sparse_inputs(torch, b)]
+    with torch.inference_mode():
+        a = pipeline(port, on, on[2], 0)(*args)
+        r = pipeline(port, off, off[2], 0)(*args)
+        torch.cuda.synchronize()
+    box = max((a[k] - r[k]).abs().max().item() for k in ("bbox0", "bbox1"))
+    if not (box <= BOX_TOL_PX["float32"]
+            and torch.equal(a["used_overlap"], r["used_overlap"])):
+        raise AssertionError(f"sparse f32: boxes {box} px apart or "
+                             "used_overlap differs")
+    same_kp = ((a["keypoints0"] == r["keypoints0"]).all(-1)
+               & (a["valid0"] == r["valid0"]))
+    return {"dtype": "float32", "pairs": b, "box_max_diff_px": box,
+            "box_tol_px": BOX_TOL_PX["float32"],
+            "used_overlap": a["used_overlap"].tolist(),
+            "keypoints0_equal": int(same_kp.sum()),
+            "keypoints0_total": int(same_kp.numel()),
+            "matches0_agree": match_agreement(a["matches0"], r["matches0"],
+                                              a["valid0"] & same_kp),
+            "matches_per_pair": [a["num_matches"].tolist(),
+                                 r["num_matches"].tolist()]}
+
+
 def main() -> int:
     import torch
 
@@ -353,9 +664,15 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=30, check=True).stdout.strip().splitlines()[0]
+    sm_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=30, check=True).stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sfu_per_s = SFU_PER_CLK_PER_SM * sms * sm_mhz * 1e6
     phase("device", name=kind, nvidia_smi=smi,
           count=torch.cuda.device_count(), torch=torch.__version__,
-          cuda=torch.version.cuda)
+          cuda=torch.version.cuda, sms=sms, max_sm_mhz=sm_mhz)
 
     _, record = load_library()
     phase("build", so=record["so"], built=record["built"],
@@ -375,15 +692,26 @@ def main() -> int:
                                        seed=12)
         phase("kernel", **k3[dtype_name])
 
-    # Both kernels, both dtypes, on the full path; f32 at 2 pairs.
+    k4 = check_sinkhorn(torch, ops, load_library, b=BATCH_PAIRS, k=SPARSE_K,
+                        iters=SINKHORN_ITERS, seed=13, sfu_per_s=sfu_per_s)
+    phase("kernel", **k4)
+
+    # Path 1, the OETR slice: both kernels, both dtypes; f32 at 2 pairs.
     fields, _ = run_slice(torch, port, ops, "float32", b=2, timed=False)
     phase("slice", **fields)
-    fields, launches = run_slice(torch, port, ops, "bfloat16",
-                                 b=BATCH_PAIRS, timed=True)
+    fields, _ = run_slice(torch, port, ops, "bfloat16", b=BATCH_PAIRS,
+                          timed=True)
     phase("slice", **fields)
 
+    # Path 2, the sparse pipeline, whose launches the table reports.
+    fields, retry, launches = run_sparse(torch, port, ops, b=BATCH_PAIRS)
+    phase("sparse", **fields)
+    phase("sparse_retry", **retry)
+    phase("sparse_f32", **run_sparse_f32(torch, port, b=2))
+
     phase("kernels", ported=["linear_encoder_attention<-K2",
-                             "groupnorm_relu_maxpool<-K3"])
+                             "groupnorm_relu_maxpool<-K3",
+                             "log_sinkhorn_cuda<-K4"])
     main_dtype = "bfloat16"
     table = []
     for name, src, replaces, res in (
@@ -392,7 +720,9 @@ def main() -> int:
              "oetr_tpu/ops/pallas_attention.py:461", k2[main_dtype]),
             ("groupnorm_relu_maxpool",
              "oetr_tpu_torch/csrc/gn_relu_maxpool.cu",
-             "oetr_tpu/ops/pallas_norm.py:97", k3[main_dtype])):
+             "oetr_tpu/ops/pallas_norm.py:97", k3[main_dtype]),
+            ("log_sinkhorn_cuda", "oetr_tpu_torch/csrc/log_sinkhorn.cu",
+             "oetr_tpu/ops/pallas_sinkhorn.py:53", k4)):
         table.append({"name": name, "route": "cuda", "source": src,
                       "replaces": replaces, "launches": launches[name],
                       "max_abs_err": res["max_abs_err"],

@@ -4,8 +4,9 @@ The port names its submodules after flax's scopes, so a leaf's key is its
 flax path joined by dots, with the leaf renamed and its layout changed:
 conv ``kernel`` HWIO -> ``weight`` OIHW, Dense ``kernel`` [in, out] ->
 ``weight`` [out, in], LayerNorm/GroupNorm ``scale`` -> ``weight``,
-``bias`` and ``query_embed1/2`` as they are. The fused kernels' modules use
-the plain branches' names, so one map serves both switches.
+``bias``, ``query_embed1/2`` and SuperGlue's scalar ``bin_score`` as they
+are. The fused kernels' modules use the plain branches' names, so one map
+serves both switches. Every leaf is used once and every parameter set.
 """
 from __future__ import annotations
 
@@ -16,6 +17,10 @@ import torch
 
 from ..config import OETRConfig
 from ..models.oetr import build_oetr
+from ..models.superglue import build_superglue
+from ..models.superpoint import build_superpoint
+
+_AS_IS = {("query_embed1",), ("query_embed2",), ("bin_score",)}
 
 
 def _flatten(tree, prefix=()):
@@ -36,10 +41,36 @@ def _convert_leaf(path: tuple[str, ...], arr: np.ndarray):
             return ".".join(path[:-1] + ("weight",)), arr.T
     elif leaf == "scale":
         return ".".join(path[:-1] + ("weight",)), arr
-    elif leaf == "bias" or path in (("query_embed1",), ("query_embed2",)):
+    elif leaf == "bias" or path in _AS_IS:
         return ".".join(path), arr
     raise KeyError(f"flax leaf {'/'.join(path)} {arr.shape}: no rule maps it "
                    "to a port parameter")
+
+
+def _state_dict(tree: Mapping, model) -> dict:
+    """The strict state_dict of ``model`` (built on the meta device) from a
+    flax tree: float32 CPU tensors."""
+    expected = {name: tuple(p.shape) for name, p in model.named_parameters()}
+    state = {}
+    for path, leaf in _flatten(tree):
+        key, arr = _convert_leaf(path, np.asarray(leaf))
+        if key not in expected:
+            raise KeyError(f"flax leaf {'/'.join(path)} maps to {key}, which "
+                           "the port's model does not have")
+        if arr.shape != expected[key]:
+            raise ValueError(f"{key}: flax gives {arr.shape}, the port "
+                             f"expects {expected[key]}")
+        # (ascontiguousarray makes a 0-d leaf 1-d: reshape it back)
+        state[key] = torch.tensor(np.ascontiguousarray(arr).reshape(arr.shape),
+                                  dtype=torch.float32)
+    missing = sorted(set(expected) - set(state))
+    if missing:
+        raise KeyError(f"port parameters left unset: {missing}")
+    return state
+
+
+def _unwrap(params: Mapping) -> Mapping:
+    return params["params"] if "params" in params else params
 
 
 def convert_flax_params(params: Mapping, cfg: OETRConfig) -> dict:
@@ -50,21 +81,24 @@ def convert_flax_params(params: Mapping, cfg: OETRConfig) -> dict:
     Raises KeyError on a leaf that maps to no port parameter and on a port
     parameter that no leaf sets, ValueError on a shape mismatch.
     """
-    tree = params["params"] if "params" in params else params
-    expected = {name: tuple(p.shape) for name, p in
-                build_oetr(cfg, device="meta").named_parameters()}
-    state = {}
-    for path, leaf in _flatten(tree):
-        key, arr = _convert_leaf(path, np.asarray(leaf))
-        if key not in expected:
-            raise KeyError(f"flax leaf {'/'.join(path)} maps to {key}, which "
-                           "the port's model does not have")
-        if arr.shape != expected[key]:
-            raise ValueError(f"{key}: flax gives {arr.shape}, the port "
-                             f"expects {expected[key]}")
-        state[key] = torch.tensor(np.ascontiguousarray(arr),
-                                  dtype=torch.float32)
-    missing = sorted(set(expected) - set(state))
-    if missing:
-        raise KeyError(f"port parameters left unset: {missing}")
-    return state
+    return _state_dict(_unwrap(params), build_oetr(cfg, device="meta"))
+
+
+def convert_superpoint_params(params: Mapping, **kwargs) -> dict:
+    """A flax SuperPoint tree -> the state_dict of the port's
+    ``SuperPoint(**kwargs)``. The tree may be the whole extractor's (its
+    layers under ``net``) or the bare ``SuperPointNet``'s. Raises as
+    ``convert_flax_params`` does."""
+    tree = _unwrap(params)
+    if "net" in tree:
+        tree = tree["net"]
+    model = build_superpoint(device="meta", **kwargs)
+    return {f"net.{k}": v for k, v in _state_dict(tree, model.net).items()}
+
+
+def convert_superglue_params(params: Mapping, **kwargs) -> dict:
+    """A flax SuperGlue tree -> the state_dict of the port's
+    ``SuperGlue(**kwargs)``, ``bin_score`` included. Raises as
+    ``convert_flax_params`` does."""
+    return _state_dict(_unwrap(params),
+                       build_superglue(device="meta", **kwargs))

@@ -44,15 +44,17 @@ class Conv(nn.Module):
 
 
 class LayerNorm(nn.Module):
-    """LayerNorm over the last dim, eps 1e-5."""
+    """LayerNorm over the last dim, eps 1e-5 (OETR's; flax's default, which
+    SuperGlue keeps, is 1e-6)."""
 
     is_norm = True
 
-    def __init__(self, dim: int, dtype: torch.dtype):
+    def __init__(self, dim: int, dtype: torch.dtype, eps: float = 1e-5):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(dim))
         self.bias = nn.Parameter(torch.empty(dim))
         self.dtype = dtype
+        self.eps = eps
 
     def stacked(self) -> torch.Tensor:
         """(weight, bias) as one [2, C] f32 tensor, the fused kernel's form."""
@@ -60,7 +62,7 @@ class LayerNorm(nn.Module):
 
     def forward(self, x):
         return F.layer_norm(x.float(), self.weight.shape, self.weight,
-                            self.bias, 1e-5).to(self.dtype)
+                            self.bias, self.eps).to(self.dtype)
 
 
 class GroupNorm(nn.Module):
@@ -100,3 +102,23 @@ def init_params(model: nn.Module, generator: torch.Generator) -> None:
             else:
                 val = torch.randn(p.shape, generator=generator)
             p.copy_(val)
+
+
+def materialize(model: nn.Module, device, generator: torch.Generator | None
+                ) -> nn.Module:
+    """Give a model built on the meta device storage on ``device`` and fill
+    it with ``init_params`` (seed 0 when ``generator`` is None), in eval
+    mode, with conv weights channels_last. ``device="meta"`` returns the
+    model with shapes only."""
+    model.eval()
+    if torch.device(device).type == "meta":
+        return model
+    model.to_empty(device=device)
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    init_params(model, generator)
+    for module in model.modules():
+        if isinstance(module, Conv):
+            module.weight.data = module.weight.data.contiguous(
+                memory_format=torch.channels_last)
+    return model

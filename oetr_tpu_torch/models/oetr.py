@@ -16,7 +16,7 @@ import torch.nn.functional as F
 from ..config import OETRConfig
 from ..geometry.boxes import (box_tlbr_to_xyxy, boxes_from_prob_map,
                               mesh_grid_centers)
-from .layers import Conv, Dense, GroupNorm, LayerNorm, init_params
+from .layers import Conv, Dense, GroupNorm, LayerNorm, materialize
 from .resnet import ResNetEncoder, backbone_channels
 from .transformer import QueryTransformer
 
@@ -214,15 +214,4 @@ def build_oetr(cfg: OETRConfig | None = None, device="cuda",
     cfg = cfg or OETRConfig()
     with torch.device("meta"):
         model = OETR(cfg)
-    model.eval()
-    if torch.device(device).type == "meta":
-        return model
-    model.to_empty(device=device)
-    if generator is None:
-        generator = torch.Generator().manual_seed(0)
-    init_params(model, generator)
-    for module in model.modules():
-        if isinstance(module, Conv):
-            module.weight.data = module.weight.data.contiguous(
-                memory_format=torch.channels_last)
-    return model
+    return materialize(model, device, generator)

@@ -1,11 +1,14 @@
-"""Attention ops (plain torch) and the CUDA kernels with their wrappers."""
+"""Plain torch ops and the CUDA kernels with their wrappers."""
 from .attention import elu_feature_map, full_attention, linear_attention
 from .linear_encoder import (linear_encoder_attention,
                              linear_encoder_attention_reference)
 from .norm import (gn_scale_shift, groupnorm_relu_maxpool,
                    groupnorm_relu_maxpool_reference)
+from .sinkhorn import (log_optimal_transport, log_sinkhorn,
+                       log_sinkhorn_cuda)
 
 __all__ = ["elu_feature_map", "full_attention", "linear_attention",
            "linear_encoder_attention", "linear_encoder_attention_reference",
            "gn_scale_shift", "groupnorm_relu_maxpool",
-           "groupnorm_relu_maxpool_reference"]
+           "groupnorm_relu_maxpool_reference", "log_optimal_transport",
+           "log_sinkhorn", "log_sinkhorn_cuda"]

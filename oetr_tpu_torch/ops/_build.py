@@ -38,11 +38,13 @@ _F = ctypes.c_float
 _LINEAR_ENCODER_ARGS = [_P, _P, _P, _LL, _P, _LL, _P, _P, _P, _P, _P, _P, _P,
                         _P, _I, _I, _I, _I, _I, _F, _F, _P]
 _GN_POOL_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
+_SINKHORN_ARGS = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
 ENTRY_POINTS = {
     "oetr_linear_encoder_f32": _LINEAR_ENCODER_ARGS,
     "oetr_linear_encoder_bf16": _LINEAR_ENCODER_ARGS,
     "oetr_gn_relu_maxpool_f32": _GN_POOL_ARGS,
     "oetr_gn_relu_maxpool_bf16": _GN_POOL_ARGS,
+    "oetr_log_sinkhorn_f32": _SINKHORN_ARGS,
 }
 
 

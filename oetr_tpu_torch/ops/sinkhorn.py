@@ -1,0 +1,180 @@
+"""Log-domain Sinkhorn optimal transport with dustbins, and K4.
+
+Port of ``oetr_tpu/ops/sinkhorn.py``: SuperGlue's matching core. The score
+matrix gets a dustbin row and column, padded keypoints carry the finite
+``NEG_INF`` sentinel and no mass, and the iterations run in float32 whatever
+the model's dtype.
+
+``log_sinkhorn_cuda`` is the port of
+``oetr_tpu/ops/pallas_sinkhorn.py::log_sinkhorn_pallas`` (K4): on a CUDA
+tensor it launches the hand-written kernel in ``csrc/log_sinkhorn.cu``; a
+CPU tensor runs ``log_sinkhorn``, the plain torch version.
+"""
+from __future__ import annotations
+
+import torch
+
+from ._build import check_launch, load_library
+
+NEG_INF = -1e9
+# The kernel runs its passes over as many pairs at a time as fit this share
+# of the H100's 50 MB L2, so the matrix is read from L2 across the passes.
+L2_BUDGET_BYTES = 40 << 20
+
+
+def log_sinkhorn(log_cost: torch.Tensor, log_mu: torch.Tensor,
+                 log_nu: torch.Tensor, iters: int) -> torch.Tensor:
+    """Sinkhorn iterations in log space, plain torch.
+
+    log_cost: [B, M, N]; log_mu: [B, M]; log_nu: [B, N]. Returns the
+    [B, M, N] log transport plan C + u + v.
+    """
+    u = torch.zeros_like(log_mu)
+    v = torch.zeros_like(log_nu)
+    for _ in range(iters):
+        u = log_mu - torch.logsumexp(log_cost + v[:, None, :], dim=2)
+        v = log_nu - torch.logsumexp(log_cost + u[:, :, None], dim=1)
+    return log_cost + u[:, :, None] + v[:, None, :]
+
+
+def sinkhorn_chunk(m: int, n: int) -> int:
+    """Pairs per chunk of the kernel: as many [m, n] f32 matrices as fit
+    ``L2_BUDGET_BYTES``, at least one."""
+    return max(1, L2_BUDGET_BYTES // (m * n * 4))
+
+
+def log_sinkhorn_cuda(log_cost: torch.Tensor, log_mu: torch.Tensor,
+                      log_nu: torch.Tensor, iters: int) -> torch.Tensor:
+    """``log_sinkhorn`` as one kernel call (K4), same contract.
+
+    A CPU tensor runs the plain version. On the card every input must be
+    float32, contiguous and on the same CUDA device; anything else raises.
+    """
+    tensors = (log_cost, log_mu, log_nu)
+    if all(t.device.type == "cpu" for t in tensors):
+        return log_sinkhorn(log_cost, log_mu, log_nu, iters)
+    if any(t.device != log_cost.device or t.device.type != "cuda"
+           for t in tensors):
+        raise ValueError("log_sinkhorn_cuda: inputs on "
+                         f"{[str(t.device) for t in tensors]}; all must be on "
+                         "one CUDA device")
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise ValueError("log_sinkhorn_cuda: dtype "
+                         f"{[t.dtype for t in tensors]}; the kernel takes "
+                         "float32 only")
+    if any(not t.is_contiguous() for t in tensors):
+        raise ValueError("log_sinkhorn_cuda: inputs must be contiguous")
+    if log_cost.dim() != 3:
+        raise ValueError(f"log_sinkhorn_cuda: log_cost must be [B, M, N], "
+                         f"got {tuple(log_cost.shape)}")
+    b, m, n = log_cost.shape
+    if tuple(log_mu.shape) != (b, m) or tuple(log_nu.shape) != (b, n):
+        raise ValueError(f"log_sinkhorn_cuda: log_mu {tuple(log_mu.shape)} "
+                         f"and log_nu {tuple(log_nu.shape)} do not fit "
+                         f"log_cost {tuple(log_cost.shape)}")
+    if min(b, m, n) == 0 or iters < 0:
+        raise ValueError(f"log_sinkhorn_cuda: empty shape {(b, m, n)} or "
+                         f"iters {iters}")
+    lib, _ = load_library()
+    u = torch.zeros_like(log_mu)
+    v = torch.zeros_like(log_nu)
+    out = torch.empty_like(log_cost)
+    stream = torch.cuda.current_stream(log_cost.device).cuda_stream
+    with torch.cuda.device(log_cost.device):
+        rc = lib.oetr_log_sinkhorn_f32(
+            log_cost.data_ptr(), log_mu.data_ptr(), log_nu.data_ptr(),
+            u.data_ptr(), v.data_ptr(), out.data_ptr(), b, m, n, iters,
+            sinkhorn_chunk(m, n), stream)
+    check_launch(lib, rc, "log_sinkhorn_cuda")
+    log_sinkhorn_cuda.launches += 1
+    return out
+
+
+log_sinkhorn_cuda.launches = 0
+
+
+def augment_scores(scores: torch.Tensor, alpha, mask0=None, mask1=None):
+    """The Sinkhorn problem of SuperGlue's partial transport.
+
+    scores [B, M, N] (cast to float32); alpha the dustbin score; masks
+    [B, M] / [B, N] bool. Returns (aug [B, M+1, N+1], log_mu [B, M+1],
+    log_nu [B, N+1], norm [B]): masked entries hold ``NEG_INF``, each valid
+    keypoint has mass 1, each dustbin the other side's count, all
+    normalised by ms + ns.
+    """
+    b, m, n = scores.shape
+    scores = scores.float()
+    dev = scores.device
+    if mask0 is None:
+        mask0 = torch.ones((b, m), dtype=torch.bool, device=dev)
+    if mask1 is None:
+        mask1 = torch.ones((b, n), dtype=torch.bool, device=dev)
+    neg = torch.tensor(NEG_INF, dtype=torch.float32, device=dev)
+    pair = mask0[:, :, None] & mask1[:, None, :]
+    scores = torch.where(pair, scores, neg)
+
+    alpha = torch.as_tensor(alpha, dtype=torch.float32, device=dev)
+    bins0 = torch.where(mask0, alpha, neg)[:, :, None]          # [B, M, 1]
+    bins1 = torch.where(mask1, alpha, neg)[:, None, :]          # [B, 1, N]
+    corner = alpha.expand(b, 1, 1)
+    aug = torch.cat([torch.cat([scores, bins0], dim=2),
+                     torch.cat([bins1, corner], dim=2)], dim=1)
+
+    ms = mask0.sum(dim=1).float()
+    ns = mask1.sum(dim=1).float()
+    norm = -torch.log(torch.clamp(ms + ns, min=1.0))
+    log_mu = torch.cat([torch.where(mask0, norm[:, None], neg),
+                        (torch.log(torch.clamp(ns, min=1e-9)) + norm)[:, None]],
+                       dim=1)
+    log_nu = torch.cat([torch.where(mask1, norm[:, None], neg),
+                        (torch.log(torch.clamp(ms, min=1e-9)) + norm)[:, None]],
+                       dim=1)
+    return aug, log_mu, log_nu, norm
+
+
+def log_optimal_transport(scores: torch.Tensor, alpha, iters: int,
+                          mask0=None, mask1=None,
+                          use_cuda: bool = False) -> torch.Tensor:
+    """SuperGlue-style partial optimal transport with dustbins.
+
+    scores [B, M, N]; alpha the scalar dustbin score; masks [B, M] / [B, N]
+    bool. ``use_cuda`` runs the iterations through ``log_sinkhorn_cuda``
+    (K4). Returns the [B, M+1, N+1] float32 log assignment.
+    """
+    aug, log_mu, log_nu, norm = augment_scores(scores, alpha, mask0, mask1)
+    sinkhorn = log_sinkhorn_cuda if use_cuda else log_sinkhorn
+    return sinkhorn(aug, log_mu, log_nu, iters) - norm[:, None, None]
+
+
+def extract_matches(log_assignment: torch.Tensor, threshold: float,
+                    mask0=None, mask1=None):
+    """Mutual-argmax match extraction from the transport plan.
+
+    log_assignment [B, M+1, N+1]. Returns matches0 [B, M] and matches1
+    [B, N] (int64, -1 unmatched), mscores0 [B, M] and mscores1 [B, N].
+    torch.argmax, like jnp.argmax, returns the first maximum.
+    """
+    probs = torch.exp(log_assignment[:, :-1, :-1])
+    b, m, n = probs.shape
+    max0 = probs.amax(dim=2)
+    max1 = probs.amax(dim=1)
+    idx0 = probs.argmax(dim=2)
+    idx1 = probs.argmax(dim=1)
+    arange_m = torch.arange(m, device=probs.device)[None, :]
+    arange_n = torch.arange(n, device=probs.device)[None, :]
+    mutual0 = torch.gather(idx1, 1, idx0) == arange_m
+    mutual1 = torch.gather(idx0, 1, idx1) == arange_n
+
+    valid0 = mutual0 & (max0 > threshold)
+    if mask0 is not None:
+        valid0 = valid0 & mask0
+    valid1 = mutual1 & torch.gather(valid0, 1, idx1)
+    if mask1 is not None:
+        valid1 = valid1 & mask1
+    minus1 = torch.tensor(-1, dtype=idx0.dtype, device=probs.device)
+    zero = torch.zeros((), dtype=probs.dtype, device=probs.device)
+    matches0 = torch.where(valid0, idx0, minus1)
+    matches1 = torch.where(valid1, idx1, minus1)
+    mscores0 = torch.where(valid0, max0, zero)
+    mscores1 = torch.where(valid1, max1, zero)
+    return matches0, matches1, mscores0, mscores1

@@ -1,13 +1,19 @@
-"""Where the time of the flagship OETR forward goes on the card.
+"""Where the device time of the port's main paths goes on the card.
 
-    python -m oetr_tpu_torch.profile_forward [--plain]
+    python -m oetr_tpu_torch.profile_forward [--plain] [--pipeline oetr|sparse]
 
-Builds the flagship in bf16 with both kernel switches on (``--plain``:
-both off) and seeded random weights, runs 3 warm-up forwards on 8 pairs of
-640x640 images, then traces 3 forwards with torch.profiler and prints one
-JSON line: wall and device-busy ms per forward, the device's idle share,
-device ms per forward by category of kernel, and the kernels that take the
-most device time.
+``--pipeline oetr`` (the default): the flagship OETR forward in bf16 on 8
+pairs of 640x640 images. ``--pipeline sparse``: the overlap-guided sparse
+pipeline as ``chip_smoke.py`` drives it (OETR on 640x640 copies, heatmap
+boxes, crops onto 832x832, SuperPoint with k = 2048, SuperGlue with 9
+layers and 30 Sinkhorn iterations; bf16, 8 pairs, no retry). Every kernel
+switch is on (``--plain``: every switch off), the weights are seeded and
+random. After warm-up, 3 calls are traced with torch.profiler and one JSON
+line is printed: wall and device-busy ms per call, the device's idle share,
+device ms per call by category of kernel and, for the sparse pipeline, by
+stage (a kernel counts for the ``record_function`` range of
+``SparsePipeline``, ``SuperPoint`` or ``SuperGlue`` whose device-side span
+it starts in), and the kernels that take the most device time.
 """
 from __future__ import annotations
 
@@ -18,20 +24,30 @@ from collections import defaultdict
 
 import torch
 
-from . import build_oetr, oetr_r50_config, oetr_r50_kernels_config, replace
+from . import (PipelineConfig, SparsePipeline, build_oetr, build_superglue,
+               build_superpoint, oetr_r50_config, oetr_r50_kernels_config,
+               replace)
 
-PAIRS, HW, DTYPE = 8, 640, "bfloat16"   # the chip_smoke.py slice
+PAIRS, HW, DTYPE = 8, 640, "bfloat16"   # the chip_smoke.py paths
+CANVAS, KEYPOINTS = 832, 2048
 
 # Kernel-name substrings -> category, first match wins.
 CATEGORIES = (
     ("K2 linear_encoder", ("linear_encoder_kernel",)),
     ("K3 gn_relu_maxpool", ("gn_relu_maxpool_kernel",)),
+    ("K4 log_sinkhorn", ("sinkhorn_row_kernel", "sinkhorn_col_kernel",
+                         "sinkhorn_out_kernel")),
     ("convolution", ("conv", "fprop", "implicit", "dgrad", "nhwc", "nchw")),
     ("matmul", ("gemm", "cutlass", "cublas", "xmma")),
+    ("softmax", ("softmax",)),
     ("norm statistics", ("norm", "moments", "welford", "rowwise")),
+    ("top-k / sort", ("topk", "sort", "radix")),
     ("reduction", ("reduce",)),
     ("elementwise / copy", ("elementwise", "copy", "cat", "vectorized")),
 )
+# The sparse pipeline's record_function ranges, in path order.
+STAGES = ("oetr", "crop", "superpoint_net", "nms_topk", "superglue_gnn",
+          "sinkhorn", "match_extraction")
 
 
 def category(name: str) -> str:
@@ -42,61 +58,111 @@ def category(name: str) -> str:
     return "other"
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--plain", action="store_true",
-                    help="both kernel switches off")
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise SystemExit("profile_forward: no CUDA device")
-
-    cfg = (replace(oetr_r50_config(), dtype=DTYPE) if args.plain
+def build_flagship(plain: bool):
+    """The flagship OETR in bf16, kernel switches on (or off), seed 0."""
+    cfg = (replace(oetr_r50_config(), dtype=DTYPE) if plain
            else oetr_r50_kernels_config(DTYPE))
-    model = build_oetr(cfg, device="cuda",
-                       generator=torch.Generator().manual_seed(0))
+    return build_oetr(cfg, device="cuda",
+                      generator=torch.Generator().manual_seed(0))
+
+
+def oetr_call(plain: bool):
+    model = build_flagship(plain)
     g = torch.Generator(device="cuda").manual_seed(2)
     shape = (PAIRS, HW, HW, 3)
     im1 = torch.rand(*shape, generator=g, device="cuda")
     im2 = torch.rand(*shape, generator=g, device="cuda")
+    return lambda: model(im1, im2)
 
+
+def sparse_call(plain: bool):
+    dt = getattr(torch, DTYPE)
+    oetr = build_flagship(plain)
+    sp = build_superpoint(device="cuda", max_keypoints=KEYPOINTS, dtype=dt,
+                          generator=torch.Generator().manual_seed(3))
+    sg = build_superglue(device="cuda", dtype=dt, cuda_sinkhorn=not plain,
+                         generator=torch.Generator().manual_seed(4))
+    pipe = SparsePipeline(sp, sg, oetr=oetr, cfg=PipelineConfig(
+        canvas_hw=(CANVAS, CANVAS), oetr_hw=(HW, HW), fallback_min_matches=0,
+        box_source="heatmap"))
+    g = torch.Generator(device="cuda").manual_seed(5)
+    rand = lambda *shape: torch.rand(*shape, generator=g, device="cuda")
+    im0, im1 = rand(PAIRS, CANVAS, CANVAS, 3), rand(PAIRS, CANVAS, CANVAS, 3)
+    o0, o1 = rand(PAIRS, HW, HW, 3), rand(PAIRS, HW, HW, 3)
+    hw = torch.full((PAIRS, 2), CANVAS, dtype=torch.int32, device="cuda")
+    sc = torch.full((PAIRS, 2), CANVAS / HW, device="cuda")
+    return lambda: pipe(im0, im1, hw, hw, o0, o1, sc, sc)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--plain", action="store_true",
+                    help="every kernel switch off")
+    ap.add_argument("--pipeline", choices=("oetr", "sparse"), default="oetr")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_forward: no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    call = (sparse_call if args.pipeline == "sparse" else oetr_call)(
+        args.plain)
     n = 3
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.inference_mode():
         for _ in range(3):
-            model(im1, im2)
+            call()
         torch.cuda.synchronize()
         with torch.profiler.profile(activities=acts) as prof:
             t0 = time.perf_counter()
             for _ in range(n):
-                model(im1, im2)
+                call()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3 / n
 
-    by_cat = defaultdict(float)
-    by_kernel = defaultdict(lambda: [0.0, 0])
-    for evt in prof.key_averages():
+    # Device events: the kernels, and the device-side spans of the
+    # record_function ranges (which are not kernels: they are kept apart).
+    kernels, spans = [], []
+    for evt in prof.events():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        ms = evt.self_device_time_total / 1e3 / n
-        by_cat[category(evt.key)] += ms
-        by_kernel[evt.key][0] += ms
-        by_kernel[evt.key][1] += evt.count // n
+        if evt.name in STAGES:
+            spans.append((evt.time_range.start, evt.time_range.end, evt.name))
+        else:
+            kernels.append(evt)
+    by_cat = defaultdict(float)
+    by_kernel = defaultdict(lambda: [0.0, 0])
+    by_stage = defaultdict(float)
+    for evt in kernels:
+        ms = evt.time_range.elapsed_us() / 1e3 / n
+        by_cat[category(evt.name)] += ms
+        by_kernel[evt.name][0] += ms
+        by_kernel[evt.name][1] += 1
+        stage = next((name for start, end, name in spans
+                      if start <= evt.time_range.start < end),
+                     "outside the ranges")
+        by_stage[stage] += ms
     busy_ms = sum(by_cat.values())
-    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:12]
-    print(json.dumps({
+    result = {
         "device": torch.cuda.get_device_name(0),
-        "config": {"dtype": DTYPE, "pairs": PAIRS, "hw": HW,
-                   "kernels": not args.plain},
-        "wall_ms_per_forward": wall_ms,
-        "device_busy_ms_per_forward": busy_ms,
+        "config": {"pipeline": args.pipeline, "dtype": DTYPE, "pairs": PAIRS,
+                   "hw": HW, "kernels": not args.plain},
+        "wall_ms_per_call": wall_ms,
+        "device_busy_ms_per_call": busy_ms,
         "device_idle_share": (1 - busy_ms / wall_ms) if busy_ms else None,
         "pairs_per_s_traced": PAIRS / wall_ms * 1e3,
         "device_ms_by_category": dict(sorted(by_cat.items(),
                                              key=lambda kv: -kv[1])),
-        "top_kernels": [{"name": k[:120], "ms": v[0], "launches": v[1]}
-                        for k, v in top],
-    }), flush=True)
+    }
+    if args.pipeline == "sparse":
+        result["config"].update(canvas=CANVAS, keypoints=KEYPOINTS)
+        result["device_ms_by_stage"] = {
+            s: by_stage.get(s, 0.0) for s in STAGES + ("outside the ranges",)}
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:12]
+    result["top_kernels"] = [{"name": k[:120], "ms": v[0],
+                              "launches": v[1] // n} for k, v in top]
+    print(json.dumps(result), flush=True)
     return 0
 
 

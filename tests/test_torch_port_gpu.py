@@ -8,13 +8,17 @@ without it:
 
 The cases reach what the flagship shapes in ``chip_smoke.py`` do not:
 head widths below 32, per-batch positional encodings, no masks, single
-tokens, small and non-square images, and the inputs the kernels refuse.
+tokens, small and non-square images; for the Sinkhorn kernel (K4) M != N,
+sizes off the 32-column strip, 0 and 1 iterations, a pair with every
+keypoint masked, batches of 1 and 16 and more pairs than one L2 chunk; and
+the inputs the kernels refuse.
 """
 import pytest
 import torch
 
 import oetr_tpu_torch as port
 from oetr_tpu_torch import ops
+from oetr_tpu_torch.ops.sinkhorn import augment_scores, sinkhorn_chunk
 
 pytestmark = pytest.mark.gpu
 
@@ -147,3 +151,75 @@ def test_small_forward_on_card_matches_cpu(cuda):
     for key in b:
         torch.testing.assert_close(a[key].cpu(), b[key], rtol=1e-4,
                                    atol=1e-3, msg=key)
+
+
+def _k4_close(out, ref):
+    """K4's tolerance, as chip_smoke.py states it: unmasked entries within
+    1e-4, or 16 float32 ulps of the pair's largest unmasked |entry| where
+    that is more; masked entries both <= -1e8."""
+    assert torch.isfinite(out).all() and torch.isfinite(ref).all()
+    masked = ref <= -1e8
+    assert torch.equal(out <= -1e8, masked)
+    scale = torch.where(masked, 0.0, ref.abs()).amax(dim=(1, 2))
+    tol = torch.clamp(16 * torch.finfo(torch.float32).eps * scale,
+                      min=1e-4)[:, None, None].expand_as(ref)[~masked]
+    err = (out[~masked] - ref[~masked]).abs()
+    assert (err <= tol).all(), err.max().item()
+
+
+def _k4_inputs(dev, b, m, n, seed, empty_pair=None):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    scores = 3 * torch.randn(b, m, n, generator=g, device=dev)
+    mask0 = torch.rand(b, m, generator=g, device=dev) > 0.1
+    mask1 = torch.rand(b, n, generator=g, device=dev) > 0.1
+    if empty_pair is not None:
+        mask0[empty_pair] = False
+        mask1[empty_pair] = False
+    return augment_scores(scores, 0.7, mask0, mask1)[:3]
+
+
+@pytest.mark.parametrize("b,m,n,iters", [
+    (2, 40, 56, 30),       # M != N
+    (1, 33, 65, 20),       # B = 1; neither M+1 nor N+1 near a multiple of 32
+    (16, 47, 31, 10),      # B = 16; N+1 = 32
+    (2, 64, 64, 0),        # no iteration: C itself
+    (2, 64, 64, 1),
+    (3, 2048, 2048, 30),   # SuperGlue's size: 3 pairs, chunks of 2 and 1
+])
+def test_sinkhorn_kernel_matches_plain(cuda, b, m, n, iters):
+    cost, mu, nu = _k4_inputs(cuda, b, m, n, seed=m + n)
+    before = ops.log_sinkhorn_cuda.launches
+    out = ops.log_sinkhorn_cuda(cost, mu, nu, iters)
+    ref = ops.log_sinkhorn(cost, mu, nu, iters)
+    torch.cuda.synchronize()
+    assert ops.log_sinkhorn_cuda.launches == before + 1
+    assert out.shape == cost.shape and out.dtype == torch.float32
+    if iters == 0:
+        assert torch.equal(out, cost)
+    _k4_close(out, ref)
+    if m == 2048:
+        assert sinkhorn_chunk(m + 1, n + 1) == 2 < b
+
+
+def test_sinkhorn_kernel_every_keypoint_masked(cuda):
+    """A pair with no valid keypoint (ms = ns = 0): finite, as the plain
+    version, beside pairs that have keypoints."""
+    cost, mu, nu = _k4_inputs(cuda, 3, 50, 70, seed=1, empty_pair=1)
+    out = ops.log_sinkhorn_cuda(cost, mu, nu, 30)
+    ref = ops.log_sinkhorn(cost, mu, nu, 30)
+    torch.cuda.synchronize()
+    _k4_close(out, ref)
+    assert (out[1, :-1, :] <= -1e8).all() and (out[1, :, :-1] <= -1e8).all()
+
+
+def test_sinkhorn_kernel_refuses(cuda):
+    cost, mu, nu = _k4_inputs(cuda, 2, 16, 24, seed=0)
+    with pytest.raises(ValueError, match="float32"):
+        ops.log_sinkhorn_cuda(cost.to(torch.bfloat16), mu, nu, 5)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.log_sinkhorn_cuda(cost.transpose(1, 2).contiguous()
+                              .transpose(1, 2), mu, nu, 5)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        ops.log_sinkhorn_cuda(cost, mu.cpu(), nu, 5)
+    with pytest.raises(ValueError, match="do not fit"):
+        ops.log_sinkhorn_cuda(cost, nu, mu, 5)

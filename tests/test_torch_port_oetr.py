@@ -36,11 +36,13 @@ CASES = {
 }
 
 
-def seeded_params(shapes, seed):
+def seeded_params(shapes, seed, shrink=("tlbr_fc2",)):
     """numpy params for a flax tree of shapes: kernels ~ N(0, 1/fan_in),
-    norm scales ~ 1 + N(0, 0.1²), biases ~ N(0, 0.1²), queries ~ N(0, 1).
-    The box head's last kernel is scaled down so that its sigmoids stay off
-    their flat ends, where box differences would vanish."""
+    norm scales ~ 1 + N(0, 0.1²), biases ~ N(0, 0.1²), other leaves (OETR's
+    queries, SuperGlue's bin_score) ~ N(0, 1). The kernels of the layers
+    named in ``shrink`` are scaled by 0.1: by default the box head's last,
+    so that its sigmoids stay off their flat ends, where box differences
+    would vanish."""
     rng = np.random.default_rng(seed)
 
     def leaf(path, s):
@@ -48,7 +50,7 @@ def seeded_params(shapes, seed):
         if name == "kernel":
             fan_in = int(np.prod(s.shape[:-1]))
             w = rng.normal(size=s.shape) / np.sqrt(fan_in)
-            if path[-2].key == "tlbr_fc2":
+            if path[-2].key in shrink:
                 w *= 0.1
         elif name == "scale":
             w = 1 + 0.1 * rng.normal(size=s.shape)

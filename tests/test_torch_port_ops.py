@@ -154,7 +154,7 @@ def test_build_module_imports_without_nvcc(monkeypatch):
     build = importlib.reload(_build)
     srcs = build.sources()
     assert {s.name for s in srcs} == {"gn_relu_maxpool.cu",
-                                      "linear_encoder.cu"}
+                                      "linear_encoder.cu", "log_sinkhorn.cu"}
     compiles, link = build.build_commands("nvcc", build.BUILD_DIR,
                                           build.BUILD_DIR / "lib.so", srcs)
     assert len(compiles) == len(srcs)
