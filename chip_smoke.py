@@ -6,18 +6,29 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``oetr_tpu_torch/csrc`` with nvcc,
-holds each kernel against its plain torch version at the main path's shapes
-(K2 and K3 in float32 and bfloat16, K4 in float32), then drives two paths
-with seeded random weights:
+holds each kernel against its plain torch version at the main paths'
+shapes (K2 at the flagship's and the fc config's widths, K3, K1, K5 and K6
+in float32 and bfloat16, K4 in float32), then drives these paths with
+seeded random weights:
   * ``slice``: the flagship OETR forward (ResNet50 to layer3, d_model 256,
-    640x640 pairs) with both kernel switches on, against the same model
-    with both off;
+    640x640 pairs) with its kernel switches on (K2, K3), against the same
+    model with them off;
   * ``sparse``: the overlap-guided pipeline (OETR -> heatmap boxes -> crop
     onto 832x832 -> SuperPoint, k = 2048 -> SuperGlue, 9 layers, 30
     Sinkhorn iterations) on 8 pairs in bf16 with K2, K3 and K4 on, against
     the same pipeline with only the Sinkhorn kernel off; its rate with every
     switch on and off; one call whose low-match pairs take the full-image
-    retry; and 2 pairs in float32, all switches on against all off.
+    retry; and 2 pairs in float32, all switches on against all off;
+  * ``full``: the flagship with full softmax attention through K5
+    (``'full:cuda'``) and through K6 (``'full:flash'``), with K3, against
+    ``'full'`` (plain ops), in bf16 at 8 pairs and float32 at 2 pairs; and
+    ``'full:flash'`` at 1600x1600 (2500 tokens) on 2 pairs;
+  * ``fc``: ``oetr_fc_r50_config`` (layer4, d_model 512, 8 heads of 64)
+    with ``'linear:cuda'`` (K2 at D = 64) against ``'linear'``;
+  * ``linear_attend``: the attention block of the port's decoder layer
+    over 400 tokens with ``'linear:cuda'``, the one module path to K1
+    (OETR's encoder takes K2, its decoder has one query), against the same
+    block on the CPU.
 One JSON line per phase, each with ``t_s``, seconds since start. The last
 line is ``{"ok": true, "device": {...}}``; it is printed only when every
 check passed. Without a CUDA card, or without the port beside it, the
@@ -47,6 +58,16 @@ IMAGE_HW = 640
 # the float32 forward), so the bound is 2.5% of the side. Each bf16 path is
 # also held to the same bound against the float32 forward.
 BOX_TOL_PX = {"bfloat16": 16.0, "float32": 0.02}
+# Kernel launches per OETR forward on each encoder attention kind: 4 layers
+# x (self + cross) x 2 images.
+ENCODER_KERNEL = {"linear:cuda": "linear_encoder_attention",
+                  "full:cuda": "full_attention_cuda",
+                  "full:flash": "flash_attention_cuda"}
+LONG_HW = 1600       # 50 x 50 tokens: MegaDepth's long side, K6's regime
+# The kernels' wrappers, each with its launch count.
+KERNELS = ("linear_encoder_attention", "groupnorm_relu_maxpool",
+           "log_sinkhorn_cuda", "linear_attention_cuda",
+           "full_attention_cuda", "flash_attention_cuda")
 # Sparse pipeline at bench stage 4's shapes.
 CANVAS_HW = 832
 SPARSE_K = 2048
@@ -128,11 +149,10 @@ def tolerance(dtype: str, ref_max: float, bf16_ulps: float,
 # --------------------------------------------------------------- kernels --
 
 def check_linear_encoder(torch, F, ops, dtype_name, b, l, s, seed,
-                         q_masked):
+                         q_masked, c=256, nhead=8):
     """K2 against its plain version; returns the phase fields."""
     dt = getattr(torch, dtype_name)
     dev = DEV
-    c, nhead = 256, 8
     d = c // nhead
     g = torch.Generator(device=dev).manual_seed(seed)
 
@@ -326,16 +346,119 @@ def check_sinkhorn(torch, ops, load_library, b, k, iters, seed, sfu_per_s):
             "bound_term": bound_term}
 
 
+def attention_bound(torch, kind, q, k, v, qm, km, out, dtype_name,
+                    sfu_per_s):
+    """(bound ms, its term) for one attention call on this run's data:
+    the visible (query, key) pairs of every head for K5 and K6 (two
+    products of D multiply-adds and one exponential each), the elu
+    exponentials that the inputs need for K1."""
+    b, l, h, d = q.shape
+    s = k.shape[1]
+    if kind == "linear":
+        ops_count = 2 * b * h * (s * d * d + l * d * d + l * d)
+        exps = int((q <= 0).sum().item() + (k <= 0).sum().item())
+    else:
+        nq = qm.sum(1) if qm is not None else torch.full((b,), l,
+                                                         device=q.device)
+        nk = km.sum(1) if km is not None else torch.full((b,), s,
+                                                         device=q.device)
+        exps = int((nq * nk).sum().item()) * h
+        ops_count = 4 * exps * d
+    return bound(nbytes(q, k, v, qm, km, out), ops_count, dtype_name,
+                 transcendentals=exps, sfu_per_s=sfu_per_s)
+
+
+def check_attention(torch, F, ops, kind, dtype_name, b, l, s, masks, seed,
+                    sfu_per_s, h=8, d=32):
+    """K1 ('linear'), K5 ('full') or K6 ('flash') against its plain version
+    on [B, L|S, H, D] inputs; masks 'none', 'both' or 'q_only' (10% of
+    tokens masked). Returns the phase fields."""
+    wrapper, plain = {
+        "linear": (ops.linear_attention_cuda, ops.linear_attention_reference),
+        "full": (ops.full_attention_cuda, ops.full_attention_reference),
+        "flash": (ops.flash_attention_cuda, ops.flash_attention_reference),
+    }[kind]
+    dt = getattr(torch, dtype_name)
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    q, k, v = (torch.randn(b, n, h, d, generator=g, device=DEV).to(dt)
+               for n in (l, s, s))
+    qm = (torch.rand(b, l, generator=g, device=DEV) >= 0.1
+          if masks in ("both", "q_only") else None)
+    km = (torch.rand(b, s, generator=g, device=DEV) >= 0.1
+          if masks == "both" else None)
+    out = wrapper(q, k, v, qm, km)
+    ref = plain(q, k, v, qm, km)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    ref_max = ref.float().abs().max().item()
+    tol = tolerance(dtype_name, ref_max, bf16_ulps=2, f32_rel=1e-4)
+    if not math.isfinite(err) or err > tol:
+        raise AssertionError(f"{kind} attention {dtype_name} "
+                             f"[{b},{l},{s},{h},{d}] masks {masks}: "
+                             f"max_abs_err {err} > tol {tol}")
+
+    if kind == "linear":
+        def library():  # the einsum chain, a yardstick only
+            qf = F.elu(q) + 1
+            kf = F.elu(k) + 1
+            kv = torch.einsum("bshd,bshe->bhde", kf, v / s)
+            den = torch.einsum("blhd,bhd->blh", qf, kf.sum(1)).clamp_min(1e-6)
+            out = torch.einsum("blhd,bhde->blhe", qf, kv)
+            return out * (s / den)[..., None]
+    else:
+        pair = None
+        if qm is not None or km is not None:
+            qm_ = qm if qm is not None else torch.ones(b, l, dtype=torch.bool,
+                                                       device=DEV)
+            km_ = km if km is not None else torch.ones(b, s, dtype=torch.bool,
+                                                       device=DEV)
+            pair = (qm_[:, None, :, None] & km_[:, None, None, :])
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+        def library():  # scaled_dot_product_attention, a yardstick only
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=pair)
+
+    reps = 20 if b * l * s <= 8 * 400 * 400 else 5
+    ms = time_ms(torch, lambda: wrapper(q, k, v, qm, km), reps=reps)
+    plain_ms = time_ms(torch, lambda: plain(q, k, v, qm, km), reps=reps)
+    library_ms = time_ms(torch, library, reps=reps)
+    bound_ms, term = attention_bound(torch, kind, q, k, v, qm, km, out,
+                                     dtype_name, sfu_per_s)
+    name = wrapper.__name__
+    return {"kernel": name, "dtype": dtype_name,
+            "shape": {"B": b, "L": l, "S": s, "H": h, "D": d},
+            "masks": masks, "max_abs_err": err, "tol": tol, "kernel_ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms,
+            "bound_by": "bytes" if term == "bytes" else "operations",
+            "bound_term": term}
+
+
 # ----------------------------------------------------------------- slice --
 
-def slice_configs(port, dtype_name):
-    """(both kernel switches on, both off) for the flagship."""
-    return (port.oetr_r50_kernels_config(dtype_name),
-            port.replace(port.oetr_r50_config(), dtype=dtype_name))
+def slice_configs(port, dtype_name, attention="linear:cuda"):
+    """(kernel switches on, off) for the flagship: the fused stem and the
+    encoder's attention kernel ``attention``, or neither with the plain
+    op of the same kind."""
+    base = port.oetr_r50_config()
+    plain = attention.split(":")[0]
+    return (port.oetr_r50_kernels_config(dtype_name, attention),
+            port.replace(base, dtype=dtype_name,
+                         neck=port.replace(base.neck, attention=plain)))
 
 
-def check_outputs(torch, out, b, hw, d, tag):
-    n_tok = (hw // 32) ** 2
+def fc_configs(port, dtype_name):
+    """(K2 on, off) for ``oetr_fc_r50_config``."""
+    base = port.replace(port.oetr_fc_r50_config(), dtype=dtype_name)
+    return (port.replace(base, neck=port.replace(base.neck,
+                                                 attention="linear:cuda")),
+            base)
+
+
+def check_outputs(torch, cfg, out, b, hw, tag):
+    stride = 32 if cfg.backbone.stop_layer == "layer3" else 64
+    n_tok = (hw // stride) ** 2
+    d = cfg.d_model
     shapes = {"pred_bbox1": (b, 4), "pred_bbox2": (b, 4), "center1": (b, 2),
               "center2": (b, 2), "tlbr1": (b, 4), "tlbr2": (b, 4),
               "prob_map1": (b, n_tok), "prob_map2": (b, n_tok),
@@ -369,11 +492,14 @@ def box_diff_px(port, out_a, out_b, hw):
     return max(diffs)
 
 
-def run_slice(torch, port, ops, dtype_name, b, timed):
-    """The flagship forward with the kernels, against the switches-off
-    model with the same weights (and, in bf16, both against the float32
-    forward); returns the phase fields and the main path's launches."""
-    cfg_on, cfg_off = slice_configs(port, dtype_name)
+def run_forward(torch, port, ops, cfg_on, cfg_off, want, b, hw, timed,
+                tag):
+    """One OETR forward with the kernels (``cfg_on``), against the model
+    with the switches off (``cfg_off``) and the same weights (and, in bf16,
+    both against the float32 forward). ``want`` maps each kernel to its
+    launches in that forward. Box bounds are BOX_TOL_PX's share of the
+    side. Returns the phase fields and the forward's launches."""
+    dtype_name = cfg_on.dtype
     model = port.build_oetr(cfg_on, device=DEV,
                             generator=torch.Generator().manual_seed(0))
     state = model.state_dict()
@@ -381,31 +507,30 @@ def run_slice(torch, port, ops, dtype_name, b, timed):
                             generator=torch.Generator().manual_seed(1))
     plain.load_state_dict(state)
     g = torch.Generator(device=DEV).manual_seed(2)
-    im1 = torch.rand(b, IMAGE_HW, IMAGE_HW, 3, generator=g, device=DEV)
-    im2 = torch.rand(b, IMAGE_HW, IMAGE_HW, 3, generator=g, device=DEV)
-    d = cfg_on.d_model
-    tol = BOX_TOL_PX[dtype_name]
+    im1 = torch.rand(b, hw, hw, 3, generator=g, device=DEV)
+    im2 = torch.rand(b, hw, hw, 3, generator=g, device=DEV)
+    tol = BOX_TOL_PX[dtype_name] * hw / IMAGE_HW
 
     with torch.inference_mode():
-        # The main path, once, with the launch counts read around it.
-        ops.linear_encoder_attention.launches = 0
-        ops.groupnorm_relu_maxpool.launches = 0
+        # The path, once, with the launch counts read around it.
+        reset_counts(ops)
+        torch.cuda.reset_peak_memory_stats()
         out = model(im1, im2)
         torch.cuda.synchronize()
-        launches = {"linear_encoder_attention":
-                    ops.linear_encoder_attention.launches,
-                    "groupnorm_relu_maxpool":
-                    ops.groupnorm_relu_maxpool.launches}
-        want = {"linear_encoder_attention": 4 * cfg_on.neck.num_layers,
-                "groupnorm_relu_maxpool": 1}
+        launches = launch_counts(ops)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        want = {name: want.get(name, 0) for name in KERNELS}
         if launches != want:
-            raise AssertionError(f"kernel launches {launches} != {want}")
+            raise AssertionError(f"{tag} kernel launches {launches} != {want}")
         ref = plain(im1, im2)
-        check_outputs(torch, out, b, IMAGE_HW, d, "kernels")
-        check_outputs(torch, ref, b, IMAGE_HW, d, "plain")
-        fields = {"dtype": dtype_name, "pairs": b, "image_hw": IMAGE_HW,
-                  "launches": launches,
-                  "box_max_diff_px": box_diff_px(port, out, ref, IMAGE_HW),
+        check_outputs(torch, cfg_on, out, b, hw, f"{tag} kernels")
+        check_outputs(torch, cfg_off, ref, b, hw, f"{tag} plain")
+        fields = {"dtype": dtype_name, "pairs": b, "image_hw": hw,
+                  "attention": cfg_on.neck.attention,
+                  "plain_attention": cfg_off.neck.attention,
+                  "launches": {k: n for k, n in launches.items() if n},
+                  "peak_mem_gb_one_forward": peak_gb,
+                  "box_max_diff_px": box_diff_px(port, out, ref, hw),
                   "box_tol_px": tol}
         if dtype_name != "float32":
             truth_cfg = port.replace(cfg_off, dtype="float32")
@@ -414,11 +539,11 @@ def run_slice(torch, port, ops, dtype_name, b, timed):
             truth.load_state_dict(state)
             f32 = truth(im1, im2)
             del truth
-            fields["kernels_vs_f32_px"] = box_diff_px(port, out, f32, IMAGE_HW)
-            fields["plain_vs_f32_px"] = box_diff_px(port, ref, f32, IMAGE_HW)
+            fields["kernels_vs_f32_px"] = box_diff_px(port, out, f32, hw)
+            fields["plain_vs_f32_px"] = box_diff_px(port, ref, f32, hw)
         for key in ("box_max_diff_px", "kernels_vs_f32_px", "plain_vs_f32_px"):
             if fields.get(key, 0.0) > tol:
-                raise AssertionError(f"slice {dtype_name}: {key} "
+                raise AssertionError(f"{tag} {dtype_name}: {key} "
                                      f"{fields[key]} > {tol} px")
         if timed:
             torch.cuda.reset_peak_memory_stats()
@@ -431,6 +556,9 @@ def run_slice(torch, port, ops, dtype_name, b, timed):
             torch.cuda.synchronize()
             fields["pairs_per_s"] = 10 * b / (time.perf_counter() - t)
             fields["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            for _ in range(2):
+                plain(im1, im2)
+            torch.cuda.synchronize()
             t = time.perf_counter()
             for _ in range(10):
                 plain(im1, im2)
@@ -439,10 +567,64 @@ def run_slice(torch, port, ops, dtype_name, b, timed):
     return fields, launches
 
 
+def run_slice(torch, port, ops, dtype_name, b, timed,
+              attention="linear:cuda", hw=None):
+    """The flagship with the encoder kernel of ``attention`` and the fused
+    stem, against the switches-off model (see run_forward), at hw x hw
+    (IMAGE_HW by default)."""
+    hw = hw or IMAGE_HW
+    cfg_on, cfg_off = slice_configs(port, dtype_name, attention)
+    want = {ENCODER_KERNEL[attention]: 4 * cfg_on.neck.num_layers,
+            "groupnorm_relu_maxpool": 1}
+    tag = "slice" if attention == "linear:cuda" else f"full {attention}"
+    return run_forward(torch, port, ops, cfg_on, cfg_off, want, b, hw, timed,
+                       tag)
+
+
+def run_linear_attend(torch, port, ops, b):
+    """K1's module path: the decoder layer's attention block (the port's
+    MultiHeadAttention, d_model 256, 8 heads) with ``'linear:cuda'`` over
+    b x 400 tokens in bf16, against the same block on the CPU, where K1's
+    plain version runs. Returns the phase fields and the launches."""
+    from oetr_tpu_torch.models.layers import materialize
+    from oetr_tpu_torch.models.transformer import MultiHeadAttention
+
+    def block(device):
+        with torch.device("meta"):
+            mha = MultiHeadAttention(256, 8, "linear:cuda", torch.bfloat16)
+        return materialize(mha, device, torch.Generator().manual_seed(6))
+
+    on_card, on_cpu = block(DEV), block("cpu")
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn(b, 400, 256, generator=g)
+    mask = torch.rand(b, 400, generator=g) >= 0.1
+    xd, md = x.to(DEV), mask.to(DEV)
+    with torch.inference_mode():
+        reset_counts(ops)
+        out = on_card(xd, xd, xd, md, md)
+        torch.cuda.synchronize()
+        launches = launch_counts(ops)
+        want = {name: int(name == "linear_attention_cuda") for name in KERNELS}
+        if launches != want:
+            raise AssertionError(f"linear_attend launches {launches} != "
+                                 f"{want}")
+        ref = on_cpu(x, x, x, mask, mask)
+        ms = time_ms(torch, lambda: on_card(xd, xd, xd, md, md))
+    err = (out.float().cpu() - ref.float()).abs().max().item()
+    # bf16 on both sides: K1 and its plain version round at the same
+    # points; the projections (cuBLAS vs the CPU's GEMM) may round a value
+    # a step apart, so 4 steps of the output's scale.
+    tol = 4 * 2.0 ** -7 * max(1.0, ref.float().abs().max().item())
+    if not (math.isfinite(err) and err <= tol):
+        raise AssertionError(f"linear_attend: card vs CPU {err} > {tol}")
+    return {"dtype": "bfloat16", "tokens": [b, 400], "d_model": 256,
+            "heads": 8, "attention": "linear:cuda",
+            "launches": {k: n for k, n in launches.items() if n},
+            "card_vs_cpu_max_abs": err, "tol": tol, "block_ms": ms}, launches
+
+
 # ---------------------------------------------------------------- sparse --
 
-KERNELS = ("linear_encoder_attention", "groupnorm_relu_maxpool",
-           "log_sinkhorn_cuda")
 
 
 def launch_counts(ops):
@@ -547,7 +729,7 @@ def run_sparse(torch, port, ops, b):
         out = pipe_on(*args)
         torch.cuda.synchronize()
         launches = launch_counts(ops)
-        want = dict(zip(KERNELS, (16, 1, 1)))
+        want = dict(zip(KERNELS, (16, 1, 1, 0, 0, 0)))
         if launches != want:
             raise AssertionError(f"sparse launches {launches} != {want}")
         ref = pipe_k4_off(*args)
@@ -687,6 +869,10 @@ def main() -> int:
         phase("kernel", **check_linear_encoder(torch, F, ops, dtype_name,
                                                b=8, l=400, s=300, seed=11,
                                                q_masked=True))
+        # K2 at the fc config's width: C = 512, 8 heads of 64.
+        phase("kernel", **check_linear_encoder(torch, F, ops, dtype_name,
+                                               b=8, l=100, s=100, seed=14,
+                                               q_masked=True, c=512, nhead=8))
         k3[dtype_name] = check_gn_pool(torch, F, ops, load_library,
                                        dtype_name, b=16, h=320, w=320, c=64,
                                        seed=12)
@@ -696,6 +882,21 @@ def main() -> int:
                         iters=SINKHORN_ITERS, seed=13, sfu_per_s=sfu_per_s)
     phase("kernel", **k4)
 
+    # K1, K5, K6 at OETR's [8, 400, 8, 32] (and K6 at the long regime's
+    # [2, 4096, 8, 32]); the unmasked bf16 results go into the table.
+    attn = {}
+    for dtype_name in ("float32", "bfloat16"):
+        for op, b, n, masks_set in (
+                ("linear", 8, 400, ("none", "both")),
+                ("full", 8, 400, ("none", "both", "q_only")),
+                ("flash", 8, 400, ("none", "both")),
+                ("flash", 2, 4096, ("both",))):
+            for i, masks in enumerate(masks_set):
+                res = check_attention(torch, F, ops, op, dtype_name, b, n, n,
+                                      masks, seed=20 + i, sfu_per_s=sfu_per_s)
+                attn[op, dtype_name, n, masks] = res
+                phase("kernel", **res)
+
     # Path 1, the OETR slice: both kernels, both dtypes; f32 at 2 pairs.
     fields, _ = run_slice(torch, port, ops, "float32", b=2, timed=False)
     phase("slice", **fields)
@@ -703,26 +904,66 @@ def main() -> int:
                           timed=True)
     phase("slice", **fields)
 
-    # Path 2, the sparse pipeline, whose launches the table reports.
+    # Path 2, the sparse pipeline, whose launches the table reports for
+    # K2, K3 and K4.
     fields, retry, launches = run_sparse(torch, port, ops, b=BATCH_PAIRS)
     phase("sparse", **fields)
     phase("sparse_retry", **retry)
     phase("sparse_f32", **run_sparse_f32(torch, port, b=2))
 
-    phase("kernels", ported=["linear_encoder_attention<-K2",
+    # Path 3, OETR with full attention: K5, then K6 (with K3), in bf16 at
+    # 8 pairs and f32 at 2; K6 once more at 1600x1600 (2500 tokens).
+    for attention in ("full:cuda", "full:flash"):
+        fields, full_launches = run_slice(torch, port, ops, "bfloat16",
+                                          b=BATCH_PAIRS, timed=True,
+                                          attention=attention)
+        phase("full", **fields)
+        name = ENCODER_KERNEL[attention]
+        launches[name] = full_launches[name]
+        fields, _ = run_slice(torch, port, ops, "float32", b=2, timed=False,
+                              attention=attention)
+        phase("full", **fields)
+    fields, _ = run_slice(torch, port, ops, "bfloat16", b=2, timed=False,
+                          attention="full:flash", hw=LONG_HW)
+    phase("full_long", **fields)
+
+    # Path 4, the fc config: K2 at D = 64.
+    cfg_on, cfg_off = fc_configs(port, "bfloat16")
+    fields, _ = run_forward(torch, port, ops, cfg_on, cfg_off,
+                            {"linear_encoder_attention": 16}, BATCH_PAIRS,
+                            IMAGE_HW, False, "fc")
+    phase("fc", **fields)
+
+    # Path 5, K1's module path.
+    fields, k1_launches = run_linear_attend(torch, port, ops, BATCH_PAIRS)
+    phase("linear_attend", **fields)
+    launches["linear_attention_cuda"] = k1_launches["linear_attention_cuda"]
+
+    phase("kernels", ported=["linear_attention_cuda<-K1",
+                             "linear_encoder_attention<-K2",
                              "groupnorm_relu_maxpool<-K3",
-                             "log_sinkhorn_cuda<-K4"])
+                             "log_sinkhorn_cuda<-K4",
+                             "full_attention_cuda<-K5",
+                             "flash_attention_cuda<-K6"])
     main_dtype = "bfloat16"
+    pallas = "oetr_tpu/ops/pallas_attention.py"
     table = []
     for name, src, replaces, res in (
+            ("linear_attention_cuda",
+             "oetr_tpu_torch/csrc/linear_attention.cu",
+             f"{pallas}:172", attn["linear", main_dtype, 400, "none"]),
             ("linear_encoder_attention",
              "oetr_tpu_torch/csrc/linear_encoder.cu",
-             "oetr_tpu/ops/pallas_attention.py:461", k2[main_dtype]),
+             f"{pallas}:461", k2[main_dtype]),
             ("groupnorm_relu_maxpool",
              "oetr_tpu_torch/csrc/gn_relu_maxpool.cu",
              "oetr_tpu/ops/pallas_norm.py:97", k3[main_dtype]),
             ("log_sinkhorn_cuda", "oetr_tpu_torch/csrc/log_sinkhorn.cu",
-             "oetr_tpu/ops/pallas_sinkhorn.py:53", k4)):
+             "oetr_tpu/ops/pallas_sinkhorn.py:53", k4),
+            ("full_attention_cuda", "oetr_tpu_torch/csrc/full_attention.cu",
+             f"{pallas}:201", attn["full", main_dtype, 400, "none"]),
+            ("flash_attention_cuda", "oetr_tpu_torch/csrc/flash_attention.cu",
+             f"{pallas}:289", attn["flash", main_dtype, 400, "none"])):
         table.append({"name": name, "route": "cuda", "source": src,
                       "replaces": replaces, "launches": launches[name],
                       "max_abs_err": res["max_abs_err"],

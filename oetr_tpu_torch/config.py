@@ -1,9 +1,12 @@
 """Configuration dataclasses of the port.
 
 Own copies of the fields of ``oetr_tpu/config.py`` that the ported OETR
-forward reads: the port imports nothing of the JAX package. Field names
-and defaults are the same, so a config written for one package reads the
-same in the other.
+forward reads: the port imports nothing of the JAX package. The fields the
+port has carry the JAX names and defaults. It lacks these JAX fields, and a
+config that sets one raises a ``TypeError`` here: ``BackboneConfig.norm``
+and ``BackboneConfig.stem_s2d``, ``OETRConfig.loss`` (``LossConfig``), and
+``TrainConfig``. The attention kinds differ in their kernel suffixes (see
+``NeckConfig``).
 """
 from __future__ import annotations
 
@@ -24,8 +27,12 @@ class BackboneConfig:
 class NeckConfig:
     d_model: int = 256
     attention: str = "linear"
-    # 'linear' | 'full' (plain torch ops) | 'linear:cuda': the encoder
-    # sublayer runs as one CUDA kernel (the port of 'linear:pallas').
+    # 'linear' | 'full': plain torch ops.
+    # 'linear:cuda' (JAX 'linear:pallas'): the encoder sublayer runs as one
+    #   CUDA kernel (K2), and other linear attention of 8 or more tokens as
+    #   the bare kernel (K1).
+    # 'full:cuda' (JAX 'full:pallas'): whole-row softmax kernel (K5).
+    # 'full:flash' (the same in JAX): streaming softmax kernel (K6).
     max_shape: tuple[int, int] = (100, 100)  # positional-encoding grid cap
     patch_sizes: tuple[int, ...] = (4, 8, 16)
     nhead: int = 8
@@ -55,10 +62,20 @@ def oetr_r50_config() -> OETRConfig:
     return OETRConfig()
 
 
-def oetr_r50_kernels_config(dtype: str = "bfloat16") -> OETRConfig:
-    """The flagship with both CUDA kernels switched on: the fused encoder
-    sublayer (``attention='linear:cuda'``) and the fused stem."""
+def oetr_fc_r50_config() -> OETRConfig:
+    """ResNet50 cut at layer4, 2048 channels, d_model 512 (8 heads of 64)."""
+    return OETRConfig(
+        backbone=BackboneConfig(stop_layer="layer4", last_layer=2048),
+        neck=NeckConfig(d_model=512),
+    )
+
+
+def oetr_r50_kernels_config(dtype: str = "bfloat16",
+                            attention: str = "linear:cuda") -> OETRConfig:
+    """The flagship with its CUDA kernels switched on: the fused stem and
+    the encoder's attention kernels, ``attention`` = 'linear:cuda' (K2),
+    'full:cuda' (K5) or 'full:flash' (K6)."""
     base = oetr_r50_config()
     return OETRConfig(
         backbone=replace(base.backbone, fused_stem=True),
-        neck=replace(base.neck, attention="linear:cuda"), dtype=dtype)
+        neck=replace(base.neck, attention=attention), dtype=dtype)

@@ -11,6 +11,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.attention import full_attention, linear_attention
+from ..ops.attention_kernels import (flash_attention_cuda, full_attention_cuda,
+                                     linear_attention_cuda)
 from ..ops.linear_encoder import linear_encoder_attention
 from .layers import Dense, LayerNorm
 
@@ -18,21 +20,31 @@ from .layers import Dense, LayerNorm
 # in the JAX package (the decoder's single learned query).
 MIN_KERNEL_TOKENS = 8
 
+# Kernel kinds -> (wrapper, the plain op below MIN_KERNEL_TOKENS).
+KERNEL_KINDS = {
+    "linear:cuda": (linear_attention_cuda, linear_attention),   # K1
+    "full:cuda": (full_attention_cuda, full_attention),         # K5
+    "full:flash": (flash_attention_cuda, full_attention),       # K6
+}
+
 
 def _attend(kind: str, q, k, v, q_mask, kv_mask):
     """Dispatch the attention primitive on [B, N, H, D] tensors. ``kind``:
       'linear' | 'full' — plain torch ops (ops/attention.py);
-      'linear:cuda'     — the bare linear-attention kernel (K1), not yet
-                          ported: a CUDA call with >= 8 queries and keys
-                          raises; CPU tensors and shorter blocks take the
-                          plain op, as JAX does below 8 tokens.
+      'linear:cuda'     — the bare linear-attention kernel (K1);
+      'full:cuda'       — the whole-row softmax kernel (K5; JAX's
+                          'full:pallas');
+      'full:flash'      — the streaming softmax kernel (K6).
+    A kernel kind takes the plain op when q or k has fewer than 8 tokens,
+    as JAX does; on CPU tensors each wrapper runs its kernel's plain
+    version (ops/attention_kernels.py).
     """
-    if kind == "linear:cuda":
-        if (q.is_cuda and q.shape[1] >= MIN_KERNEL_TOKENS
+    if kind in KERNEL_KINDS:
+        kernel, plain = KERNEL_KINDS[kind]
+        if (q.shape[1] >= MIN_KERNEL_TOKENS
                 and k.shape[1] >= MIN_KERNEL_TOKENS):
-            raise NotImplementedError(
-                "the linear-attention kernel (K1) is not ported yet")
-        kind = "linear"
+            return kernel(q, k, v, q_mask, kv_mask)
+        return plain(q, k, v, q_mask, kv_mask)
     if kind == "linear":
         return linear_attention(q, k, v, q_mask, kv_mask)
     if kind == "full":
@@ -45,7 +57,8 @@ class EncoderLayer(nn.Module):
     after the pre-norms. With ``attention='linear:cuda'``, positional
     encodings and at least 8 query tokens, the norms, encodings,
     projections and attention run as one kernel (K2) on the same
-    parameters."""
+    parameters; every other case projects in torch and attends through
+    ``_attend`` (K1, K5 or K6 for the kernel kinds)."""
 
     def __init__(self, d_model: int, nhead: int, attention: str, dtype):
         super().__init__()

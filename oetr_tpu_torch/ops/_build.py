@@ -1,7 +1,8 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
 Every ``csrc/*.cu`` source is compiled by its own ``nvcc -c`` (all started
-together), then linked into one shared library with a plain C interface.
+together; the ``csrc/*.cuh`` headers they share are part of the key below),
+then linked into one shared library with a plain C interface.
 No source includes PyTorch's headers, so a build takes seconds. The
 library is keyed by a hash of the sources and flags and lands in
 ``oetr_tpu_torch/_build/`` (git-ignored); a later call in the same
@@ -39,17 +40,29 @@ _LINEAR_ENCODER_ARGS = [_P, _P, _P, _LL, _P, _LL, _P, _P, _P, _P, _P, _P, _P,
                         _P, _I, _I, _I, _I, _I, _F, _F, _P]
 _GN_POOL_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
 _SINKHORN_ARGS = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+# q, k, v, q_mask, kv_mask, out, B, L, S, H, D, then each kernel's own.
+_ATTENTION_ARGS = [_P] * 6 + [_I] * 5
 ENTRY_POINTS = {
     "oetr_linear_encoder_f32": _LINEAR_ENCODER_ARGS,
     "oetr_linear_encoder_bf16": _LINEAR_ENCODER_ARGS,
     "oetr_gn_relu_maxpool_f32": _GN_POOL_ARGS,
     "oetr_gn_relu_maxpool_bf16": _GN_POOL_ARGS,
     "oetr_log_sinkhorn_f32": _SINKHORN_ARGS,
+    "oetr_linear_attention_f32": _ATTENTION_ARGS + [_F, _F, _P],
+    "oetr_linear_attention_bf16": _ATTENTION_ARGS + [_F, _F, _P],
+    "oetr_full_attention_f32": _ATTENTION_ARGS + [_F, _P],
+    "oetr_full_attention_bf16": _ATTENTION_ARGS + [_F, _P],
+    "oetr_flash_attention_f32": _ATTENTION_ARGS + [_F, _P],
+    "oetr_flash_attention_bf16": _ATTENTION_ARGS + [_F, _P],
 }
 
 
 def sources() -> list[Path]:
     return sorted(SRC_DIR.glob("*.cu"))
+
+
+def headers() -> list[Path]:
+    return sorted(SRC_DIR.glob("*.cuh"))
 
 
 def nvcc_path() -> str:
@@ -67,7 +80,7 @@ def build_key(srcs: list[Path]) -> str:
     h = hashlib.sha256()
     for flags in (COMPILE_FLAGS, LINK_FLAGS):
         h.update(" ".join(flags).encode())
-    for src in srcs:
+    for src in srcs + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

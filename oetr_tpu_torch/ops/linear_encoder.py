@@ -18,6 +18,8 @@ import torch
 
 from ._build import check_launch, load_library
 
+MAX_HEAD_WIDTH = 64   # the widest head the kernel takes (linear_attention.cuh)
+
 
 def _rounded_inv(n: int, dtype: torch.dtype) -> float:
     """1/n as the I/O type holds it: the Pallas kernel multiplies V by the
@@ -113,7 +115,8 @@ def linear_encoder_attention(x, source, x_pos, s_pos, lnq, lnkv, wq, wk, wv,
     dtype; lnq/lnkv [2, C] f32; wq/wk/wv [C, C] f32 in [out, in] layout;
     q_mask [B, L] / kv_mask [B, S] bool or None. Returns [B, L, C] in x's
     dtype. A CPU tensor runs the plain version; a CUDA tensor launches the
-    kernel (float32 or bfloat16, C/nhead <= 32) or raises.
+    kernel (float32 or bfloat16, C a multiple of 32, C/nhead <= 64) or
+    raises.
     """
     if x.device.type == "cpu":
         return linear_encoder_attention_reference(
@@ -127,9 +130,10 @@ def linear_encoder_attention(x, source, x_pos, s_pos, lnq, lnkv, wq, wk, wv,
         raise ValueError("x and source must be [B, N, C]")
     b, l, c = x.shape
     s = source.shape[1]
-    if c % nhead != 0 or c // nhead > 32 or c % 32 != 0:
+    if c % nhead != 0 or c // nhead > MAX_HEAD_WIDTH or c % 32 != 0:
         raise ValueError(f"linear_encoder_attention: C={c}, nhead={nhead} "
-                         "needs C % 32 == 0 and C / nhead <= 32")
+                         "needs C % 32 == 0 and C / nhead <= "
+                         f"{MAX_HEAD_WIDTH}")
     dev = x.device
     _check("x", x, (b, l, c), x.dtype, dev)
     _check("source", source, (b, s, c), x.dtype, dev)

@@ -1,9 +1,12 @@
 """Where the device time of the port's main paths goes on the card.
 
     python -m oetr_tpu_torch.profile_forward [--plain] [--pipeline oetr|sparse]
+        [--attention linear:cuda|full:cuda|full:flash]
 
 ``--pipeline oetr`` (the default): the flagship OETR forward in bf16 on 8
-pairs of 640x640 images. ``--pipeline sparse``: the overlap-guided sparse
+pairs of 640x640 images, its encoder attention as ``--attention`` says
+(K2 by default, K5 or K6 for full attention; ``--plain`` takes the plain
+op of the same kind). ``--pipeline sparse``: the overlap-guided sparse
 pipeline as ``chip_smoke.py`` drives it (OETR on 640x640 copies, heatmap
 boxes, crops onto 832x832, SuperPoint with k = 2048, SuperGlue with 9
 layers and 30 Sinkhorn iterations; bf16, 8 pairs, no retry). Every kernel
@@ -37,6 +40,11 @@ CATEGORIES = (
     ("K3 gn_relu_maxpool", ("gn_relu_maxpool_kernel",)),
     ("K4 log_sinkhorn", ("sinkhorn_row_kernel", "sinkhorn_col_kernel",
                          "sinkhorn_out_kernel")),
+    ("K1 linear_attention", ("linear_attention_kernel",)),
+    # softmax_attention.cuh's kernel template: <T, D, false> is K5, <T, D,
+    # true> K6.
+    ("K5 full_attention", ("16, false>", "32, false>", "64, false>")),
+    ("K6 flash_attention", ("16, true>", "32, true>", "64, true>")),
     ("convolution", ("conv", "fprop", "implicit", "dgrad", "nhwc", "nchw")),
     ("matmul", ("gemm", "cutlass", "cublas", "xmma")),
     ("softmax", ("softmax",)),
@@ -58,16 +66,21 @@ def category(name: str) -> str:
     return "other"
 
 
-def build_flagship(plain: bool):
-    """The flagship OETR in bf16, kernel switches on (or off), seed 0."""
-    cfg = (replace(oetr_r50_config(), dtype=DTYPE) if plain
-           else oetr_r50_kernels_config(DTYPE))
+def build_flagship(plain: bool, attention: str = "linear:cuda"):
+    """The flagship OETR in bf16, kernel switches on (or off, with the plain
+    op of ``attention``'s kind), seed 0."""
+    if plain:
+        base = oetr_r50_config()
+        cfg = replace(base, dtype=DTYPE, neck=replace(
+            base.neck, attention=attention.split(":")[0]))
+    else:
+        cfg = oetr_r50_kernels_config(DTYPE, attention)
     return build_oetr(cfg, device="cuda",
                       generator=torch.Generator().manual_seed(0))
 
 
-def oetr_call(plain: bool):
-    model = build_flagship(plain)
+def oetr_call(plain: bool, attention: str):
+    model = build_flagship(plain, attention)
     g = torch.Generator(device="cuda").manual_seed(2)
     shape = (PAIRS, HW, HW, 3)
     im1 = torch.rand(*shape, generator=g, device="cuda")
@@ -99,14 +112,19 @@ def main(argv=None) -> int:
     ap.add_argument("--plain", action="store_true",
                     help="every kernel switch off")
     ap.add_argument("--pipeline", choices=("oetr", "sparse"), default="oetr")
+    ap.add_argument("--attention", default="linear:cuda",
+                    choices=("linear:cuda", "full:cuda", "full:flash"),
+                    help="the OETR encoder's attention (--pipeline oetr)")
     args = ap.parse_args(argv)
+    if args.pipeline == "sparse" and args.attention != "linear:cuda":
+        ap.error("--attention applies to --pipeline oetr")
     if not torch.cuda.is_available():
         raise SystemExit("profile_forward: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    call = (sparse_call if args.pipeline == "sparse" else oetr_call)(
-        args.plain)
+    call = (sparse_call(args.plain) if args.pipeline == "sparse"
+            else oetr_call(args.plain, args.attention))
     n = 3
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -147,7 +165,8 @@ def main(argv=None) -> int:
     result = {
         "device": torch.cuda.get_device_name(0),
         "config": {"pipeline": args.pipeline, "dtype": DTYPE, "pairs": PAIRS,
-                   "hw": HW, "kernels": not args.plain},
+                   "hw": HW, "kernels": not args.plain,
+                   "attention": args.attention},
         "wall_ms_per_call": wall_ms,
         "device_busy_ms_per_call": busy_ms,
         "device_idle_share": (1 - busy_ms / wall_ms) if busy_ms else None,

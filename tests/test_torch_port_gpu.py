@@ -7,11 +7,14 @@ without it:
     python -m pytest --noconftest -q tests/test_torch_port_gpu.py
 
 The cases reach what the flagship shapes in ``chip_smoke.py`` do not:
-head widths below 32, per-batch positional encodings, no masks, single
-tokens, small and non-square images; for the Sinkhorn kernel (K4) M != N,
-sizes off the 32-column strip, 0 and 1 iterations, a pair with every
-keypoint masked, batches of 1 and 16 and more pairs than one L2 chunk; and
-the inputs the kernels refuse.
+head widths below 32 and above (up to 64, at C = 512), per-batch positional
+encodings, no masks, single tokens, small and non-square images; for the
+attention kernels (K1, K5, K6) batches of 1 and 3, L != S, lengths off the
+64-row tiles, head widths 16, 32 and 64, a batch row with every key masked,
+a q_mask alone, K5's keys staged whole and in chunks; for the Sinkhorn
+kernel (K4) M != N, sizes off the 32-column strip, 0 and 1 iterations, a
+pair with every keypoint masked, batches of 1 and 16 and more pairs than
+one L2 chunk; and the inputs the kernels refuse.
 """
 import pytest
 import torch
@@ -60,6 +63,9 @@ def _encoder_args(dev, dtype, b, l, s, c, pos_batch, masked, seed):
     (3, 33, 17, 64, 2, True, False),     # D=32, per-batch pos, no masks
     (1, 1, 1, 256, 8, False, True),      # one token each side
     (2, 40, 56, 128, 8, True, True),     # D=16
+    (1, 8, 8, 512, 16, False, False),    # C=512, D=32: weights in smem
+    (2, 40, 33, 512, 8, True, True),     # C=512, D=64 (the fc config)
+    (2, 10, 6, 96, 2, False, True),      # D=48: lanes own 2 columns
 ])
 def test_linear_encoder_kernel_matches_plain(cuda, dtype, b, l, s, c, nhead,
                                              pos_batch, masked):
@@ -75,10 +81,11 @@ def test_linear_encoder_kernel_matches_plain(cuda, dtype, b, l, s, c, nhead,
 
 
 def test_linear_encoder_kernel_refuses(cuda):
+    wide = _encoder_args(cuda, torch.float32, 2, 8, 8, 128, False, True, 0)
+    with pytest.raises(ValueError, match="C / nhead"):
+        ops.linear_encoder_attention(*wide, nhead=1)       # D = 128 > 64
     args = list(_encoder_args(cuda, torch.float32, 2, 8, 8, 64, False, True,
                               seed=0))
-    with pytest.raises(ValueError, match="C / nhead"):
-        ops.linear_encoder_attention(*args, nhead=1)       # D = 64 > 32
     bad = list(args)
     bad[2] = args[2].to(torch.bfloat16)
     with pytest.raises(ValueError, match="x_pos"):
@@ -87,11 +94,6 @@ def test_linear_encoder_kernel_refuses(cuda):
     bad[1] = torch.randn(2, 64, 8, device=cuda).transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
         ops.linear_encoder_attention(*bad, nhead=4)
-    # 3·C·D weights and 16 row buffers in f32 exceed the 227 KB of shared
-    # memory a block may have: the launch is refused and the wrapper raises.
-    big = _encoder_args(cuda, torch.float32, 1, 8, 8, 512, False, False, 0)
-    with pytest.raises(RuntimeError, match="cudaError"):
-        ops.linear_encoder_attention(*big, nhead=16)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -223,3 +225,137 @@ def test_sinkhorn_kernel_refuses(cuda):
         ops.log_sinkhorn_cuda(cost, mu.cpu(), nu, 5)
     with pytest.raises(ValueError, match="do not fit"):
         ops.log_sinkhorn_cuda(cost, nu, mu, 5)
+
+
+# ------------------------------------------------- K1, K5, K6 (attention) --
+
+ATTENTION = {"linear": (ops.linear_attention_cuda,
+                        ops.linear_attention_reference),
+             "full": (ops.full_attention_cuda, ops.full_attention_reference),
+             "flash": (ops.flash_attention_cuda,
+                       ops.flash_attention_reference)}
+
+
+def _attention_args(dev, dtype, b, l, s, h, d, seed, masks):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rn = lambda *shape: torch.randn(*shape, generator=g, device=dev)
+    q, k = (0.5 * rn(b, l, h, d)).to(dtype), (0.5 * rn(b, s, h, d)).to(dtype)
+    v = rn(b, s, h, d).to(dtype)
+    qm = rn(b, l) > -0.8 if masks in ("both", "q_only") else None
+    km = rn(b, s) > -0.8 if masks == "both" else None
+    if km is not None and b > 1:
+        km[1] = False          # a batch row with no visible key
+    return q, k, v, qm, km
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", sorted(ATTENTION))
+@pytest.mark.parametrize("b,l,s,h,d,masks", [
+    (1, 8, 8, 1, 16, "none"),
+    (3, 75, 130, 2, 16, "both"),        # off the 64-row tiles; an empty row
+    (3, 75, 130, 2, 32, "q_only"),      # masked query rows give 0
+    (2, 400, 400, 8, 32, "both"),       # OETR's 20x20 tokens
+    (1, 33, 257, 4, 64, "both"),        # D = 64, S one past 4 tiles
+    (2, 130, 70, 4, 64, "none"),
+])
+def test_attention_kernel_matches_plain(cuda, dtype, kernel, b, l, s, h, d,
+                                        masks):
+    wrapper, plain = ATTENTION[kernel]
+    q, k, v, qm, km = _attention_args(cuda, dtype, b, l, s, h, d, l + s,
+                                      masks)
+    before = wrapper.launches
+    out = wrapper(q, k, v, qm, km)
+    ref = plain(q, k, v, qm, km)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0,
+                               atol=_tol(ref, dtype))
+    if kernel != "linear" and qm is not None:
+        assert (out[~qm] == 0).all()
+    if km is not None and kernel != "linear" and b > 1:
+        assert (out[1] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [200, 700, 1500])
+def test_full_attention_kernel_staged_in_chunks(cuda, dtype, s):
+    """K5 stages every key row at once where they fit its 96 KB budget
+    (640 rows at D = 32 in bf16, 320 in f32) and walks them chunk by chunk
+    in both passes where they do not: S = 200 is staged whole, 700 in
+    chunks in f32 and bf16, 1500 in 3 and 5 chunks."""
+    q, k, v, qm, km = _attention_args(cuda, dtype, 2, 70, s, 2, 32, s, "both")
+    out = ops.full_attention_cuda(q, k, v, qm, km)
+    ref = ops.full_attention_reference(q, k, v, qm, km)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0,
+                               atol=_tol(ref, dtype))
+
+
+def test_attention_kernels_refuse(cuda):
+    q, k, v, qm, km = _attention_args(cuda, torch.float32, 2, 16, 24, 2, 32,
+                                      0, "both")
+    for kernel, (wrapper, _) in sorted(ATTENTION.items()):
+        with pytest.raises(ValueError, match="dtype"):
+            wrapper(q.half(), k.half(), v.half(), qm, km)
+        with pytest.raises(ValueError, match="contiguous"):
+            wrapper(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
+        with pytest.raises(ValueError, match="one CUDA device"):
+            wrapper(q, k.cpu(), v)
+        with pytest.raises(ValueError, match="kv_mask"):
+            wrapper(q, k, v, qm, km[:, :5])
+        with pytest.raises(ValueError, match="v:"):
+            wrapper(q, k, v[:, :5].contiguous(), qm, km)
+    wide = torch.zeros(1, 8, 1, 128, device=cuda)
+    for wrapper, _ in ATTENTION.values():
+        with pytest.raises(ValueError, match="head width"):
+            wrapper(wide, wide, wide)
+    d24 = torch.zeros(1, 8, 1, 24, device=cuda)
+    for wrapper in (ops.full_attention_cuda, ops.flash_attention_cuda):
+        with pytest.raises(ValueError, match="head width"):
+            wrapper(d24, d24, d24)
+
+
+@pytest.mark.parametrize("kind", ["linear:cuda", "full:cuda", "full:flash"])
+def test_attend_launches_kernels(cuda, kind):
+    """_attend on the card launches the kind's kernel from 8 tokens on and
+    takes the plain op below (the decoder's single query)."""
+    from oetr_tpu_torch.models.transformer import KERNEL_KINDS, _attend
+    wrapper, plain = KERNEL_KINDS[kind]
+    q, k, v, qm, km = _attention_args(cuda, torch.float32, 2, 40, 24, 2, 32,
+                                      7, "both")
+    before = wrapper.launches
+    out = _attend(kind, q, k, v, qm, km)
+    assert wrapper.launches == before + 1
+    single = _attend(kind, q[:, :1].contiguous(), k, v, None, km)
+    assert wrapper.launches == before + 1
+    torch.testing.assert_close(single, plain(q[:, :1], k, v, None, km))
+    assert torch.isfinite(out).all()
+
+
+@pytest.mark.parametrize("kind", ["full:cuda", "full:flash"])
+def test_small_full_attention_forward_on_card_matches_cpu(cuda, kind):
+    """The small config with full attention, f32: the card (K3 and K5 or
+    K6) against the CPU (plain versions), same weights and images."""
+    cfg = port.OETRConfig(
+        backbone=port.BackboneConfig(depth=18, last_layer=256,
+                                     fused_stem=True),
+        neck=port.NeckConfig(d_model=64, nhead=4, num_layers=1,
+                             num_decoder_layers=1, attention=kind))
+    on_card = port.build_oetr(cfg, device=cuda)
+    on_cpu = port.build_oetr(cfg, device="cpu")
+    on_cpu.load_state_dict({k: v.cpu() for k, v in
+                            on_card.state_dict().items()})
+    g = torch.Generator().manual_seed(0)
+    im1, im2 = torch.rand(2, 2, 256, 256, 3, generator=g)
+    mask = torch.rand(2, 8, 8, generator=g) > 0.2
+    wrapper = (ops.full_attention_cuda if kind == "full:cuda"
+               else ops.flash_attention_cuda)
+    before = wrapper.launches
+    with torch.inference_mode():
+        a = on_card(im1.to(cuda), im2.to(cuda), mask.to(cuda), mask.to(cuda))
+        b = on_cpu(im1, im2, mask, mask)
+    assert wrapper.launches == before + 4
+    for key in b:
+        torch.testing.assert_close(a[key].cpu(), b[key], rtol=1e-4,
+                                   atol=1e-3, msg=key)

@@ -153,8 +153,9 @@ def test_build_module_imports_without_nvcc(monkeypatch):
     monkeypatch.delenv("CUDA_HOME", raising=False)
     build = importlib.reload(_build)
     srcs = build.sources()
-    assert {s.name for s in srcs} == {"gn_relu_maxpool.cu",
-                                      "linear_encoder.cu", "log_sinkhorn.cu"}
+    assert {s.name for s in srcs} == {
+        "flash_attention.cu", "full_attention.cu", "gn_relu_maxpool.cu",
+        "linear_attention.cu", "linear_encoder.cu", "log_sinkhorn.cu"}
     compiles, link = build.build_commands("nvcc", build.BUILD_DIR,
                                           build.BUILD_DIR / "lib.so", srcs)
     assert len(compiles) == len(srcs)
@@ -163,6 +164,6 @@ def test_build_module_imports_without_nvcc(monkeypatch):
         assert "-fPIC" in cmd and "-O3" in cmd and "-std=c++17" in cmd
     assert "-shared" in link and link[-1].endswith("lib.so")
     assert len(build.build_key(srcs)) == 16
-    for src in srcs:
+    for src in srcs + build.headers():
         text = src.read_text()
         assert "torch/extension.h" not in text and "#include <torch" not in text
