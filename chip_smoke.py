@@ -5,11 +5,14 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels from ``oetr_tpu_torch/csrc`` with nvcc,
-holds each kernel against its plain torch version at the main paths'
-shapes (K2 at the flagship's and the fc config's widths, K3, K1, K5 and K6
-in float32 and bfloat16, K4 in float32), then drives these paths with
-seeded random weights:
+It builds the port's CUDA kernels from ``oetr_tpu_torch/csrc`` with nvcc
+(reporting ptxas's registers and spills for the bf16 K5/K6 kernels), holds
+each kernel against its plain torch version at the main paths' shapes (K2
+at the flagship's and the fc config's widths, K3, K1, K5 and K6 in float32
+and bfloat16, K5 and K6 also at [2, 4096, 8, 32] and in bf16 at
+SuperGlue's [8, 2048, 4, 64], K4 in float32; for K5 and K6 the kernel's
+and SDPA's device time per call from torch.profiler beside the CUDA-event
+time around a call), then drives these paths with seeded random weights:
   * ``slice``: the flagship OETR forward (ResNet50 to layer3, d_model 256,
     640x640 pairs) with its kernel switches on (K2, K3), against the same
     model with them off;
@@ -38,6 +41,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -114,6 +118,35 @@ def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(torch, fn, reps: int = 20, warmup: int = 3,
+              sessions: int = 3) -> float:
+    """Device time per call of ``fn()``: the summed duration of the device
+    activity (kernels, copies) of ``reps`` calls in a torch.profiler trace,
+    over ``reps``. Unlike ``time_ms`` it leaves out the host's work between
+    launches. ``fn`` launches the same work on every call, so a trace whose
+    count of device events is 0 or not a multiple of ``reps`` missed some
+    (seen once on the H100 in ~100 traces): it is taken again, up to
+    ``sessions`` traces in all."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    counts = []
+    for _ in range(sessions):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        dev = [evt for evt in prof.events()
+               if evt.device_type == torch.autograd.DeviceType.CUDA]
+        if dev and len(dev) % reps == 0:
+            return sum(e.time_range.elapsed_us() for e in dev) / 1e3 / reps
+        counts.append(len(dev))
+    raise RuntimeError(f"torch.profiler recorded {counts} device events for "
+                       f"{reps} calls")
 
 
 def nbytes(*tensors) -> int:
@@ -425,13 +458,37 @@ def check_attention(torch, F, ops, kind, dtype_name, b, l, s, masks, seed,
     bound_ms, term = attention_bound(torch, kind, q, k, v, qm, km, out,
                                      dtype_name, sfu_per_s)
     name = wrapper.__name__
-    return {"kernel": name, "dtype": dtype_name,
-            "shape": {"B": b, "L": l, "S": s, "H": h, "D": d},
-            "masks": masks, "max_abs_err": err, "tol": tol, "kernel_ms": ms,
-            "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms,
-            "bound_by": "bytes" if term == "bytes" else "operations",
-            "bound_term": term}
+    fields = {"kernel": name, "dtype": dtype_name,
+              "shape": {"B": b, "L": l, "S": s, "H": h, "D": d},
+              "masks": masks, "max_abs_err": err, "tol": tol,
+              "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+              "bound_ms": bound_ms,
+              "bound_by": "bytes" if term == "bytes" else "operations",
+              "bound_term": term}
+    if kind != "linear":
+        # The kernel's and SDPA's own device time, without the host work
+        # that the CUDA-event times above carry.
+        dev_ms = device_ms(torch, lambda: wrapper(q, k, v, qm, km), reps=reps)
+        lib_dev_ms = device_ms(torch, library, reps=reps)
+        fields.update(device_ms=dev_ms, library_device_ms=lib_dev_ms,
+                      device_over_library=dev_ms / lib_dev_ms)
+    return fields
+
+
+def tensor_core_resources(resources):
+    """ptxas's registers and spill bytes of each bf16 K5 / K6 kernel
+    (``softmax_attention_mma.cuh``), by head width; raises if one is
+    missing."""
+    rows = []
+    for mangled, res in sorted(resources.items()):
+        m = re.search(r"mma_attention_kernelILi(\d+)ELb([01])E", mangled)
+        if m:
+            rows.append({"kernel": f"K{5 + int(m.group(2))} bf16 "
+                                   f"D={m.group(1)}", **res})
+    if len(rows) != 6:
+        raise AssertionError(f"ptxas reported {len(rows)} of the 6 bf16 "
+                             "K5/K6 kernels")
+    return sorted(rows, key=lambda r: r["kernel"])
 
 
 # ----------------------------------------------------------------- slice --
@@ -858,7 +915,9 @@ def main() -> int:
 
     _, record = load_library()
     phase("build", so=record["so"], built=record["built"],
-          steps_s=record["steps_s"], ptxas=record["ptxas"])
+          steps_s=record["steps_s"],
+          tensor_core_kernels=tensor_core_resources(record["resources"]),
+          ptxas=record["ptxas"])
 
     k2, k3 = {}, {}
     for dtype_name in ("float32", "bfloat16"):
@@ -882,7 +941,7 @@ def main() -> int:
                         iters=SINKHORN_ITERS, seed=13, sfu_per_s=sfu_per_s)
     phase("kernel", **k4)
 
-    # K1, K5, K6 at OETR's [8, 400, 8, 32] (and K6 at the long regime's
+    # K1, K5, K6 at OETR's [8, 400, 8, 32] (and K5, K6 at the long regime's
     # [2, 4096, 8, 32]); the unmasked bf16 results go into the table.
     attn = {}
     for dtype_name in ("float32", "bfloat16"):
@@ -890,12 +949,19 @@ def main() -> int:
                 ("linear", 8, 400, ("none", "both")),
                 ("full", 8, 400, ("none", "both", "q_only")),
                 ("flash", 8, 400, ("none", "both")),
-                ("flash", 2, 4096, ("both",))):
+                ("flash", 2, 4096, ("both",)),
+                ("full", 2, 4096, ("both",))):
             for i, masks in enumerate(masks_set):
                 res = check_attention(torch, F, ops, op, dtype_name, b, n, n,
                                       masks, seed=20 + i, sfu_per_s=sfu_per_s)
                 attn[op, dtype_name, n, masks] = res
                 phase("kernel", **res)
+    # K5 and K6 at SuperGlue's GNN shape, 2048 keypoints, 4 heads of 64:
+    # the tensor-core tile at D = 64.
+    for op in ("full", "flash"):
+        phase("kernel", **check_attention(torch, F, ops, op, "bfloat16", 8,
+                                          2048, 2048, "both", seed=30,
+                                          sfu_per_s=sfu_per_s, h=4, d=64))
 
     # Path 1, the OETR slice: both kernels, both dtypes; f32 at 2 pairs.
     fields, _ = run_slice(torch, port, ops, "float32", b=2, timed=False)
@@ -964,13 +1030,16 @@ def main() -> int:
              f"{pallas}:201", attn["full", main_dtype, 400, "none"]),
             ("flash_attention_cuda", "oetr_tpu_torch/csrc/flash_attention.cu",
              f"{pallas}:289", attn["flash", main_dtype, 400, "none"])):
-        table.append({"name": name, "route": "cuda", "source": src,
-                      "replaces": replaces, "launches": launches[name],
-                      "max_abs_err": res["max_abs_err"],
-                      "ms": res["kernel_ms"], "plain_ms": res["plain_ms"],
-                      "bound_ms": res["bound_ms"],
-                      "bound_by": res["bound_by"],
-                      "library_ms": res["library_ms"]})
+        row = {"name": name, "route": "cuda", "source": src,
+               "replaces": replaces, "launches": launches[name],
+               "max_abs_err": res["max_abs_err"],
+               "ms": res["kernel_ms"], "plain_ms": res["plain_ms"],
+               "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
+               "library_ms": res["library_ms"]}
+        if "device_ms" in res:      # K5, K6
+            row.update(device_ms=res["device_ms"],
+                       library_device_ms=res["library_device_ms"])
+        table.append(row)
     if elapsed() > BUDGET_S:
         raise RuntimeError(f"over the {BUDGET_S:.0f} s budget")
     print(json.dumps({"kernels": table}), flush=True)

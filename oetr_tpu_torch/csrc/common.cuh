@@ -41,15 +41,9 @@ __device__ __forceinline__ float elu_p1(float x) {
   return x > 0.f ? x + 1.f : expf(x);
 }
 
-// Four consecutive elements as f32. p must be aligned to 4 elements.
+// Four consecutive f32. p must be 16-byte aligned.
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  // A bf16 is the high half of the f32 with the same bits.
-  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
-                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
 }
 
 }  // namespace oetr

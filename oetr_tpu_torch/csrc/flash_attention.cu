@@ -16,27 +16,37 @@
 // S and rows past L are masked, which is what the Pallas kernel's zero
 // padding gives.
 //
-// Design (FA2 style, simple): one block per (64-row query tile, head, batch
-// row) walks the key blocks, staging each block's key and value rows in
-// shared memory; each query row keeps its max, sum and accumulator in the
-// registers of its four threads (softmax_attention.cuh). The logits never
-// leave registers, and nothing but the output goes back to device memory.
+// Two designs, one per dtype, chosen by the entry point; both keep the
+// logits in registers and write nothing but the output:
+// - bf16 (softmax_attention_mma.cuh): one block per (64-row query tile,
+//   head, batch row), 4 warps of 16 rows; Q·Kᵀ and round(p)·V on the tensor
+//   cores (mma.sync m16n8k16, f32 accumulators), p packed from the logits'
+//   C registers into the A fragments of P·V; keys and values streamed
+//   through a cp.async ring of 64-key tiles.
+// - f32 (softmax_attention.cuh): the products on the FP32 pipes, since the
+//   tensor cores would round f32 inputs to TF32; each query row keeps its
+//   max, sum and accumulator in the registers of four threads.
 //
 // Bound on the H100: at [8, 400, 8, 32] bf16 as K5 (exponentials 2.4 us);
 // at [2, 4096, 8, 32], exponentials 268 M (64 us) against 34 GFLOP (35 us
-// on the tensor cores). This kernel does its products on the FP32 pipes
-// (67 TFLOP/s), so it stays above 0.5 ms at the long shape; tensor-core
-// tiles come first.
+// on the tensor cores).
 #include "softmax_attention.cuh"
+#include "softmax_attention_mma.cuh"
 
-#define OETR_FLASH_ATTENTION_ENTRY(NAME, T)                                    \
-  extern "C" int NAME(const void* q, const void* k, const void* v,             \
-                      const void* qmask, const void* kmask, void* out, int B,  \
-                      int L, int S, int H, int D, float temp, void* stream) {  \
-    return oetr::softmax::launch_d<T, true>(q, k, v, qmask, kmask, out, B, L,  \
-                                            S, H, D, temp,                     \
-                                            oetr::softmax::kBK, stream);       \
-  }
+extern "C" int oetr_flash_attention_f32(const void* q, const void* k,
+                                        const void* v, const void* qmask,
+                                        const void* kmask, void* out, int B,
+                                        int L, int S, int H, int D, float temp,
+                                        void* stream) {
+  return oetr::softmax::launch_d<true>(q, k, v, qmask, kmask, out, B, L, S, H,
+                                       D, temp, oetr::softmax::kBK, stream);
+}
 
-OETR_FLASH_ATTENTION_ENTRY(oetr_flash_attention_f32, float)
-OETR_FLASH_ATTENTION_ENTRY(oetr_flash_attention_bf16, __nv_bfloat16)
+extern "C" int oetr_flash_attention_bf16(const void* q, const void* k,
+                                         const void* v, const void* qmask,
+                                         const void* kmask, void* out, int B,
+                                         int L, int S, int H, int D,
+                                         float temp, void* stream) {
+  return oetr::softmax_mma::launch_d<true>(q, k, v, qmask, kmask, out, B, L,
+                                           S, H, D, temp, stream);
+}

@@ -15,31 +15,37 @@
 // a time. Here a block owns 64 query rows of one head, and the logits never
 // leave registers. Because attn is normalised before it is rounded, the sum
 // must be known before the first product with V: the kernel walks the key
-// tiles twice (softmax_attention.cuh), first for each row's max and sum,
-// then for attn · V. An online rescale of the accumulator would round p
-// relative to a running max instead, which is K6's arithmetic, not K5's.
-// The key and value rows of the head are staged in shared memory once for
-// both passes when they fit a 96 KB budget (S rounded up to a 64-row tile,
-// times (D+4)·2·sizeof(T) bytes: 65 KB at S = 400, D = 32 in bf16);
-// otherwise each pass stages them chunk by chunk.
+// tiles twice, first for each row's max and sum, then for attn · V. An
+// online rescale of the accumulator would round p relative to a running
+// max instead, which is K6's arithmetic, not K5's.
+//
+// Two designs, one per dtype, chosen by the entry point:
+// - bf16 (softmax_attention_mma.cuh): Q·Kᵀ and attn·V on the tensor cores
+//   (mma.sync m16n8k16, f32 accumulators), keys and values streamed through
+//   a cp.async ring of 64-key tiles in both passes.
+// - f32 (softmax_attention.cuh): the products on the FP32 pipes, since the
+//   tensor cores would round f32 inputs to TF32. The key and value rows of
+//   the head are staged in shared memory once for both passes when they
+//   fit a 96 KB budget (S rounded up to a 64-row tile, times (D+4)·2·4
+//   bytes), else each pass stages them chunk by chunk.
 //
 // Bound on the H100 at [8, 400, 8, 32] bf16: exponentials B·H·L·S = 10.2 M
 // (2.4 us at 16 a clock per SM), operations 4·B·H·L·S·D = 1.31 GFLOP (1.3 us
-// on the tensor cores), bytes 6.6 MB (2.0 us). This simple kernel does its
-// products on the FP32 pipes and computes each logit twice, so it is far
-// from that bound; tensor-core tiles (mma.sync or wgmma) come first.
+// on the tensor cores), bytes 6.6 MB (2.0 us). The bf16 kernel computes each
+// logit twice on the tensor cores and takes two exponentials a logit (one a
+// pass), so it stays a few times above that bound.
 #include "softmax_attention.cuh"
+#include "softmax_attention_mma.cuh"
 
 namespace {
 
 constexpr size_t kStageBudget = 96 * 1024;
 
-// Rows of keys to stage at once: all of them (rounded up to a tile) when
-// they fit the budget, else the most whole tiles that do.
-template <typename T>
+// Rows of keys the f32 kernel stages at once: all of them (rounded up to a
+// tile) when they fit the budget, else the most whole tiles that do.
 int auto_chunk(int S, int D) {
   using namespace oetr::softmax;
-  const size_t per_row = 2 * (size_t)(D + kPad) * sizeof(T) + 1;
+  const size_t per_row = 2 * (size_t)(D + kPad) * sizeof(float) + 1;
   const int all = (S + kBK - 1) / kBK * kBK;
   const int fit = (int)(kStageBudget / per_row) / kBK * kBK;
   return all <= fit ? all : (fit > kBK ? fit : kBK);
@@ -47,14 +53,20 @@ int auto_chunk(int S, int D) {
 
 }  // namespace
 
-#define OETR_FULL_ATTENTION_ENTRY(NAME, T)                                     \
-  extern "C" int NAME(const void* q, const void* k, const void* v,             \
-                      const void* qmask, const void* kmask, void* out, int B,  \
-                      int L, int S, int H, int D, float temp, void* stream) {  \
-    return oetr::softmax::launch_d<T, false>(q, k, v, qmask, kmask, out, B, L, \
-                                             S, H, D, temp,                    \
-                                             auto_chunk<T>(S, D), stream);     \
-  }
+extern "C" int oetr_full_attention_f32(const void* q, const void* k,
+                                       const void* v, const void* qmask,
+                                       const void* kmask, void* out, int B,
+                                       int L, int S, int H, int D, float temp,
+                                       void* stream) {
+  return oetr::softmax::launch_d<false>(q, k, v, qmask, kmask, out, B, L, S,
+                                        H, D, temp, auto_chunk(S, D), stream);
+}
 
-OETR_FULL_ATTENTION_ENTRY(oetr_full_attention_f32, float)
-OETR_FULL_ATTENTION_ENTRY(oetr_full_attention_bf16, __nv_bfloat16)
+extern "C" int oetr_full_attention_bf16(const void* q, const void* k,
+                                        const void* v, const void* qmask,
+                                        const void* kmask, void* out, int B,
+                                        int L, int S, int H, int D, float temp,
+                                        void* stream) {
+  return oetr::softmax_mma::launch_d<false>(q, k, v, qmask, kmask, out, B, L,
+                                            S, H, D, temp, stream);
+}

@@ -1,8 +1,10 @@
-// Masked softmax attention over KV tiles in shared memory, shared by K5
-// (full_attention.cu: whole-row softmax, normalised before rounding) and K6
-// (flash_attention.cu: streaming softmax with an online max).
+// f32 masked softmax attention on the FP32 pipes, shared by K5
+// (full_attention.cu: whole-row softmax) and K6 (flash_attention.cu:
+// streaming softmax with an online max). bf16 runs on the tensor cores
+// instead (softmax_attention_mma.cuh); in f32 they would round the inputs
+// to TF32.
 //
-// Layout: q [B, L, H·D], k, v [B, S, H·D], out [B, L, H·D], read and written
+// Layout: q [B, L, H·D], k, v [B, S, H·D], out [B, L, H·D] f32, read and written
 // in place for head h (no transpose to [B, H, N, D]); masks [B, L] / [B, S]
 // as bytes, or null for all true. A pair (l, s) is visible when both masks
 // are true; a row with no visible key gives 0.
@@ -13,9 +15,9 @@
 // the keys t, t + 4, ... of each 64-key tile (16 a tile). The four threads
 // of a row are adjacent lanes, so the row's max and sum are two xor
 // shuffles, and the four partial accumulators are summed the same way at
-// the end. Key and value rows are staged in shared memory in the I/O type,
-// padded by 4 elements a row so that the four keys a warp reads at once
-// fall in distinct banks; each thread reads them 4 elements at a time.
+// the end. Key and value rows are staged in shared memory, padded by 4
+// elements a row so that the four keys a warp reads at once fall in
+// distinct banks; each thread reads them 4 elements at a time.
 // Logits are f32 dot products times 1/sqrt(D), as the Pallas kernels do;
 // the products run on the FP32 pipes.
 #pragma once
@@ -34,23 +36,10 @@ constexpr int kBK = 64;          // keys per tile (K6's block_k)
 constexpr int kKPT = kBK / kTPR;  // keys per thread per tile
 constexpr int kPad = 4;          // elements of padding per staged row
 
-// Shared-memory bytes for `rows` staged key/value rows of type T.
-template <typename T, int D>
+// Shared-memory bytes for `rows` staged key/value rows.
+template <int D>
 inline size_t stage_bytes(int rows) {
-  return (2 * (size_t)rows * (D + kPad) * sizeof(T) + rows + 15) / 16 * 16;
-}
-
-__device__ __forceinline__ void copy4(float* dst, const float* src) {
-  *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
-}
-__device__ __forceinline__ void copy4(__nv_bfloat16* dst, const __nv_bfloat16* src) {
-  *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(src);
-}
-__device__ __forceinline__ void zero4(float* dst) {
-  *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
-}
-__device__ __forceinline__ void zero4(__nv_bfloat16* dst) {
-  *reinterpret_cast<uint2*>(dst) = make_uint2(0u, 0u);
+  return (2 * (size_t)rows * (D + kPad) * sizeof(float) + rows + 15) / 16 * 16;
 }
 
 __device__ __forceinline__ float row_max(float v) {
@@ -70,13 +59,15 @@ __device__ __forceinline__ float row_sum(float v) {
 // kFlash = true: K6. One pass; at each tile of kBK keys, with the running
 // max m and the tile's max, new = max(m, tile), safe = new if finite else
 // 0, corr = exp(m - safe) if m is finite else 0, p = exp(logit - safe) (0
-// off the masks), acc = acc·corr + round(p)·v, sum = sum·corr + Σp; at the
-// end out = round(acc / max(sum, 1e-30)).
-template <typename T, int D, bool kFlash>
+// off the masks), acc = acc·corr + p·v, sum = sum·corr + Σp; at the end
+// out = acc / max(sum, 1e-30). (The Pallas kernels' roundings to the I/O
+// type are no-ops in f32.)
+template <int D, bool kFlash>
 __global__ void __launch_bounds__(kThreads) attention_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const uint8_t* __restrict__ qmask, const uint8_t* __restrict__ kmask,
-    T* __restrict__ out, int L, int S, int H, float temp, int chunk) {
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const uint8_t* __restrict__ qmask,
+    const uint8_t* __restrict__ kmask, float* __restrict__ out, int L, int S,
+    int H, float temp, int chunk) {
   constexpr int RS = D + kPad;
   const int b = blockIdx.z;
   const int h = blockIdx.y;
@@ -86,15 +77,15 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(
   const long long HD = (long long)H * D;
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* ks = reinterpret_cast<T*>(smem_raw);          // [chunk][RS]
-  T* vs = ks + (size_t)chunk * RS;                 // [chunk][RS]
+  float* ks = reinterpret_cast<float*>(smem_raw);  // [chunk][RS]
+  float* vs = ks + (size_t)chunk * RS;             // [chunk][RS]
   uint8_t* kok = reinterpret_cast<uint8_t*>(vs + (size_t)chunk * RS);  // [chunk]
 
   const bool row_ok = l < L && (qmask == nullptr || qmask[(long long)b * L + l]);
   float qr[D];
   float acc[D];
   if (l < L) {
-    const T* qrow = q + ((long long)b * L + l) * HD + (long long)h * D;
+    const float* qrow = q + ((long long)b * L + l) * HD + (long long)h * D;
 #pragma unroll
     for (int d = 0; d < D; d += 4) {
       const float4 x = load4(qrow + d);
@@ -120,18 +111,16 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(
       const int staged = (rows + kBK - 1) / kBK * kBK;
       if (!(resident && pass > 0)) {
         __syncthreads();  // the previous chunk is no longer read
-        const T* kb = k + ((long long)b * S + c0) * HD + (long long)h * D;
-        const T* vb = v + ((long long)b * S + c0) * HD + (long long)h * D;
+        const float* kb = k + ((long long)b * S + c0) * HD + (long long)h * D;
+        const float* vb = v + ((long long)b * S + c0) * HD + (long long)h * D;
         for (int idx = threadIdx.x; idx < staged * (D / 4); idx += kThreads) {
           const int row = idx / (D / 4);
           const int col = (idx % (D / 4)) * 4;
-          if (row < rows) {
-            copy4(ks + row * RS + col, kb + row * HD + col);
-            copy4(vs + row * RS + col, vb + row * HD + col);
-          } else {
-            zero4(ks + row * RS + col);
-            zero4(vs + row * RS + col);
-          }
+          const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+          *reinterpret_cast<float4*>(ks + row * RS + col) =
+              row < rows ? load4(kb + row * HD + col) : zero;
+          *reinterpret_cast<float4*>(vs + row * RS + col) =
+              row < rows ? load4(vb + row * HD + col) : zero;
         }
         for (int row = threadIdx.x; row < staged; row += kThreads) {
           kok[row] = row < rows &&
@@ -189,7 +178,6 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(
           for (int j = 0; j < kKPT; ++j) {
             p[j] = lg[j] != -INFINITY ? expf(lg[j] - sm) : 0.f;
             s += p[j];
-            p[j] = round_t<T>(p[j]);
           }
           lsum = lsum * corr + s;
 #pragma unroll
@@ -199,12 +187,12 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(
 #pragma unroll
           for (int j = 0; j < kKPT; ++j) {
             const float e = lg[j] != -INFINITY ? expf(lg[j] - safe) : 0.f;
-            p[j] = round_t<T>(__fdiv_rn(e, den));
+            p[j] = __fdiv_rn(e, den);
           }
         }
 #pragma unroll
         for (int j = 0; j < kKPT; ++j) {
-          const T* vrow = vs + (t0 + t + kTPR * j) * RS;
+          const float* vrow = vs + (t0 + t + kTPR * j) * RS;
 #pragma unroll
           for (int d = 0; d < D; d += 4) {
             const float4 vv = load4(vrow + d);
@@ -225,24 +213,22 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(
   // Sum the row's four partial accumulators; thread t writes columns
   // [t·D/4, (t+1)·D/4).
   const float total = kFlash ? fmaxf(row_sum(lsum), 1e-30f) : 1.f;
-  T* orow = out + ((long long)b * L + l) * HD + (long long)h * D;
+  float* orow = out + ((long long)b * L + l) * HD + (long long)h * D;
 #pragma unroll
   for (int d = 0; d < D; ++d) {
     const float a = row_sum(acc[d]);
-    if (l < L && d / (D / kTPR) == t) {
-      store_t(orow + d, kFlash ? __fdiv_rn(a, total) : a);
-    }
+    if (l < L && d / (D / kTPR) == t) orow[d] = kFlash ? __fdiv_rn(a, total) : a;
   }
 }
 
 // Launch one of the kernels; `chunk` is the number of key rows staged at
 // once (a multiple of kBK). Returns the cudaError_t of the launch.
-template <typename T, int D, bool kFlash>
+template <int D, bool kFlash>
 int launch(const void* q, const void* k, const void* v, const void* qmask,
            const void* kmask, void* out, int B, int L, int S, int H,
            float temp, int chunk, cudaStream_t stream) {
-  auto kernel = attention_kernel<T, D, kFlash>;
-  const size_t smem = stage_bytes<T, D>(chunk);
+  auto kernel = attention_kernel<D, kFlash>;
+  const size_t smem = stage_bytes<D>(chunk);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) {
@@ -251,13 +237,13 @@ int launch(const void* q, const void* k, const void* v, const void* qmask,
   }
   const dim3 grid((L + kBQ - 1) / kBQ, H, B);
   kernel<<<grid, kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const uint8_t*)qmask,
-      (const uint8_t*)kmask, (T*)out, L, S, H, temp, chunk);
+      (const float*)q, (const float*)k, (const float*)v, (const uint8_t*)qmask,
+      (const uint8_t*)kmask, (float*)out, L, S, H, temp, chunk);
   return (int)cudaGetLastError();
 }
 
 // Dispatch on the head width (16, 32 or 64).
-template <typename T, bool kFlash>
+template <bool kFlash>
 int launch_d(const void* q, const void* k, const void* v, const void* qmask,
              const void* kmask, void* out, int B, int L, int S, int H, int D,
              float temp, int chunk, void* stream) {
@@ -267,11 +253,11 @@ int launch_d(const void* q, const void* k, const void* v, const void* qmask,
   cudaStream_t st = (cudaStream_t)stream;
   switch (D) {
     case 16:
-      return launch<T, 16, kFlash>(q, k, v, qmask, kmask, out, B, L, S, H, temp, chunk, st);
+      return launch<16, kFlash>(q, k, v, qmask, kmask, out, B, L, S, H, temp, chunk, st);
     case 32:
-      return launch<T, 32, kFlash>(q, k, v, qmask, kmask, out, B, L, S, H, temp, chunk, st);
+      return launch<32, kFlash>(q, k, v, qmask, kmask, out, B, L, S, H, temp, chunk, st);
     case 64:
-      return launch<T, 64, kFlash>(q, k, v, qmask, kmask, out, B, L, S, H, temp, chunk, st);
+      return launch<64, kFlash>(q, k, v, qmask, kmask, out, B, L, S, H, temp, chunk, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -15,6 +15,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -95,6 +96,27 @@ def build_commands(nvcc: str, out_dir: Path, lib: Path, srcs: list[Path]):
     return compiles, link
 
 
+def ptxas_resources(logs: list[str]) -> dict:
+    """Registers and spill bytes per kernel (mangled name) from the
+    ``ptxas -v`` reports in the compile logs."""
+    res, name = {}, None
+    for line in (ln for log in logs for ln in log.splitlines()):
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            res[name] = {}
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            res[name]["spill_stores"] = int(m.group(1))
+            res[name]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            res[name]["registers"] = int(m.group(1))
+    return res
+
+
 def _run_parallel(cmds: list[list[str]]) -> tuple[list[str], list[float]]:
     """Run the commands at once. Returns each one's output and the seconds
     until it was seen to end; raises if any failed."""
@@ -120,13 +142,14 @@ def load_library():
 
     Returns ``(lib, record)``: the ``ctypes.CDLL`` with argtypes set, and a
     dict with the library path, whether it was built in this call, the
-    seconds of each build step and the compiler's resource report.
+    seconds of each build step, the compiler's resource report and, parsed
+    from it, each kernel's registers and spill bytes.
     """
     srcs = sources()
     key = build_key(srcs)
     lib_path = BUILD_DIR / f"oetr_kernels_{key}.so"
     record = {"so": str(lib_path), "built": False, "steps_s": {},
-              "ptxas": []}
+              "ptxas": [], "resources": {}}
     if not lib_path.exists():
         nvcc = nvcc_path()
         work = BUILD_DIR / f"tmp_{key}_{os.getpid()}"
@@ -143,6 +166,7 @@ def load_library():
         record["ptxas"] = [line.strip() for log in logs
                            for line in log.splitlines()
                            if "registers" in line or "spill" in line]
+        record["resources"] = ptxas_resources(logs)
     lib = ctypes.CDLL(str(lib_path))
     for name, argtypes in ENTRY_POINTS.items():
         fn = getattr(lib, name)

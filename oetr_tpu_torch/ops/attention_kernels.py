@@ -21,8 +21,9 @@ On a CPU tensor each wrapper runs its ``*_reference``, the plain torch
 version of exactly what its kernel computes, rounded to the I/O dtype at
 the points where the Pallas kernel rounds. On a CUDA tensor it launches the
 kernel (float32 or bfloat16; contiguous; head width up to 64 for K1, 16, 32
-or 64 for K5 and K6) or raises. Each wrapper counts its launches in
-``.launches``.
+or 64 for K5 and K6) or raises. K5 and K6 have one kernel design per
+dtype: bfloat16 on the tensor cores (mma.sync), float32 on the FP32 pipes.
+Each wrapper counts its launches in ``.launches``.
 """
 from __future__ import annotations
 
@@ -167,35 +168,44 @@ def _check_inputs(name, q, k, v, head_widths):
     return b, l, s, h, d
 
 
-def launch_attention(lib, kind: str, q, k, v, qm_ptr, km_ptr, out, *extra,
-                     stream=None) -> int:
-    """Call the C entry point of ``kind`` ('linear', 'full' or 'flash') on
-    contiguous [B, N, H, D] tensors; ``extra`` are the kernel's own
-    arguments after the shape. Returns the cudaError_t of the launch."""
-    b, l, h, d = q.shape
-    s = k.shape[1]
-    suffix = "f32" if q.dtype == torch.float32 else "bf16"
-    entry = getattr(lib, f"oetr_{kind}_attention_{suffix}")
-    return entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), qm_ptr, km_ptr,
-                 out.data_ptr(), b, l, s, h, d, *extra, stream)
+_ENTRIES: dict = {}   # (kind, dtype) -> the C entry point, looked up once
+
+
+def _entry(kind: str, dtype):
+    """The C entry point of ``kind`` ('linear', 'full' or 'flash') for
+    ``dtype``. Its arguments: q, k, v, q_mask, kv_mask, out pointers, B, L,
+    S, H, D, the kernel's own arguments, the stream; it returns the
+    cudaError_t of the launch."""
+    fn = _ENTRIES.get((kind, dtype))
+    if fn is None:
+        lib, _ = load_library()
+        suffix = "f32" if dtype == torch.float32 else "bf16"
+        fn = getattr(lib, f"oetr_{kind}_attention_{suffix}")
+        _ENTRIES[kind, dtype] = fn
+    return fn
 
 
 def _run(name, kind, q, k, v, q_mask, kv_mask, head_widths, *extra):
     """Check, launch on q's CUDA device and return the output."""
-    if any(t.device != q.device for t in (k, v)) or q.device.type != "cuda":
+    dev = q.device
+    if dev.type != "cuda" or k.device != dev or v.device != dev:
         raise ValueError(f"{name}: q, k, v on {q.device}, {k.device}, "
                          f"{v.device}; all must be on one CUDA device")
-    b, l, s, _, _ = _check_inputs(name, q, k, v, head_widths)
+    b, l, s, h, d = _check_inputs(name, q, k, v, head_widths)
     # The contiguous bool masks stay referenced until the launch is queued.
-    q_mask, qm_ptr = _mask_ptr("q_mask", q_mask, (b, l), q.device)
-    kv_mask, km_ptr = _mask_ptr("kv_mask", kv_mask, (b, s), q.device)
-    lib, _ = load_library()
+    q_mask, qm_ptr = _mask_ptr("q_mask", q_mask, (b, l), dev)
+    kv_mask, km_ptr = _mask_ptr("kv_mask", kv_mask, (b, s), dev)
+    entry = _entry(kind, q.dtype)
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = launch_attention(lib, kind, q, k, v, qm_ptr, km_ptr, out, *extra,
-                              stream=stream)
-    check_launch(lib, rc, name)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), qm_ptr, km_ptr,
+            out.data_ptr(), b, l, s, h, d, *extra)
+    if dev.index == torch.cuda.current_device():
+        rc = entry(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(dev):
+            rc = entry(*args, torch.cuda.current_stream(dev).cuda_stream)
+    if rc:
+        check_launch(load_library()[0], rc, name)
     return out
 
 
@@ -218,8 +228,10 @@ def linear_attention_cuda(q, k, v, q_mask=None, kv_mask=None,
 
 def full_attention_cuda(q, k, v, q_mask=None, kv_mask=None):
     """Whole-row masked softmax attention (K5); same contract as
-    ``full_attention_reference``. The kernel stages all key rows in shared
-    memory when they fit its budget, else chunk by chunk."""
+    ``full_attention_reference``. bf16 runs on the tensor cores, walking
+    64-key tiles twice; f32 on the FP32 pipes, with the key rows staged
+    whole in shared memory when they fit its budget, else chunk by
+    chunk."""
     if _all_cpu(q, k, v, q_mask, kv_mask):
         return full_attention_reference(q, k, v, q_mask, kv_mask)
     out = _run("full_attention_cuda", "full", q, k, v, q_mask, kv_mask,

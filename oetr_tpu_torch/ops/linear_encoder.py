@@ -102,7 +102,8 @@ def _mask_ptr(name, mask, shape, device):
     if tuple(mask.shape) != shape or mask.device != device:
         raise ValueError(f"{name}: expected {shape} on {device}, got "
                          f"{tuple(mask.shape)} on {mask.device}")
-    mask = mask.to(torch.bool).contiguous()
+    if mask.dtype != torch.bool or not mask.is_contiguous():
+        mask = mask.to(torch.bool).contiguous()
     return mask, mask.data_ptr()
 
 

@@ -11,7 +11,9 @@ head widths below 32 and above (up to 64, at C = 512), per-batch positional
 encodings, no masks, single tokens, small and non-square images; for the
 attention kernels (K1, K5, K6) batches of 1 and 3, L != S, lengths off the
 64-row tiles, head widths 16, 32 and 64, a batch row with every key masked,
-a q_mask alone, K5's keys staged whole and in chunks; for the Sinkhorn
+a q_mask alone, K5's keys staged whole and in chunks (f32) and its two
+passes over up to 64 key tiles, and bf16 K5 and K6 at every query and key
+count in (1, 15, 16, 17, 63, 65, 400); for the Sinkhorn
 kernel (K4) M != N, sizes off the 32-column strip, 0 and 1 iterations, a
 pair with every keypoint masked, batches of 1 and 16 and more pairs than
 one L2 chunk; and the inputs the kernels refuse.
@@ -257,6 +259,9 @@ def _attention_args(dev, dtype, b, l, s, h, d, seed, masks):
     (2, 400, 400, 8, 32, "both"),       # OETR's 20x20 tokens
     (1, 33, 257, 4, 64, "both"),        # D = 64, S one past 4 tiles
     (2, 130, 70, 4, 64, "none"),
+    (2, 2500, 2500, 2, 32, "both"),     # OETR at 1600x1600: 40 key tiles
+    (1, 4096, 4096, 2, 32, "q_only"),   # 64 key tiles, K5's two passes
+    (2, 400, 2500, 2, 64, "both"),      # L != S over many tiles at D = 64
 ])
 def test_attention_kernel_matches_plain(cuda, dtype, kernel, b, l, s, h, d,
                                         masks):
@@ -277,13 +282,39 @@ def test_attention_kernel_matches_plain(cuda, dtype, kernel, b, l, s, h, d,
         assert (out[1] == 0).all()
 
 
+# Query and key counts around the 16-row mma tiles and the 64-row tiles.
+TILE_EDGES = (1, 15, 16, 17, 63, 65, 400)
+
+
+@pytest.mark.parametrize("kernel", ["full", "flash"])
+@pytest.mark.parametrize("d", [16, 32, 64])
+@pytest.mark.parametrize("s", TILE_EDGES)
+@pytest.mark.parametrize("l", TILE_EDGES)
+def test_softmax_kernel_tile_edges_bf16(cuda, kernel, d, s, l):
+    """bf16 K5 and K6 (tensor-core tiles) at query and key counts on and
+    around the 16-row mma tiles and the 64-row query and key tiles; masks on
+    every other case, batch row 1 then with no visible key."""
+    wrapper, plain = ATTENTION[kernel]
+    masks = "both" if (l + s) % 2 else "none"
+    q, k, v, qm, km = _attention_args(cuda, torch.bfloat16, 2, l, s, 2, d,
+                                      l * 7 + s, masks)
+    out = wrapper(q, k, v, qm, km)
+    ref = plain(q, k, v, qm, km)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0,
+                               atol=_tol(ref, torch.bfloat16))
+    if masks == "both":
+        assert (out[~qm] == 0).all() and (out[1] == 0).all()
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("s", [200, 700, 1500])
+@pytest.mark.parametrize("s", [200, 700, 1500, 2500, 4096])
 def test_full_attention_kernel_staged_in_chunks(cuda, dtype, s):
-    """K5 stages every key row at once where they fit its 96 KB budget
-    (640 rows at D = 32 in bf16, 320 in f32) and walks them chunk by chunk
-    in both passes where they do not: S = 200 is staged whole, 700 in
-    chunks in f32 and bf16, 1500 in 3 and 5 chunks."""
+    """K5 walks the keys twice. In f32 it stages every key row at once
+    where they fit its 96 KB budget (320 rows at D = 32) and chunk by chunk
+    in both passes where they do not: S = 200 is staged whole, 700 to 4096
+    in 3 to 13 chunks. In bf16 it streams 64-key tiles through a ring in
+    both passes: 4 to 64 tiles a pass."""
     q, k, v, qm, km = _attention_args(cuda, dtype, 2, 70, s, 2, 32, s, "both")
     out = ops.full_attention_cuda(q, k, v, qm, km)
     ref = ops.full_attention_reference(q, k, v, qm, km)

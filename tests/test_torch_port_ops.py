@@ -167,3 +167,52 @@ def test_build_module_imports_without_nvcc(monkeypatch):
     for src in srcs + build.headers():
         text = src.read_text()
         assert "torch/extension.h" not in text and "#include <torch" not in text
+
+
+def test_ptxas_resources_by_kernel():
+    """The build record's registers and spill bytes per kernel, parsed from
+    ptxas -v as nvcc prints it."""
+    log = """ptxas info    : Compiling entry function '_Zk1' for 'sm_90a'
+ptxas info    : Function properties for _Zk1
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 102 registers, used 1 barriers
+ptxas info    : Compiling entry function '_Zk2' for 'sm_90a'
+ptxas info    : Function properties for _Zk2
+    24 bytes stack frame, 24 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 80 registers, used 1 barriers, 24 bytes cumulative stack size
+"""
+    assert _build.ptxas_resources(["", log]) == {
+        "_Zk1": {"spill_stores": 0, "spill_loads": 0, "registers": 102},
+        "_Zk2": {"spill_stores": 24, "spill_loads": 8, "registers": 80}}
+
+
+def test_softmax_kernels_one_design_per_dtype():
+    """K5 and K6: the bf16 entry points launch the tensor-core kernels, the
+    f32 ones the FP32-pipe kernels, and the FP32-pipe header takes no bf16;
+    nothing chooses between designs at run time."""
+    csrc = _build.SRC_DIR
+    for src in ("full_attention.cu", "flash_attention.cu"):
+        text = (csrc / src).read_text()
+        bf16 = text.split("_attention_bf16(")[1]
+        f32 = text.split("_attention_f32(")[1].split("extern")[0]
+        assert "softmax_mma::launch_d" in bf16 and "softmax::" not in bf16
+        assert "softmax::launch_d" in f32 and "softmax_mma" not in f32
+        assert "getenv" not in text
+    assert "bfloat16" not in (csrc / "softmax_attention.cuh").read_text()
+    mma = (csrc / "mma_sync.cuh").read_text()
+    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in mma
+    assert "ldmatrix.sync.aligned.m8n8.x4.trans" in mma
+
+
+def test_mask_pointers_need_no_copy():
+    """A contiguous bool mask is passed as it is; any other is made one."""
+    from oetr_tpu_torch.ops.linear_encoder import _mask_ptr
+    m = torch.rand(2, 5) > 0.5
+    same, ptr = _mask_ptr("m", m, (2, 5), m.device)
+    assert same is m and ptr == m.data_ptr()
+    conv, _ = _mask_ptr("m", m.to(torch.uint8).t().contiguous().t(), (2, 5),
+                        m.device)
+    assert conv.dtype == torch.bool and conv.is_contiguous()
+    assert torch.equal(conv, m)
+    with pytest.raises(ValueError, match="expected"):
+        _mask_ptr("m", m[:, :4], (2, 5), m.device)
