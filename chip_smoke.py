@@ -430,6 +430,7 @@ def check_attention(torch, F, ops, kind, dtype_name, b, l, s, masks, seed,
                              f"[{b},{l},{s},{h},{d}] masks {masks}: "
                              f"max_abs_err {err} > tol {tol}")
 
+    pair = None     # K5, K6: the [B, 1, L, S] mask that SDPA takes
     if kind == "linear":
         def library():  # the einsum chain, a yardstick only
             qf = F.elu(q) + 1
@@ -439,7 +440,6 @@ def check_attention(torch, F, ops, kind, dtype_name, b, l, s, masks, seed,
             out = torch.einsum("blhd,bhde->blhe", qf, kv)
             return out * (s / den)[..., None]
     else:
-        pair = None
         if qm is not None or km is not None:
             qm_ = qm if qm is not None else torch.ones(b, l, dtype=torch.bool,
                                                        device=DEV)
@@ -465,13 +465,22 @@ def check_attention(torch, F, ops, kind, dtype_name, b, l, s, masks, seed,
               "bound_ms": bound_ms,
               "bound_by": "bytes" if term == "bytes" else "operations",
               "bound_term": term}
-    if kind != "linear":
-        # The kernel's and SDPA's own device time, without the host work
-        # that the CUDA-event times above carry.
-        dev_ms = device_ms(torch, lambda: wrapper(q, k, v, qm, km), reps=reps)
-        lib_dev_ms = device_ms(torch, library, reps=reps)
-        fields.update(device_ms=dev_ms, library_device_ms=lib_dev_ms,
-                      device_over_library=dev_ms / lib_dev_ms)
+    # The kernel's and the library's own device time, without the host
+    # work that the CUDA-event times above carry (kernel_ms - device_ms is
+    # the wrapper's host work).
+    dev_ms = device_ms(torch, lambda: wrapper(q, k, v, qm, km), reps=reps)
+    lib_dev_ms = device_ms(torch, library, reps=reps)
+    fields.update(device_ms=dev_ms, library_device_ms=lib_dev_ms,
+                  device_over_library=dev_ms / lib_dev_ms)
+    if pair is not None:
+        # SDPA turns a boolean mask into an additive one inside the call;
+        # given that bias ready-made, its time is the attention's alone.
+        bias = torch.zeros(pair.shape, dtype=dt, device=DEV).masked_fill_(
+            ~pair, float("-inf"))
+        bias_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=bias), reps=reps)
+        fields.update(library_bias_device_ms=bias_ms,
+                      device_over_library_bias=dev_ms / bias_ms)
     return fields
 
 
@@ -1036,7 +1045,7 @@ def main() -> int:
                "ms": res["kernel_ms"], "plain_ms": res["plain_ms"],
                "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
                "library_ms": res["library_ms"]}
-        if "device_ms" in res:      # K5, K6
+        if "device_ms" in res:      # K1, K5, K6
             row.update(device_ms=res["device_ms"],
                        library_device_ms=res["library_device_ms"])
         table.append(row)

@@ -5,8 +5,9 @@ together; the ``csrc/*.cuh`` headers they share are part of the key below),
 then linked into one shared library with a plain C interface.
 No source includes PyTorch's headers, so a build takes seconds. The
 library is keyed by a hash of the sources and flags and lands in
-``oetr_tpu_torch/_build/`` (git-ignored); a later call in the same
-checkout reuses it. Nothing here runs at import: the first call of
+``oetr_tpu_torch/_build/`` (git-ignored), with the compiler's resource
+report beside it in a ``.json`` of the same name; a later call in the same
+checkout reuses both. Nothing here runs at import: the first call of
 ``load_library`` builds.
 """
 from __future__ import annotations
@@ -14,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import json
 import os
 import re
 import shutil
@@ -143,14 +145,17 @@ def load_library():
     Returns ``(lib, record)``: the ``ctypes.CDLL`` with argtypes set, and a
     dict with the library path, whether it was built in this call, the
     seconds of each build step, the compiler's resource report and, parsed
-    from it, each kernel's registers and spill bytes.
+    from it, each kernel's registers and spill bytes. The report is kept
+    beside the library, so a reused library carries the one of its build.
     """
     srcs = sources()
     key = build_key(srcs)
     lib_path = BUILD_DIR / f"oetr_kernels_{key}.so"
-    record = {"so": str(lib_path), "built": False, "steps_s": {},
-              "ptxas": [], "resources": {}}
-    if not lib_path.exists():
+    report_path = lib_path.with_suffix(".json")
+    record = {"so": str(lib_path), "built": False, "steps_s": {}}
+    if lib_path.exists() and report_path.exists():
+        record.update(json.loads(report_path.read_text()))
+    else:
         nvcc = nvcc_path()
         work = BUILD_DIR / f"tmp_{key}_{os.getpid()}"
         work.mkdir(parents=True, exist_ok=True)
@@ -158,15 +163,19 @@ def load_library():
         compiles, link = build_commands(nvcc, work, tmp_lib, srcs)
         logs, compile_s = _run_parallel(compiles)
         _, link_s = _run_parallel([link])
+        report = {"ptxas": [line.strip() for log in logs
+                            for line in log.splitlines()
+                            if "registers" in line or "spill" in line],
+                  "resources": ptxas_resources(logs)}
+        tmp_report = work / report_path.name
+        tmp_report.write_text(json.dumps(report))
+        # The report lands first: a library is never seen without its own.
+        os.replace(tmp_report, report_path)
         os.replace(tmp_lib, lib_path)
         shutil.rmtree(work, ignore_errors=True)
         steps = {f"nvcc -c {s.name}": t for s, t in zip(srcs, compile_s)}
         steps["nvcc -shared (link)"] = link_s[0]
-        record.update(built=True, steps_s=steps)
-        record["ptxas"] = [line.strip() for log in logs
-                           for line in log.splitlines()
-                           if "registers" in line or "spill" in line]
-        record["resources"] = ptxas_resources(logs)
+        record.update(report, built=True, steps_s=steps)
     lib = ctypes.CDLL(str(lib_path))
     for name, argtypes in ENTRY_POINTS.items():
         fn = getattr(lib, name)

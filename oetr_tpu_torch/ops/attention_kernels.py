@@ -168,25 +168,10 @@ def _check_inputs(name, q, k, v, head_widths):
     return b, l, s, h, d
 
 
-_ENTRIES: dict = {}   # (kind, dtype) -> the C entry point, looked up once
-
-
-def _entry(kind: str, dtype):
-    """The C entry point of ``kind`` ('linear', 'full' or 'flash') for
-    ``dtype``. Its arguments: q, k, v, q_mask, kv_mask, out pointers, B, L,
-    S, H, D, the kernel's own arguments, the stream; it returns the
-    cudaError_t of the launch."""
-    fn = _ENTRIES.get((kind, dtype))
-    if fn is None:
-        lib, _ = load_library()
-        suffix = "f32" if dtype == torch.float32 else "bf16"
-        fn = getattr(lib, f"oetr_{kind}_attention_{suffix}")
-        _ENTRIES[kind, dtype] = fn
-    return fn
-
-
 def _run(name, kind, q, k, v, q_mask, kv_mask, head_widths, *extra):
-    """Check, launch on q's CUDA device and return the output."""
+    """Check, launch the C entry point of ``kind`` ('linear', 'full' or
+    'flash') for q's dtype on q's CUDA device, and return the output.
+    ``extra`` are the kernel's own arguments after the shape."""
     dev = q.device
     if dev.type != "cuda" or k.device != dev or v.device != dev:
         raise ValueError(f"{name}: q, k, v on {q.device}, {k.device}, "
@@ -195,17 +180,16 @@ def _run(name, kind, q, k, v, q_mask, kv_mask, head_widths, *extra):
     # The contiguous bool masks stay referenced until the launch is queued.
     q_mask, qm_ptr = _mask_ptr("q_mask", q_mask, (b, l), dev)
     kv_mask, km_ptr = _mask_ptr("kv_mask", kv_mask, (b, s), dev)
-    entry = _entry(kind, q.dtype)
+    lib, _ = load_library()
+    suffix = "f32" if q.dtype == torch.float32 else "bf16"
+    # ctypes resolves the symbol at its first lookup and keeps it.
+    entry = getattr(lib, f"oetr_{kind}_attention_{suffix}")
     out = torch.empty_like(q)
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), qm_ptr, km_ptr,
-            out.data_ptr(), b, l, s, h, d, *extra)
-    if dev.index == torch.cuda.current_device():
-        rc = entry(*args, torch.cuda.current_stream().cuda_stream)
-    else:
-        with torch.cuda.device(dev):
-            rc = entry(*args, torch.cuda.current_stream(dev).cuda_stream)
-    if rc:
-        check_launch(load_library()[0], rc, name)
+    with torch.cuda.device(dev):
+        rc = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), qm_ptr, km_ptr,
+                   out.data_ptr(), b, l, s, h, d, *extra,
+                   torch.cuda.current_stream(dev).cuda_stream)
+    check_launch(lib, rc, name)
     return out
 
 

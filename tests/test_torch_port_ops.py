@@ -216,3 +216,63 @@ def test_mask_pointers_need_no_copy():
     assert torch.equal(conv, m)
     with pytest.raises(ValueError, match="expected"):
         _mask_ptr("m", m[:, :4], (2, 5), m.device)
+
+
+def test_reused_library_keeps_its_resource_report(monkeypatch, tmp_path):
+    """A library built by an earlier run in the same checkout is loaded
+    with its build's ptxas report, so the smoke run's build phase lists the
+    six bf16 K5/K6 kernels whether it built the library or reused it; a
+    library whose report is gone is built again."""
+    import sys
+    import types
+
+    import chip_smoke
+
+    names = [f"_ZN11softmax_mma20mma_attention_kernelILi{d}ELb{f}EEEvPKv"
+             for d in (16, 32, 64) for f in (0, 1)]
+    names.append("_ZN7softmax16attention_kernelIfLi32ELb0EEEvPKv")
+    log = "".join(
+        f"ptxas info    : Compiling entry function '{n}' for 'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        f"ptxas info    : Used {80 + i} registers, used 1 barriers\n"
+        for i, n in enumerate(names))
+
+    def commands(nvcc, work, lib, srcs):
+        return ([[sys.executable, "-c", f"print({log!r})"]],
+                [sys.executable, "-c", f"open({str(lib)!r}, 'w').close()"])
+
+    class FakeCDLL:
+        def __init__(self, path):
+            self.path = path
+
+        def __getattr__(self, name):
+            fn = types.SimpleNamespace()
+            setattr(self, name, fn)
+            return fn
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "nvcc_path", lambda: "nvcc")
+    monkeypatch.setattr(_build, "build_commands", commands)
+    monkeypatch.setattr(_build.ctypes, "CDLL", FakeCDLL)
+    records = []
+    try:
+        for drop_report in (False, False, True):
+            _build.load_library.cache_clear()
+            if drop_report:
+                next(tmp_path.glob("oetr_kernels_*.json")).unlink()
+            records.append(_build.load_library()[1])
+    finally:
+        _build.load_library.cache_clear()
+    built, reused, rebuilt = records
+    assert (built["built"], reused["built"], rebuilt["built"]) == (
+        True, False, True)
+    assert reused["so"] == built["so"] and reused["steps_s"] == {}
+    for rec in records:
+        assert rec["resources"] == built["resources"]
+        assert rec["ptxas"] == built["ptxas"] and len(rec["ptxas"]) == 14
+        rows = chip_smoke.tensor_core_resources(rec["resources"])
+        assert [r["kernel"] for r in rows] == [
+            f"K{k} bf16 D={d}" for k in (5, 6) for d in (16, 32, 64)]
+        assert rows[0] == {"kernel": "K5 bf16 D=16", "spill_stores": 0,
+                           "spill_loads": 0, "registers": 80}
+    assert sorted(p.suffix for p in tmp_path.iterdir()) == [".json", ".so"]
