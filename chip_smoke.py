@@ -6,13 +6,14 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``oetr_tpu_torch/csrc`` with nvcc
-(reporting ptxas's registers and spills for the bf16 K5/K6 kernels), holds
-each kernel against its plain torch version at the main paths' shapes (K2
-at the flagship's and the fc config's widths, K3, K1, K5 and K6 in float32
-and bfloat16, K5 and K6 also at [2, 4096, 8, 32] and in bf16 at
-SuperGlue's [8, 2048, 4, 64], K4 in float32; for K5 and K6 the kernel's
-and SDPA's device time per call from torch.profiler beside the CUDA-event
-time around a call), then drives these paths with seeded random weights:
+(reporting ptxas's registers and spills for the bf16 kernels on mma.sync:
+K2, K5, K6), holds each kernel against its plain torch version at the main
+paths' shapes (K2 at the flagship's and the fc config's widths, K3, K1, K5
+and K6 in float32 and bfloat16, K5 and K6 also at [2, 4096, 8, 32] and in
+bf16 at SuperGlue's [8, 2048, 4, 64], K4 in float32; for every kernel its
+device time per call from torch.profiler, and its library chain's, beside
+the CUDA-event time around a call), then drives these paths with seeded
+random weights:
   * ``slice``: the flagship OETR forward (ResNet50 to layer3, d_model 256,
     640x640 pairs) with its kernel switches on (K2, K3), against the same
     model with them off;
@@ -228,19 +229,22 @@ def check_linear_encoder(torch, F, ops, dtype_name, b, l, s, seed,
         den = torch.einsum("blhd,bhd->blh", q, k.sum(1)).clamp_min(1e-6)
         return torch.einsum("blhd,bhde->blhe", q, kv) * (s / den)[..., None]
 
-    ms = time_ms(torch, lambda: ops.linear_encoder_attention(*args,
-                                                             nhead=nhead))
+    call = lambda: ops.linear_encoder_attention(*args, nhead=nhead)
+    ms = time_ms(torch, call)
     plain_ms = time_ms(torch, lambda: ops.linear_encoder_attention_reference(
         *args, nhead=nhead))
     library_ms = time_ms(torch, library)
     flops = (2 * b * (l * c * c + 2 * s * c * c)
              + 2 * b * nhead * (s * d * d + l * d * d + l * d))
     bound_ms, bound_by = bound(nbytes(*args, out), flops, dtype_name)
+    dev_ms, lib_dev_ms = device_ms(torch, call), device_ms(torch, library)
     return {"kernel": "linear_encoder_attention", "dtype": dtype_name,
             "shape": {"B": b, "L": l, "S": s, "C": c, "H": nhead},
             "q_mask": q_masked, "kv_masked_frac": 0.1,
             "max_abs_err": err, "tol": tol, "kernel_ms": ms,
-            "plain_ms": plain_ms, "library_ms": library_ms,
+            "device_ms": dev_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "library_device_ms": lib_dev_ms,
+            "device_over_library": dev_ms / lib_dev_ms,
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
@@ -284,7 +288,8 @@ def check_gn_pool(torch, F, ops, load_library, dtype_name, b, h, w, c,
         if rc:
             raise RuntimeError(f"K3 launch failed: cudaError {rc}")
 
-    ms = time_ms(torch, lambda: ops.groupnorm_relu_maxpool(x, gamma, beta))
+    call = lambda: ops.groupnorm_relu_maxpool(x, gamma, beta)
+    ms = time_ms(torch, call)
     apply_ms = time_ms(torch, apply_only)
     plain_ms = time_ms(torch, lambda: ops.groupnorm_relu_maxpool_reference(
         x, gamma, beta))
@@ -292,12 +297,15 @@ def check_gn_pool(torch, F, ops, load_library, dtype_name, b, h, w, c,
     ops_count = b * (h // 2) * (w // 2) * c * 9 * 3 + 6 * b * h * w * c
     bound_ms, bound_by = bound(nbytes(x, gamma, beta, out), ops_count,
                                dtype_name)
+    dev_ms, lib_dev_ms = device_ms(torch, call), device_ms(torch, library)
     return {"kernel": "groupnorm_relu_maxpool", "dtype": dtype_name,
             "shape": {"B": b, "H": h, "W": w, "C": c},
             "max_abs_err": err, "tol": tol, "kernel_ms": ms,
-            "apply_only_ms": apply_ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by}
+            "device_ms": dev_ms, "apply_only_ms": apply_ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "library_device_ms": lib_dev_ms,
+            "device_over_library": dev_ms / lib_dev_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def k4_compare(torch, out, ref):
@@ -354,7 +362,9 @@ def check_sinkhorn(torch, ops, load_library, b, k, iters, seed, sfu_per_s):
         if rc:
             raise RuntimeError(f"K4 launch failed: cudaError {rc}")
 
-    ms = time_ms(torch, lambda: ops.log_sinkhorn_cuda(aug, mu, nu, iters))
+    call = lambda: ops.log_sinkhorn_cuda(aug, mu, nu, iters)
+    ms = time_ms(torch, call)
+    dev_ms = device_ms(torch, call, reps=10)
     chunk_ms = {str(c): time_ms(torch, lambda c=c: chunked(c), reps=10)
                 for c in sorted({1, sinkhorn_chunk(m, n), b})}
     plain_ms = time_ms(torch, lambda: ops.log_sinkhorn(aug, mu, nu, iters),
@@ -368,7 +378,8 @@ def check_sinkhorn(torch, ops, load_library, b, k, iters, seed, sfu_per_s):
             "masked_pairs": [0, 1], "k1_ne_k0_pair": 2,
             "max_abs_err": err, "err_over_tol": worst,
             "tol": {"abs": K4_TOL_ABS, "ulps": K4_TOL_ULPS},
-            "kernel_ms": ms, "chunk": sinkhorn_chunk(m, n),
+            "kernel_ms": ms, "device_ms": dev_ms,
+            "chunk": sinkhorn_chunk(m, n),
             # one wrapper call (the count) = (2 passes x iters + epilogue)
             # CUDA launches per chunk of pairs
             "cuda_launches_per_call": (2 * iters + 1)
@@ -485,18 +496,24 @@ def check_attention(torch, F, ops, kind, dtype_name, b, l, s, masks, seed,
 
 
 def tensor_core_resources(resources):
-    """ptxas's registers and spill bytes of each bf16 K5 / K6 kernel
-    (``softmax_attention_mma.cuh``), by head width; raises if one is
-    missing."""
+    """ptxas's registers and spill bytes of each bf16 kernel on mma.sync:
+    K5 / K6 (``softmax_attention_mma.cuh``) by head width, and K2's two
+    sides (``linear_encoder.cu``) by head width rounded up to 16; raises if
+    one is missing."""
     rows = []
     for mangled, res in sorted(resources.items()):
         m = re.search(r"mma_attention_kernelILi(\d+)ELb([01])E", mangled)
         if m:
             rows.append({"kernel": f"K{5 + int(m.group(2))} bf16 "
                                    f"D={m.group(1)}", **res})
-    if len(rows) != 6:
-        raise AssertionError(f"ptxas reported {len(rows)} of the 6 bf16 "
-                             "K5/K6 kernels")
+        m = re.search(r"linear_encoder_kernelI13__nv_bfloat16Li(\d+)ELb([01])E",
+                      mangled)
+        if m:
+            side = "source" if m.group(2) == "1" else "query"
+            rows.append({"kernel": f"K2 bf16 DP={m.group(1)} {side}", **res})
+    if len(rows) != 14:
+        raise AssertionError(f"ptxas reported {len(rows)} of the 14 bf16 "
+                             "K2/K5/K6 kernels")
     return sorted(rows, key=lambda r: r["kernel"])
 
 
@@ -1045,9 +1062,8 @@ def main() -> int:
                "ms": res["kernel_ms"], "plain_ms": res["plain_ms"],
                "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
                "library_ms": res["library_ms"]}
-        if "device_ms" in res:      # K1, K5, K6
-            row.update(device_ms=res["device_ms"],
-                       library_device_ms=res["library_device_ms"])
+        row.update(device_ms=res["device_ms"],
+                   library_device_ms=res.get("library_device_ms"))
         table.append(row)
     if elapsed() > BUDGET_S:
         raise RuntimeError(f"over the {BUDGET_S:.0f} s budget")

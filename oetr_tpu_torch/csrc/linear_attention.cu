@@ -11,7 +11,7 @@
 // max(den, eps) where the plain op adds eps is the Pallas kernel's.
 //
 // Design: one block per (head, batch row) runs the two passes of
-// linear_attention.cuh, as K2 does after its projections: pass 1 streams
+// linear_attention.cuh: pass 1 streams
 // the S key/value rows, a warp per row, and sums KV and ΣK in f32
 // registers; pass 2 streams the L query rows, a warp per row, lane j
 // writing the head's columns j and j + 32. Head widths up to 64.

@@ -1,5 +1,4 @@
-// The two passes of masked linear attention, shared by K1
-// (linear_attention.cu) and K2 (linear_encoder.cu).
+// The two passes of masked linear attention of K1 (linear_attention.cu).
 //
 // A block owns one (batch row, head) and kWarps warps. Lane j of a warp owns
 // the head's columns j and j + 32 (NC = 1 column per lane when D <= 32, 2

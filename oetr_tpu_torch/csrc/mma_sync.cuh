@@ -1,6 +1,7 @@
 // Warp-level tensor-core, asynchronous-copy and exponential primitives
 // (inline PTX, sm_80 and later; built here for sm_90a), used by the bf16
-// softmax-attention kernels (softmax_attention_mma.cuh).
+// softmax-attention kernels (softmax_attention_mma.cuh) and the bf16
+// encoder sublayer (linear_encoder.cu).
 //
 // Fragment layouts of mma.sync m16n8k16 (bf16 in, f32 out), for lane
 // = 4·g + t of a warp:
@@ -56,6 +57,16 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// Two 8x8 b16 matrices, transposed: lanes 0..7 give the row addresses of
+// matrix 0, lanes 8..15 those of matrix 1 (the other lanes' are ignored).
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
       : "r"(smem_addr(p)));
 }
 

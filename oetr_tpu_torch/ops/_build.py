@@ -40,7 +40,7 @@ _F = ctypes.c_float
 # C entry points: name -> argtypes. Every pointer, and the stream, is a
 # c_void_p; each returns the cudaError_t of its launch.
 _LINEAR_ENCODER_ARGS = [_P, _P, _P, _LL, _P, _LL, _P, _P, _P, _P, _P, _P, _P,
-                        _P, _I, _I, _I, _I, _I, _F, _F, _P]
+                        _P, _P, _LL, _I, _I, _I, _I, _I, _F, _F, _P]
 _GN_POOL_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
 _SINKHORN_ARGS = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
 # q, k, v, q_mask, kv_mask, out, B, L, S, H, D, then each kernel's own.
@@ -48,6 +48,7 @@ _ATTENTION_ARGS = [_P] * 6 + [_I] * 5
 ENTRY_POINTS = {
     "oetr_linear_encoder_f32": _LINEAR_ENCODER_ARGS,
     "oetr_linear_encoder_bf16": _LINEAR_ENCODER_ARGS,
+    "oetr_linear_encoder_workspace": [_I, _I, _I, _I, _I, _P],
     "oetr_gn_relu_maxpool_f32": _GN_POOL_ARGS,
     "oetr_gn_relu_maxpool_bf16": _GN_POOL_ARGS,
     "oetr_log_sinkhorn_f32": _SINKHORN_ARGS,

@@ -5,7 +5,8 @@
 LayerNorm of x and of the source (eps 1e-5, f32), plus the positional
 encodings, the q/k/v projections (no bias) and masked linear attention,
 giving the pre-merge message [B, L, C]. On a CUDA tensor it launches the
-hand-written kernel in ``csrc/linear_encoder.cu``; on a CPU tensor it runs
+hand-written kernel in ``csrc/linear_encoder.cu`` (two CUDA launches a
+call: the source side, then the query side); on a CPU tensor it runs
 ``linear_encoder_attention_reference``, its plain torch version.
 
 Weights are in torch's ``nn.Linear`` layout [C_out, C_in] (the transpose of
@@ -14,11 +15,41 @@ the flax kernels), f32; ``lnq``/``lnkv`` stack LayerNorm (weight, bias) as
 """
 from __future__ import annotations
 
+import ctypes
+import weakref
+
 import torch
 
 from ._build import check_launch, load_library
 
-MAX_HEAD_WIDTH = 64   # the widest head the kernel takes (linear_attention.cuh)
+MAX_HEAD_WIDTH = 64   # the widest head the kernel takes
+
+# id(weight) -> (weakref, (version, data_ptr), the weight rounded to bf16).
+_ROUNDED: dict[int, tuple] = {}
+
+
+def _weight_as(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``w`` as the kernel reads it: f32 as it is; for bf16 a copy rounded
+    once, kept while ``w`` lives and made anew when ``w`` changes in place
+    (its version counter) or gets other storage. A write through
+    ``w.data`` bumps no counter and is not seen."""
+    if dtype == torch.float32:
+        return w
+    if w.is_inference():        # no version counter to watch
+        return w.to(dtype)
+    key, stamp = id(w), (w._version, w.data_ptr())
+    hit = _ROUNDED.get(key)
+    if hit is not None and hit[0]() is w and hit[1] == stamp:
+        return hit[2]
+    rounded = w.detach().to(dtype).contiguous()
+    _ROUNDED[key] = (weakref.ref(w, lambda _, k=key: _ROUNDED.pop(k, None)),
+                     stamp, rounded)
+    return rounded
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """The kernel reads 16 bytes at a time: a copy where t is not aligned."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _rounded_inv(n: int, dtype: torch.dtype) -> float:
@@ -117,7 +148,8 @@ def linear_encoder_attention(x, source, x_pos, s_pos, lnq, lnkv, wq, wk, wv,
     q_mask [B, L] / kv_mask [B, S] bool or None. Returns [B, L, C] in x's
     dtype. A CPU tensor runs the plain version; a CUDA tensor launches the
     kernel (float32 or bfloat16, C a multiple of 32, C/nhead <= 64) or
-    raises.
+    raises. In bf16 the kernel reads each weight rounded to bf16 once
+    (``_weight_as``).
     """
     if x.device.type == "cpu":
         return linear_encoder_attention_reference(
@@ -146,18 +178,27 @@ def linear_encoder_attention(x, source, x_pos, s_pos, lnq, lnkv, wq, wk, wv,
         _check(name, t, (c, c), torch.float32, dev)
     q_mask, qm_ptr = _mask_ptr("q_mask", q_mask, (b, l), dev)
     kv_mask, km_ptr = _mask_ptr("kv_mask", kv_mask, (b, s), dev)
+    x, source, x_pos, s_pos, lnq, lnkv = (
+        _aligned(t) for t in (x, source, x_pos, s_pos, lnq, lnkv))
+    wq, wk, wv = (_aligned(_weight_as(w, x.dtype)) for w in (wq, wk, wv))
 
     lib, _ = load_library()
-    entry = (lib.oetr_linear_encoder_f32 if x.dtype == torch.float32
-             else lib.oetr_linear_encoder_bf16)
+    bf16 = x.dtype == torch.bfloat16
+    entry = (lib.oetr_linear_encoder_bf16 if bf16
+             else lib.oetr_linear_encoder_f32)
+    floats = ctypes.c_longlong()
+    check_launch(lib, lib.oetr_linear_encoder_workspace(
+        int(bf16), b, s, c, nhead, ctypes.byref(floats)),
+        "linear_encoder_attention")
+    ws = torch.empty(floats.value, dtype=torch.float32, device=dev)
     out = torch.empty_like(x)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         rc = entry(x.data_ptr(), source.data_ptr(), x_pos.data_ptr(), xps,
                    s_pos.data_ptr(), sps, lnq.data_ptr(), lnkv.data_ptr(),
                    wq.data_ptr(), wk.data_ptr(), wv.data_ptr(), qm_ptr, km_ptr,
-                   out.data_ptr(), b, l, s, c, nhead, eps,
-                   _rounded_inv(s, x.dtype), stream)
+                   out.data_ptr(), ws.data_ptr(), ws.numel(), b, l, s, c,
+                   nhead, eps, _rounded_inv(s, x.dtype), stream)
     check_launch(lib, rc, "linear_encoder_attention")
     linear_encoder_attention.launches += 1
     return out

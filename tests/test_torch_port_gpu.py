@@ -7,8 +7,11 @@ without it:
     python -m pytest --noconftest -q tests/test_torch_port_gpu.py
 
 The cases reach what the flagship shapes in ``chip_smoke.py`` do not:
-head widths below 32 and above (up to 64, at C = 512), per-batch positional
-encodings, no masks, single tokens, small and non-square images; for the
+head widths below 32 and above (up to 64, at C = 512 and 1024), widths off
+the 16-column tiles, per-batch positional encodings, no masks, single
+tokens, row counts at and around K2's row tiles, S >> L and L >> S, a batch
+row with every key masked, weights changed between calls, small and
+non-square images; for the
 attention kernels (K1, K5, K6) batches of 1 and 3, L != S, lengths off the
 64-row tiles, head widths 16, 32 and 64, a batch row with every key masked,
 a q_mask alone, K5's keys staged whole and in chunks (f32) and its two
@@ -54,6 +57,8 @@ def _encoder_args(dev, dtype, b, l, s, c, pos_batch, masked, seed):
     ws = [rn(c, c) * c ** -0.5 for _ in range(3)]
     qm = rn(b, l) > -1.0 if masked else None
     km = rn(b, s) > -1.0 if masked else None
+    if masked == "kv_row_off":     # batch row 0 sees no key: ΣK = 0
+        km[0] = False
     return (rn(b, l, c).to(dtype), rn(b, s, c).to(dtype),
             (0.5 * rn(pb, l, c)).to(dtype), (0.5 * rn(pb, s, c)).to(dtype),
             lnq, lnkv, *ws, qm, km)
@@ -68,6 +73,17 @@ def _encoder_args(dev, dtype, b, l, s, c, pos_batch, masked, seed):
     (1, 8, 8, 512, 16, False, False),    # C=512, D=32: weights in smem
     (2, 40, 33, 512, 8, True, True),     # C=512, D=64 (the fc config)
     (2, 10, 6, 96, 2, False, True),      # D=48: lanes own 2 columns
+    # Row tiles (64 rows in bf16, 32 in f32): one short of, at, one past.
+    (2, 63, 64, 256, 8, False, True),
+    (1, 65, 129, 256, 8, True, True),
+    (1, 129, 65, 128, 4, False, False),
+    (2, 64, 63, 64, 2, True, True),
+    (1, 8, 1000, 256, 8, False, True),   # S >> L: 16-32 source tiles a head
+    (2, 1000, 3, 256, 8, False, True),   # L >> S
+    (2, 40, 50, 256, 8, False, "kv_row_off"),
+    (1, 100, 100, 512, 8, False, True),  # B = 1 at the fc width: 16 blocks
+    (1, 40, 50, 1024, 16, True, True),   # C = 1024: the A tile in slabs
+    (1, 20, 30, 96, 8, False, True),     # D = 12, padded to 16
 ])
 def test_linear_encoder_kernel_matches_plain(cuda, dtype, b, l, s, c, nhead,
                                              pos_batch, masked):
@@ -78,6 +94,24 @@ def test_linear_encoder_kernel_matches_plain(cuda, dtype, b, l, s, c, nhead,
     torch.cuda.synchronize()
     assert ops.linear_encoder_attention.launches == before + 1
     assert out.dtype == dtype and out.shape == (b, l, c)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0,
+                               atol=_tol(ref, dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_linear_encoder_kernel_follows_weight_changes(cuda, dtype):
+    """The bf16 path keeps each weight rounded once: a weight changed in
+    place (as load_state_dict or an optimizer step changes it) and one with
+    new storage both reach the kernel on the next call."""
+    args = list(_encoder_args(cuda, dtype, 2, 40, 33, 256, False, True, 3))
+    ops.linear_encoder_attention(*args, nhead=8)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    with torch.no_grad():
+        args[6].copy_(torch.randn(256, 256, generator=g, device=cuda) / 16)
+    args[7] = -args[7]
+    out = ops.linear_encoder_attention(*args, nhead=8)
+    ref = ops.linear_encoder_attention_reference(*args, nhead=8)
+    torch.cuda.synchronize()
     torch.testing.assert_close(out.float(), ref.float(), rtol=0,
                                atol=_tol(ref, dtype))
 

@@ -53,17 +53,73 @@ def _jax_encoder_args(args):
     return tuple(None if a is None else jnp.asarray(a) for a in args)
 
 
-@pytest.mark.parametrize("l,s,masked", [(16, 24, True), (24, 16, True),
-                                        (16, 16, False)])
-def test_linear_encoder_reference_matches_jax(rng, l, s, masked):
-    args = _encoder_inputs(rng, 2, l, s, 32, masked)
-    ref = ops.linear_encoder_attention_reference(*_port_encoder_args(args),
-                                                 nhead=4).numpy()
-    jargs = _jax_encoder_args(args)
-    pallas = linear_encoder_attention_pallas(*jargs, nhead=4, interpret=True)
-    xla = linear_encoder_attention_xla(*jargs, nhead=4)
-    np.testing.assert_allclose(ref, np.asarray(pallas), atol=2e-5)
+@pytest.mark.parametrize("l,s,masked,dtype,c,nhead", [
+    (16, 24, True, "float32", 32, 4), (24, 16, True, "float32", 32, 4),
+    (16, 16, False, "float32", 32, 4),
+    (16, 24, True, "bfloat16", 64, 2),      # D = 32, the flagship's head
+    (24, 16, True, "float32", 128, 2),      # D = 64, the fc config's head
+    (24, 16, True, "bfloat16", 128, 2),
+], ids=["16-24-True", "24-16-True", "16-16-False", "bf16-C64-H2",
+        "f32-C128-H2", "bf16-C128-H2"])
+def test_linear_encoder_reference_matches_jax(rng, l, s, masked, dtype, c,
+                                              nhead):
+    """The plain version, which the kernel is held to on the card, rounds
+    where the Pallas kernel rounds. f32: 2e-5. bf16 (x, source and the
+    encodings in bf16 on both sides): two bf16 steps of max(1, |ref|), since
+    an f32 sum taken in another order can move a rounding by a step; the
+    XLA twin rounds elsewhere and is compared in f32 only."""
+    args = _encoder_inputs(rng, 2, l, s, c, masked)
+    port_args = list(_port_encoder_args(args))
+    jargs = list(_jax_encoder_args(args))
+    if dtype == "bfloat16":
+        for i in range(4):
+            port_args[i] = port_args[i].to(torch.bfloat16)
+            jargs[i] = jargs[i].astype(jnp.bfloat16)
+    ref = ops.linear_encoder_attention_reference(*port_args, nhead=nhead)
+    ref = ref.float().numpy()
+    pallas = linear_encoder_attention_pallas(*jargs, nhead=nhead,
+                                             interpret=True)
+    pallas = np.asarray(pallas.astype(jnp.float32))
+    if dtype == "bfloat16":
+        tol = 2 * 2.0 ** -7 * max(1.0, float(np.abs(ref).max()))
+        np.testing.assert_allclose(ref, pallas, rtol=0, atol=tol)
+        return
+    xla = linear_encoder_attention_xla(*jargs, nhead=nhead)
+    np.testing.assert_allclose(ref, pallas, atol=2e-5)
     np.testing.assert_allclose(ref, np.asarray(xla), atol=2e-5)
+
+
+def test_bf16_weight_copy_follows_the_weight():
+    """K2's bf16 path reads each weight rounded to bf16 once: the copy is
+    kept while the weight is unchanged, made anew after an in-place change
+    (an optimizer step, load_state_dict), and dropped with the weight; f32
+    weights pass as they are."""
+    import gc
+
+    from oetr_tpu_torch.ops.linear_encoder import _ROUNDED, _weight_as
+
+    bf16 = torch.bfloat16
+    w = torch.randn(64, 64)
+    first = _weight_as(w, bf16)
+    assert first.dtype == bf16 and torch.equal(first, w.to(bf16))
+    assert _weight_as(w, bf16) is first
+    assert _weight_as(w, torch.float32) is w
+    with torch.no_grad():
+        w.mul_(-3.0)
+    second = _weight_as(w, bf16)
+    assert second is not first and torch.equal(second, w.to(bf16))
+
+    layer = torch.nn.Linear(8, 8, bias=False)
+    before = _weight_as(layer.weight, bf16)
+    layer.load_state_dict({"weight": torch.full((8, 8), 0.3)})
+    after = _weight_as(layer.weight, bf16)
+    assert after is not before
+    assert torch.equal(after, torch.full((8, 8), 0.3).to(bf16))
+
+    key = id(w)
+    del w
+    gc.collect()
+    assert key not in _ROUNDED
 
 
 def test_gn_pool_reference_matches_jax(rng):
@@ -218,18 +274,35 @@ def test_mask_pointers_need_no_copy():
         _mask_ptr("m", m[:, :4], (2, 5), m.device)
 
 
+def test_unaligned_inputs_are_copied():
+    """K2 reads its inputs 16 bytes at a time: a tensor whose data does not
+    start on a 16-byte boundary reaches it as an aligned copy, an aligned
+    one as it is."""
+    from oetr_tpu_torch.ops.linear_encoder import _aligned
+    base = torch.arange(40, dtype=torch.float32)
+    off = base[1:33].view(4, 8)               # starts 4 bytes in
+    assert off.data_ptr() % 16 != 0
+    fixed = _aligned(off)
+    assert fixed.data_ptr() % 16 == 0 and torch.equal(fixed, off)
+    assert _aligned(base) is base
+
+
 def test_reused_library_keeps_its_resource_report(monkeypatch, tmp_path):
     """A library built by an earlier run in the same checkout is loaded
     with its build's ptxas report, so the smoke run's build phase lists the
-    six bf16 K5/K6 kernels whether it built the library or reused it; a
-    library whose report is gone is built again."""
+    fourteen bf16 kernels on mma.sync (K2's eight, K5/K6's six) whether it
+    built the library or reused it; a library whose report is gone is built
+    again."""
     import sys
     import types
 
     import chip_smoke
 
-    names = [f"_ZN11softmax_mma20mma_attention_kernelILi{d}ELb{f}EEEvPKv"
-             for d in (16, 32, 64) for f in (0, 1)]
+    names = [f"_ZN12_GLOBAL__N_121linear_encoder_kernelI13__nv_bfloat16Li{d}ELb{s}"
+             "EEEvNS_6ParamsE" for d in (16, 32, 48, 64) for s in (0, 1)]
+    names.append("_ZN12_GLOBAL__N_121linear_encoder_kernelIfLi32ELb1EEEvNS_6ParamsE")
+    names += [f"_ZN11softmax_mma20mma_attention_kernelILi{d}ELb{f}EEEvPKv"
+              for d in (16, 32, 64) for f in (0, 1)]
     names.append("_ZN7softmax16attention_kernelIfLi32ELb0EEEvPKv")
     log = "".join(
         f"ptxas info    : Compiling entry function '{n}' for 'sm_90a'\n"
@@ -269,10 +342,14 @@ def test_reused_library_keeps_its_resource_report(monkeypatch, tmp_path):
     assert reused["so"] == built["so"] and reused["steps_s"] == {}
     for rec in records:
         assert rec["resources"] == built["resources"]
-        assert rec["ptxas"] == built["ptxas"] and len(rec["ptxas"]) == 14
+        assert rec["ptxas"] == built["ptxas"] and len(rec["ptxas"]) == 32
         rows = chip_smoke.tensor_core_resources(rec["resources"])
         assert [r["kernel"] for r in rows] == [
+            f"K2 bf16 DP={d} {side}" for d in (16, 32, 48, 64)
+            for side in ("query", "source")] + [
             f"K{k} bf16 D={d}" for k in (5, 6) for d in (16, 32, 64)]
-        assert rows[0] == {"kernel": "K5 bf16 D=16", "spill_stores": 0,
+        assert rows[0] == {"kernel": "K2 bf16 DP=16 query", "spill_stores": 0,
                            "spill_loads": 0, "registers": 80}
+        assert rows[8] == {"kernel": "K5 bf16 D=16", "spill_stores": 0,
+                           "spill_loads": 0, "registers": 89}
     assert sorted(p.suffix for p in tmp_path.iterdir()) == [".json", ".so"]
