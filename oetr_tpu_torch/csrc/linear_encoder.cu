@@ -25,8 +25,9 @@
 //     LayerNorms its rows once, sums each head's partials in tile order
 //     (deterministic, no atomics), rounds KV' to T once, projects q, forms
 //     Q and writes round(Q·KV / max(Q·ΣK, eps) · S) for its rows.
-// The head groups are as few as give a grid of at least one block per SM
-// (4 of 8 heads at the flagship's [8, 400, 256]: 224 blocks a side).
+// The head groups are as many as still fit the grid in one wave of
+// resident blocks (4 groups of 2 heads at the flagship's [8, 400, 256]:
+// 224 blocks a side, two an SM).
 //
 // Inside a block (linear_encoder_tiles.cuh): the rows, their positional
 // encodings and the LayerNorm weights land by cp.async; each row's two-pass
@@ -434,13 +435,16 @@ int pick_slab(int C, int max_smem) {
   return slab;
 }
 
-// The fewest head groups (a divisor of H) that give at least one block per
-// SM, or H.
-int head_groups(int H, int blocks, int sms) {
-  for (int g = 1; g < H; ++g) {
-    if (H % g == 0 && blocks * g >= sms) return g;
+// The most head groups (a divisor of H) whose grid still runs in one wave
+// of `slots` resident blocks: each group more shortens every block's chain
+// of heads, a second wave repeats the rows' load and LayerNorm. 1 where
+// even one group takes more than a wave.
+int head_groups(int H, int blocks, int slots) {
+  int best = 1;
+  for (int g = 2; g <= H; ++g) {
+    if (H % g == 0 && blocks * g <= slots) best = g;
   }
-  return H;
+  return best;
 }
 
 template <typename T, int DP, bool kKV>
@@ -448,16 +452,22 @@ int launch_side(Params p, int B, int tiles, int max_smem, int sms,
                 cudaStream_t stream) {
   p.slab = pick_slab<T, DP, kKV>(p.C, max_smem);
   if (p.slab == 0) return (int)cudaErrorInvalidValue;
-  const int groups = head_groups(p.H, B * tiles, sms);
-  p.hpb = p.H / groups;
   const size_t smem = smem_bytes<T, DP, kKV>(p.slab);
   auto kernel = linear_encoder_kernel<T, DP, kKV>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int per_sm = 0;
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kernel, Shape<T>::kThreads, smem);
+  }
   if (err != cudaSuccess) {
     cudaGetLastError();  // clear it, or the next launch's check reports it
     return (int)err;
   }
+  const int groups =
+      head_groups(p.H, B * tiles, sms * (per_sm > 0 ? per_sm : 1));
+  p.hpb = p.H / groups;
   kernel<<<dim3(tiles, groups, B), Shape<T>::kThreads, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
