@@ -12,8 +12,10 @@ paths' shapes (K2 at the flagship's and the fc config's widths, K3, K1, K5
 and K6 in float32 and bfloat16, K5 and K6 also at [2, 4096, 8, 32] and in
 bf16 at SuperGlue's [8, 2048, 4, 64], K4 in float32; for every kernel its
 device time per call from torch.profiler, and its library chain's, beside
-the CUDA-event time around a call), then drives these paths with seeded
-random weights:
+the CUDA-event time around a call; K3's statistics and apply kernels also
+each alone; K4 with its launch plan, its launches counted in a trace, and
+on one pair too large for the grid's shared memory), then drives these
+paths with seeded random weights:
   * ``slice``: the flagship OETR forward (ResNet50 to layer3, d_model 256,
     640x640 pairs) with its kernel switches on (K2, K3), against the same
     model with them off;
@@ -88,6 +90,10 @@ SINKHORN_ITERS = 30
 K4_TOL_ABS = 1e-4
 K4_TOL_ULPS = 16
 K4_MASKED = -1e8
+# One pair of 3001² does not fit the grid's shared memory (23 rows a
+# block, 16 of them resident on an H100).
+K4_OVER_SMEM_K = 3000
+K4_WIDE_SCALE = 300.0
 MATCH_AGREE_MIN = 0.99   # matches0 agreement, K4 on vs off, valid keypoints
 SFU_PER_CLK_PER_SM = 16  # exponentials per clock per SM (Hopper SFUs)
 
@@ -148,6 +154,32 @@ def device_ms(torch, fn, reps: int = 20, warmup: int = 3,
         counts.append(len(dev))
     raise RuntimeError(f"torch.profiler recorded {counts} device events for "
                        f"{reps} calls")
+
+
+def traced_launches(torch, fn, kernel_name: str, reps: int = 3,
+                    sessions: int = 3) -> int:
+    """Launches per call of ``fn()`` of the kernels whose name holds
+    ``kernel_name``: their device events in a torch.profiler trace of
+    ``reps`` calls, over ``reps``. A count that is not a multiple of
+    ``reps`` missed an event, and is traced again as in ``device_ms``."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    counts = []
+    for _ in range(sessions):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        n = sum(1 for evt in prof.events()
+                if evt.device_type == torch.autograd.DeviceType.CUDA
+                and kernel_name in evt.name)
+        if n % reps == 0:
+            return n // reps
+        counts.append(n)
+    raise RuntimeError(f"torch.profiler recorded {counts} {kernel_name} "
+                       f"events for {reps} calls")
 
 
 def nbytes(*tensors) -> int:
@@ -250,7 +282,8 @@ def check_linear_encoder(torch, F, ops, dtype_name, b, l, s, seed,
 
 def check_gn_pool(torch, F, ops, load_library, dtype_name, b, h, w, c,
                   seed):
-    """K3 against its plain version; returns the phase fields."""
+    """K3 against its plain version, and its statistics and apply kernels
+    each alone; returns the phase fields."""
     dt = getattr(torch, dtype_name)
     dev = DEV
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -275,22 +308,34 @@ def check_gn_pool(torch, F, ops, load_library, dtype_name, b, h, w, c,
         y = F.relu(F.group_norm(x_nchw, 32, gamma_t, beta_t, 1e-5))
         return F.max_pool2d(y, 3, stride=2, padding=1)
 
+    # The statistics kernels alone against gn_scale_shift (f32 sums in
+    # another order: 1e-5 of the largest |scale|, |shift|).
     scale, shift = ops.gn_scale_shift(x, gamma, beta, 32, 1e-5)
+    k_scale, k_shift = ops.gn_scale_shift_cuda(x, gamma, beta, 32, 1e-5)
+    stats_err = max(((k - r).abs().max() / r.abs().max()).item()
+                    for k, r in ((k_scale, scale), (k_shift, shift)))
+    if not stats_err <= 1e-5:
+        raise AssertionError(f"K3 {dtype_name} statistics: relative error "
+                             f"{stats_err} > 1e-5")
     lib, _ = load_library()
-    entry = getattr(lib, f"oetr_gn_relu_maxpool_"
-                         f"{'f32' if dtype_name == 'float32' else 'bf16'}")
+    sfx = "f32" if dtype_name == "float32" else "bf16"
+    stream = lambda: torch.cuda.current_stream().cuda_stream
     buf = torch.empty_like(out)
 
-    def apply_only():  # the kernel alone, statistics precomputed
-        rc = entry(x.data_ptr(), scale.data_ptr(), shift.data_ptr(),
-                   buf.data_ptr(), b, h, w, c,
-                   torch.cuda.current_stream().cuda_stream)
+    def apply_only():  # the apply kernel alone, statistics precomputed
+        rc = getattr(lib, f"oetr_gn_apply_pool_{sfx}")(
+            x.data_ptr(), scale.data_ptr(), shift.data_ptr(), buf.data_ptr(),
+            b, h, w, c, stream())
         if rc:
-            raise RuntimeError(f"K3 launch failed: cudaError {rc}")
+            raise RuntimeError(f"K3 apply launch failed: cudaError {rc}")
 
+    apply_only()
+    torch.cuda.synchronize()
+    apply_err = (buf.float() - ref.float()).abs().max().item()
+    if not apply_err <= tol:
+        raise AssertionError(f"K3 {dtype_name} apply: {apply_err} > {tol}")
     call = lambda: ops.groupnorm_relu_maxpool(x, gamma, beta)
     ms = time_ms(torch, call)
-    apply_ms = time_ms(torch, apply_only)
     plain_ms = time_ms(torch, lambda: ops.groupnorm_relu_maxpool_reference(
         x, gamma, beta))
     library_ms = time_ms(torch, library)
@@ -301,7 +346,12 @@ def check_gn_pool(torch, F, ops, load_library, dtype_name, b, h, w, c,
     return {"kernel": "groupnorm_relu_maxpool", "dtype": dtype_name,
             "shape": {"B": b, "H": h, "W": w, "C": c},
             "max_abs_err": err, "tol": tol, "kernel_ms": ms,
-            "device_ms": dev_ms, "apply_only_ms": apply_ms,
+            "device_ms": dev_ms,
+            "stats_rel_err": stats_err, "stats_tol_rel": 1e-5,
+            "stats_device_ms": device_ms(
+                torch, lambda: ops.gn_scale_shift_cuda(x, gamma, beta)),
+            "apply_max_abs_err": apply_err,
+            "apply_device_ms": device_ms(torch, apply_only),
             "plain_ms": plain_ms, "library_ms": library_ms,
             "library_device_ms": lib_dev_ms,
             "device_over_library": dev_ms / lib_dev_ms,
@@ -324,22 +374,32 @@ def k4_compare(torch, out, ref):
     return err.max().item(), (err / tol).max().item()
 
 
-def check_sinkhorn(torch, ops, load_library, b, k, iters, seed, sfu_per_s):
-    """K4 against its plain version on SuperGlue's transport problem at
-    k keypoints a side: two pairs with ~10% of keypoints masked, one with
-    k1 != k0 valid; returns the phase fields."""
-    from oetr_tpu_torch.ops.sinkhorn import augment_scores, sinkhorn_chunk
+def k4_problem(torch, b, k, seed, scale=3.0):
+    """SuperGlue's transport problem at k keypoints a side, scores of
+    ``scale`` times a normal sample: two pairs with ~10% of keypoints
+    masked, one with k1 != k0 valid (where b > 2)."""
+    from oetr_tpu_torch.ops.sinkhorn import augment_scores
 
     dev = DEV
     g = torch.Generator(device=dev).manual_seed(seed)
-    scores = torch.randn(b, k, k, generator=g, device=dev) * 3
+    scores = torch.randn(b, k, k, generator=g, device=dev) * scale
     mask0 = torch.ones(b, k, dtype=torch.bool, device=dev)
     mask1 = torch.ones(b, k, dtype=torch.bool, device=dev)
-    for i in (0, 1):
+    for i in range(min(b, 2)):
         mask0[i] = torch.rand(k, generator=g, device=dev) >= 0.1
         mask1[i] = torch.rand(k, generator=g, device=dev) >= 0.1
-    mask1[2, k * 4 // 5:] = False
-    aug, mu, nu, _ = augment_scores(scores, 1.0, mask0, mask1)
+    if b > 2:
+        mask1[2, k * 4 // 5:] = False
+    return augment_scores(scores, 1.0, mask0, mask1)[:3]
+
+
+def check_sinkhorn(torch, ops, b, k, iters, seed, sfu_per_s, big_k):
+    """K4 against its plain version on SuperGlue's transport problem at
+    k keypoints a side, and on one pair at big_k, too large for the grid's
+    shared memory; returns the phase fields."""
+    from oetr_tpu_torch.ops.sinkhorn import device_limits, sinkhorn_plan
+
+    aug, mu, nu = k4_problem(torch, b, k, seed)
     out = ops.log_sinkhorn_cuda(aug, mu, nu, iters)
     ref = ops.log_sinkhorn(aug, mu, nu, iters)
     torch.cuda.synchronize()
@@ -347,26 +407,46 @@ def check_sinkhorn(torch, ops, load_library, b, k, iters, seed, sfu_per_s):
     if not worst <= 1.0:
         raise AssertionError(f"K4 [{b},{k + 1},{k + 1}]: max_abs_err {err}, "
                              f"{worst:.2f} x its tolerance")
-
-    lib, _ = load_library()
+    limits = device_limits(torch.cuda.current_device())
     _, m, n = aug.shape
-    u, v, buf = torch.zeros_like(mu), torch.zeros_like(nu), torch.empty_like(aug)
+    plan = sinkhorn_plan(b, m, n, *limits)
 
-    def chunked(chunk):  # the kernel alone with `chunk` pairs per L2 pass
-        u.zero_()
-        v.zero_()
-        rc = lib.oetr_log_sinkhorn_f32(
-            aug.data_ptr(), mu.data_ptr(), nu.data_ptr(), u.data_ptr(),
-            v.data_ptr(), buf.data_ptr(), b, m, n, iters, chunk,
-            torch.cuda.current_stream().cuda_stream)
-        if rc:
-            raise RuntimeError(f"K4 launch failed: cudaError {rc}")
+    # One pair whose slabs do not fit: part of each block's rows from L2.
+    big = k4_problem(torch, 1, big_k, seed + 1)
+    big_plan = sinkhorn_plan(1, big_k + 1, big_k + 1, *limits)
+    if big_plan.resident_rows >= big_plan.rows_per_block:
+        raise AssertionError(f"K4 at {big_k + 1}²: plan {big_plan} keeps "
+                             "every row in shared memory")
+    big_out = ops.log_sinkhorn_cuda(*big, iters)
+    big_err, big_worst = k4_compare(torch, big_out,
+                                    ops.log_sinkhorn(*big, iters))
+    if not big_worst <= 1.0:
+        raise AssertionError(f"K4 [1,{big_k + 1},{big_k + 1}]: max_abs_err "
+                             f"{big_err}, {big_worst:.2f} x its tolerance")
+    del big_out
+
+    # Scores of several hundred, as random-weight SuperGlue gives them: the
+    # runs' maxima move more, and more runs take their exponentials again.
+    wide = k4_problem(torch, b, k, seed + 2, scale=K4_WIDE_SCALE)
+    wide_out = ops.log_sinkhorn_cuda(*wide, iters)
+    wide_err, wide_worst = k4_compare(torch, wide_out,
+                                      ops.log_sinkhorn(*wide, iters))
+    if not wide_worst <= 1.0:
+        raise AssertionError(f"K4 scores x{K4_WIDE_SCALE}: max_abs_err "
+                             f"{wide_err}, {wide_worst:.2f} x its tolerance")
+    del wide_out
+    wide_ms = device_ms(torch, lambda: ops.log_sinkhorn_cuda(*wide, iters),
+                        reps=10)
+    del wide
 
     call = lambda: ops.log_sinkhorn_cuda(aug, mu, nu, iters)
+    launches = traced_launches(torch, call, "sinkhorn_kernel")
+    if launches != plan.launches:
+        raise AssertionError(f"K4: {launches} sinkhorn_kernel launches a "
+                             f"call in the trace, the plan has "
+                             f"{plan.launches}")
     ms = time_ms(torch, call)
     dev_ms = device_ms(torch, call, reps=10)
-    chunk_ms = {str(c): time_ms(torch, lambda c=c: chunked(c), reps=10)
-                for c in sorted({1, sinkhorn_chunk(m, n), b})}
     plain_ms = time_ms(torch, lambda: ops.log_sinkhorn(aug, mu, nu, iters),
                        reps=10)
     bound_ms, bound_term = bound(nbytes(aug, mu, nu, out),
@@ -379,13 +459,26 @@ def check_sinkhorn(torch, ops, load_library, b, k, iters, seed, sfu_per_s):
             "max_abs_err": err, "err_over_tol": worst,
             "tol": {"abs": K4_TOL_ABS, "ulps": K4_TOL_ULPS},
             "kernel_ms": ms, "device_ms": dev_ms,
-            "chunk": sinkhorn_chunk(m, n),
-            # one wrapper call (the count) = (2 passes x iters + epilogue)
-            # CUDA launches per chunk of pairs
-            "cuda_launches_per_call": (2 * iters + 1)
-            * -(-b // sinkhorn_chunk(m, n)),
-            "kernel_ms_by_chunk": chunk_ms, "plain_ms": plain_ms,
-            "library_ms": None, "bound_ms": bound_ms,
+            "sms_and_smem_per_block": list(limits),
+            "pairs_per_launch": plan.pairs_per_launch,
+            "rows_per_block": plan.rows_per_block,
+            "resident_rows": plan.resident_rows,
+            "smem_bytes_per_block": plan.smem_bytes,
+            # sinkhorn_kernel's launches in a trace of one wrapper call,
+            # beside the plan's: one cooperative launch per group of pairs
+            "cuda_launches_per_call": launches,
+            "planned_launches_per_call": plan.launches,
+            "over_smem": {"shape": [1, big_k + 1, big_k + 1],
+                          "rows_per_block": big_plan.rows_per_block,
+                          "resident_rows": big_plan.resident_rows,
+                          "max_abs_err": big_err,
+                          "err_over_tol": big_worst,
+                          "device_ms": device_ms(
+                              torch, lambda: ops.log_sinkhorn_cuda(
+                                  *big, iters), reps=3)},
+            "wide_scores": {"scale": K4_WIDE_SCALE, "max_abs_err": wide_err,
+                            "err_over_tol": wide_worst, "device_ms": wide_ms},
+            "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
             "bound_by": "bytes" if bound_term == "bytes" else "operations",
             "bound_term": bound_term}
 
@@ -514,6 +607,28 @@ def tensor_core_resources(resources):
     if len(rows) != 14:
         raise AssertionError(f"ptxas reported {len(rows)} of the 14 bf16 "
                              "K2/K5/K6 kernels")
+    return sorted(rows, key=lambda r: r["kernel"])
+
+
+def k3_k4_resources(resources):
+    """ptxas's registers and spill bytes of K4's kernel and K3's three (the
+    statistics and apply kernels in both dtypes at 8 and 1 channels a
+    thread); raises if one is missing."""
+    names = ("sinkhorn_kernel", "gn_stats_kernel", "gn_fold_kernel",
+             "gn_apply_pool_kernel")
+    rows = []
+    for mangled, res in sorted(resources.items()):
+        for name in names:
+            if re.search(rf"\d{name}", mangled):
+                label = name
+                if name in ("gn_stats_kernel", "gn_apply_pool_kernel"):
+                    vec = re.search(r"Li(\d+)E", mangled)
+                    label += (" bf16" if "bfloat16" in mangled else " f32") \
+                        + f" V={vec.group(1) if vec else '?'}"
+                rows.append({"kernel": label, **res})
+    if len(rows) != 10:
+        raise AssertionError(f"ptxas reported {len(rows)} of the 10 K3/K4 "
+                             "kernels")
     return sorted(rows, key=lambda r: r["kernel"])
 
 
@@ -943,6 +1058,7 @@ def main() -> int:
     phase("build", so=record["so"], built=record["built"],
           steps_s=record["steps_s"],
           tensor_core_kernels=tensor_core_resources(record["resources"]),
+          k3_k4_kernels=k3_k4_resources(record["resources"]),
           ptxas=record["ptxas"])
 
     k2, k3 = {}, {}
@@ -958,13 +1074,17 @@ def main() -> int:
         phase("kernel", **check_linear_encoder(torch, F, ops, dtype_name,
                                                b=8, l=100, s=100, seed=14,
                                                q_masked=True, c=512, nhead=8))
-        k3[dtype_name] = check_gn_pool(torch, F, ops, load_library,
-                                       dtype_name, b=16, h=320, w=320, c=64,
-                                       seed=12)
+        # K3 at the stem's [B, 320, 320, 64]: bf16 at the flagship's 16
+        # images (8 pairs), f32 at the f32 slice's 4.
+        k3[dtype_name] = check_gn_pool(
+            torch, F, ops, load_library, dtype_name,
+            b=16 if dtype_name == "bfloat16" else 4, h=320, w=320, c=64,
+            seed=12)
         phase("kernel", **k3[dtype_name])
 
-    k4 = check_sinkhorn(torch, ops, load_library, b=BATCH_PAIRS, k=SPARSE_K,
-                        iters=SINKHORN_ITERS, seed=13, sfu_per_s=sfu_per_s)
+    k4 = check_sinkhorn(torch, ops, b=BATCH_PAIRS, k=SPARSE_K,
+                        iters=SINKHORN_ITERS, seed=13, sfu_per_s=sfu_per_s,
+                        big_k=K4_OVER_SMEM_K)
     phase("kernel", **k4)
 
     # K1, K5, K6 at OETR's [8, 400, 8, 32] (and K5, K6 at the long regime's

@@ -7,8 +7,8 @@ from .attention_kernels import (flash_attention_cuda,
                                 linear_attention_reference)
 from .linear_encoder import (linear_encoder_attention,
                              linear_encoder_attention_reference)
-from .norm import (gn_scale_shift, groupnorm_relu_maxpool,
-                   groupnorm_relu_maxpool_reference)
+from .norm import (gn_scale_shift, gn_scale_shift_cuda,
+                   groupnorm_relu_maxpool, groupnorm_relu_maxpool_reference)
 from .sinkhorn import (log_optimal_transport, log_sinkhorn,
                        log_sinkhorn_cuda)
 
@@ -17,6 +17,6 @@ __all__ = ["elu_feature_map", "full_attention", "linear_attention",
            "full_attention_cuda", "full_attention_reference",
            "linear_attention_cuda", "linear_attention_reference",
            "linear_encoder_attention", "linear_encoder_attention_reference",
-           "gn_scale_shift", "groupnorm_relu_maxpool",
+           "gn_scale_shift", "gn_scale_shift_cuda", "groupnorm_relu_maxpool",
            "groupnorm_relu_maxpool_reference", "log_optimal_transport",
            "log_sinkhorn", "log_sinkhorn_cuda"]

@@ -41,8 +41,11 @@ _F = ctypes.c_float
 # c_void_p; each returns the cudaError_t of its launch.
 _LINEAR_ENCODER_ARGS = [_P, _P, _P, _LL, _P, _LL, _P, _P, _P, _P, _P, _P, _P,
                         _P, _P, _LL, _I, _I, _I, _I, _I, _F, _F, _P]
-_GN_POOL_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
-_SINKHORN_ARGS = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+# x, gamma, beta, work, out, B, H, W, C, groups, eps, stream
+_GN_POOL_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]
+_GN_STATS_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]
+_GN_APPLY_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
+_SINKHORN_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
 # q, k, v, q_mask, kv_mask, out, B, L, S, H, D, then each kernel's own.
 _ATTENTION_ARGS = [_P] * 6 + [_I] * 5
 ENTRY_POINTS = {
@@ -51,7 +54,12 @@ ENTRY_POINTS = {
     "oetr_linear_encoder_workspace": [_I, _I, _I, _I, _I, _P],
     "oetr_gn_relu_maxpool_f32": _GN_POOL_ARGS,
     "oetr_gn_relu_maxpool_bf16": _GN_POOL_ARGS,
+    "oetr_gn_stats_f32": _GN_STATS_ARGS,
+    "oetr_gn_stats_bf16": _GN_STATS_ARGS,
+    "oetr_gn_apply_pool_f32": _GN_APPLY_ARGS,
+    "oetr_gn_apply_pool_bf16": _GN_APPLY_ARGS,
     "oetr_log_sinkhorn_f32": _SINKHORN_ARGS,
+    "oetr_device_limits": [_P, _P],
     "oetr_linear_attention_f32": _ATTENTION_ARGS + [_F, _F, _P],
     "oetr_linear_attention_bf16": _ATTENTION_ARGS + [_F, _F, _P],
     "oetr_full_attention_f32": _ATTENTION_ARGS + [_F, _P],
@@ -184,6 +192,8 @@ def load_library():
         fn.restype = ctypes.c_int
     lib.oetr_cuda_error_string.argtypes = [_I]
     lib.oetr_cuda_error_string.restype = ctypes.c_char_p
+    lib.oetr_gn_workspace_floats.argtypes = [_I, _I, _I, _I]
+    lib.oetr_gn_workspace_floats.restype = _LL
     return lib, record
 
 

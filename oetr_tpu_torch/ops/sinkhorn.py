@@ -7,19 +7,97 @@ the model's dtype.
 
 ``log_sinkhorn_cuda`` is the port of
 ``oetr_tpu/ops/pallas_sinkhorn.py::log_sinkhorn_pallas`` (K4): on a CUDA
-tensor it launches the hand-written kernel in ``csrc/log_sinkhorn.cu``; a
-CPU tensor runs ``log_sinkhorn``, the plain torch version.
+tensor it launches the hand-written kernel in ``csrc/log_sinkhorn.cu``, one
+cooperative launch per group of pairs that ``sinkhorn_plan`` fits into the
+grid's shared memory; a CPU tensor runs ``log_sinkhorn``, the plain torch
+version.
 """
 from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 from ._build import check_launch, load_library
 
 NEG_INF = -1e9
-# The kernel runs its passes over as many pairs at a time as fit this share
-# of the H100's 50 MB L2, so the matrix is read from L2 across the passes.
-L2_BUDGET_BYTES = 40 << 20
+# csrc/log_sinkhorn.cu's kStaticSmem: its merge step's (m, s) of 32 slices
+# x 16 columns (rows padded to 17), f32.
+_STATIC_SMEM = 2 * 32 * 17 * 4
+
+
+class SinkhornPlan(NamedTuple):
+    """How K4 lays [B, M, N] pairs over a grid of one block per SM."""
+    pairs_per_launch: int
+    blocks_per_pair: int
+    rows_per_block: int      # the slab of rows a block owns
+    resident_rows: int       # of those, the rows kept in shared memory
+    launches: int
+    smem_bytes: int          # shared memory a block asks for
+
+    def workspace_floats(self, sms: int, n: int) -> int:
+        """The kernel's scratch in f32 units: 8-byte words, the column
+        partials [SMs, N], then v [pairs, N]."""
+        return 2 * (sms + self.pairs_per_launch) * n
+
+
+def _align16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def sinkhorn_smem_bytes(n: int, rows: int, resident: int) -> int:
+    """Shared memory of one K4 block: v [N], u [rows], the seeds of its
+    columns [N] and rows [rows], 16 bytes to align the slab with its rows in
+    global memory, the resident rows, the merge's scratch. The kernel's
+    ``dynamic_smem`` + ``kStaticSmem``."""
+    return (2 * (_align16(4 * n) + _align16(4 * rows)) + 16
+            + 4 * resident * n + _STATIC_SMEM)
+
+
+@functools.cache
+def sinkhorn_plan(b: int, m: int, n: int, sms: int,
+                  smem_per_block: int) -> SinkhornPlan:
+    """K4's launch plan for B pairs of [M, N] on ``sms`` SMs with
+    ``smem_per_block`` bytes of opt-in shared memory a block.
+
+    Pairs per launch: the most whose slabs all fit in shared memory (at
+    most B and one block a pair), evened out over the launches. Each pair
+    gets SMs // pairs blocks, each a slab of ceil(M / blocks) rows. Where
+    even one pair does not fit, a block keeps as many of its rows as fit
+    (``resident_rows``) and reads the rest from global memory on each pass.
+    Raises ValueError if not even v and u fit.
+    """
+    def rows_for(pairs):
+        return -(-m // (sms // pairs))
+
+    fits = [p for p in range(1, min(b, sms) + 1)
+            if sinkhorn_smem_bytes(n, rows_for(p), rows_for(p))
+            <= smem_per_block]
+    most = max(fits, default=1)
+    launches = -(-b // most)
+    pairs = -(-b // launches)
+    rows = rows_for(pairs)
+    fixed = sinkhorn_smem_bytes(n, rows, 0)
+    if fixed > smem_per_block:
+        raise ValueError(f"log_sinkhorn_cuda: N = {n} needs {fixed} bytes "
+                         f"of shared memory a block, over {smem_per_block}")
+    resident = min(rows, (smem_per_block - fixed) // (4 * n))
+    return SinkhornPlan(pairs, sms // pairs, rows, resident, launches,
+                        sinkhorn_smem_bytes(n, rows, resident))
+
+
+@functools.cache
+def device_limits(index: int) -> tuple[int, int]:
+    """(SM count, opt-in shared memory a block) of CUDA device ``index``,
+    read by the runtime (cudaDeviceGetAttribute)."""
+    lib, _ = load_library()
+    sms, smem = ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(index):
+        rc = lib.oetr_device_limits(ctypes.byref(sms), ctypes.byref(smem))
+    check_launch(lib, rc, "device_limits")
+    return sms.value, smem.value
 
 
 def log_sinkhorn(log_cost: torch.Tensor, log_mu: torch.Tensor,
@@ -35,12 +113,6 @@ def log_sinkhorn(log_cost: torch.Tensor, log_mu: torch.Tensor,
         u = log_mu - torch.logsumexp(log_cost + v[:, None, :], dim=2)
         v = log_nu - torch.logsumexp(log_cost + u[:, :, None], dim=1)
     return log_cost + u[:, :, None] + v[:, None, :]
-
-
-def sinkhorn_chunk(m: int, n: int) -> int:
-    """Pairs per chunk of the kernel: as many [m, n] f32 matrices as fit
-    ``L2_BUDGET_BYTES``, at least one."""
-    return max(1, L2_BUDGET_BYTES // (m * n * 4))
 
 
 def log_sinkhorn_cuda(log_cost: torch.Tensor, log_mu: torch.Tensor,
@@ -76,15 +148,18 @@ def log_sinkhorn_cuda(log_cost: torch.Tensor, log_mu: torch.Tensor,
         raise ValueError(f"log_sinkhorn_cuda: empty shape {(b, m, n)} or "
                          f"iters {iters}")
     lib, _ = load_library()
-    u = torch.zeros_like(log_mu)
-    v = torch.zeros_like(log_nu)
+    sms, smem = device_limits(log_cost.device.index)
+    plan = sinkhorn_plan(b, m, n, sms, smem)
     out = torch.empty_like(log_cost)
+    work = torch.empty(plan.workspace_floats(sms, n), dtype=torch.float32,
+                       device=log_cost.device)
     stream = torch.cuda.current_stream(log_cost.device).cuda_stream
     with torch.cuda.device(log_cost.device):
         rc = lib.oetr_log_sinkhorn_f32(
             log_cost.data_ptr(), log_mu.data_ptr(), log_nu.data_ptr(),
-            u.data_ptr(), v.data_ptr(), out.data_ptr(), b, m, n, iters,
-            sinkhorn_chunk(m, n), stream)
+            out.data_ptr(), work.data_ptr(), b, m, n, iters,
+            plan.pairs_per_launch, plan.rows_per_block, plan.resident_rows,
+            stream)
     check_launch(lib, rc, "log_sinkhorn_cuda")
     log_sinkhorn_cuda.launches += 1
     return out

@@ -37,9 +37,9 @@ CANVAS, KEYPOINTS = 832, 2048
 # Kernel-name substrings -> category, first match wins.
 CATEGORIES = (
     ("K2 linear_encoder", ("linear_encoder_kernel",)),
-    ("K3 gn_relu_maxpool", ("gn_relu_maxpool_kernel",)),
-    ("K4 log_sinkhorn", ("sinkhorn_row_kernel", "sinkhorn_col_kernel",
-                         "sinkhorn_out_kernel")),
+    ("K3 gn_relu_maxpool", ("gn_stats_kernel", "gn_fold_kernel",
+                            "gn_apply_pool_kernel")),
+    ("K4 log_sinkhorn", ("sinkhorn_kernel",)),
     ("K1 linear_attention", ("linear_attention_kernel",)),
     # softmax_attention.cuh's kernel template: <T, D, false> is K5, <T, D,
     # true> K6.

@@ -17,16 +17,22 @@ attention kernels (K1, K5, K6) batches of 1 and 3, L != S, lengths off the
 a q_mask alone, K5's keys staged whole and in chunks (f32) and its two
 passes over up to 64 key tiles, and bf16 K5 and K6 at every query and key
 count in (1, 15, 16, 17, 63, 65, 400); for the Sinkhorn
-kernel (K4) M != N, sizes off the 32-column strip, 0 and 1 iterations, a
-pair with every keypoint masked, batches of 1 and 16 and more pairs than
-one L2 chunk; and the inputs the kernels refuse.
+kernel (K4) M != N, sizes off the 16-column merge tiles, 0 and 1
+iterations, a pair with every keypoint masked, batches of 1 and 16, several
+launches a call (SuperGlue's k = 2048 at 3 and 8 pairs), 16 small pairs in
+one launch, a pair too large for the grid's shared memory and the same
+bits on every run at N = 1500 and 2000; for K3's statistics kernels against
+``gn_scale_shift``, widths off 8 pixels, C = 32, 64 and 96, C not a
+multiple of 8, over 2048 channels and x at an element offset; and the
+inputs the kernels refuse.
 """
 import pytest
 import torch
 
 import oetr_tpu_torch as port
 from oetr_tpu_torch import ops
-from oetr_tpu_torch.ops.sinkhorn import augment_scores, sinkhorn_chunk
+from oetr_tpu_torch.ops.sinkhorn import (augment_scores, device_limits,
+                                         sinkhorn_plan)
 
 pytestmark = pytest.mark.gpu
 
@@ -134,7 +140,10 @@ def test_linear_encoder_kernel_refuses(cuda):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(1, 2, 2, 32), (2, 6, 10, 64),
-                                   (3, 8, 8, 96), (2, 34, 18, 64)])
+                                   (3, 8, 8, 96), (2, 34, 18, 64),
+                                   (2, 22, 26, 64),     # W off 8 pixels
+                                   (3, 50, 46, 96),     # C = 96, 2 runs
+                                   (2, 80, 60, 32)])    # C = 32, 3 runs
 def test_gn_pool_kernel_matches_plain(cuda, dtype, shape):
     g = torch.Generator(device=cuda).manual_seed(shape[1])
     x = (torch.randn(*shape, generator=g, device=cuda) * 2 + 0.5).to(dtype)
@@ -150,6 +159,60 @@ def test_gn_pool_kernel_matches_plain(cuda, dtype, shape):
     assert out.shape == (b, h // 2, w // 2, c) and out.dtype == dtype
     torch.testing.assert_close(out.float(), ref.float(), rtol=0,
                                atol=_tol(ref, dtype) / 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 6, 10, 64), (1, 64, 48, 64),
+                                   (3, 50, 46, 96), (2, 80, 60, 32),
+                                   (2, 160, 160, 64)])
+def test_gn_stats_kernel_matches_plain(cuda, dtype, shape):
+    """K3's statistics kernels against gn_scale_shift: float32 sums taken
+    in another order, within 1e-5 of the largest |scale| and |shift|."""
+    g = torch.Generator(device=cuda).manual_seed(shape[2])
+    x = (torch.randn(*shape, generator=g, device=cuda) * 2 + 0.5).to(dtype)
+    c = shape[-1]
+    gamma = 1 + 0.1 * torch.randn(c, generator=g, device=cuda)
+    beta = 0.1 * torch.randn(c, generator=g, device=cuda)
+    scale, shift = ops.gn_scale_shift_cuda(x, gamma, beta, 32, 1e-5)
+    ref_scale, ref_shift = ops.gn_scale_shift(x, gamma, beta, 32, 1e-5)
+    torch.cuda.synchronize()
+    for out, ref in ((scale, ref_scale), (shift, ref_shift)):
+        assert out.shape == (shape[0], c) and out.dtype == torch.float32
+        torch.testing.assert_close(out, ref, rtol=0,
+                                   atol=1e-5 * ref.abs().max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,groups,offset", [
+    ((2, 6, 10, 12), 4, 0),        # C not a multiple of 8: 1 channel a thread
+    ((2, 10, 6, 20), 5, 0),
+    ((2, 6, 10, 64), 32, 1),       # x at an element offset, not 16-byte aligned
+    ((1, 4, 6, 2080), 32, 0),      # over 256 groups of 8 channels
+    ((1, 4, 6, 2088), 8, 3),       # the same at 1 channel a thread
+])
+def test_gn_pool_kernel_any_channels_and_offset(cuda, dtype, shape, groups,
+                                                offset):
+    """K3 takes any C that the groups divide, at any element offset: whole
+    and the statistics alone against the plain versions."""
+    g = torch.Generator(device=cuda).manual_seed(shape[-1] + offset)
+    x = (torch.randn(*shape, generator=g, device=cuda) * 2 + 0.5).to(dtype)
+    if offset:
+        buf = torch.empty(x.numel() + offset, dtype=dtype, device=cuda)
+        buf[offset:] = x.flatten()
+        x = buf[offset:].view(shape)
+    c = shape[-1]
+    gamma = 1 + 0.1 * torch.randn(c, generator=g, device=cuda)
+    beta = 0.1 * torch.randn(c, generator=g, device=cuda)
+    out = ops.groupnorm_relu_maxpool(x, gamma, beta, num_groups=groups)
+    ref = ops.groupnorm_relu_maxpool_reference(x, gamma, beta, groups)
+    scale, shift = ops.gn_scale_shift_cuda(x, gamma, beta, groups, 1e-5)
+    ref_scale, ref_shift = ops.gn_scale_shift(x, gamma, beta, groups, 1e-5)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0,
+                               atol=_tol(ref, dtype) / 2)
+    for k, r in ((scale, ref_scale), (shift, ref_shift)):
+        torch.testing.assert_close(k, r, rtol=0,
+                                   atol=1e-5 * r.abs().max().item())
 
 
 def test_gn_pool_kernel_refuses(cuda):
@@ -222,7 +285,10 @@ def _k4_inputs(dev, b, m, n, seed, empty_pair=None):
     (16, 47, 31, 10),      # B = 16; N+1 = 32
     (2, 64, 64, 0),        # no iteration: C itself
     (2, 64, 64, 1),
-    (3, 2048, 2048, 30),   # SuperGlue's size: 3 pairs, chunks of 2 and 1
+    (3, 2048, 2048, 30),   # SuperGlue's size: 3 pairs, one launch each
+    (8, 2048, 2048, 30),   # the sparse pipeline's call: 8 launches
+    (16, 20, 12, 30),      # 16 small pairs packed into one launch
+    (1, 3000, 3000, 30),   # over the grid's shared memory: rows from L2
 ])
 def test_sinkhorn_kernel_matches_plain(cuda, b, m, n, iters):
     cost, mu, nu = _k4_inputs(cuda, b, m, n, seed=m + n)
@@ -235,8 +301,26 @@ def test_sinkhorn_kernel_matches_plain(cuda, b, m, n, iters):
     if iters == 0:
         assert torch.equal(out, cost)
     _k4_close(out, ref)
+    plan = sinkhorn_plan(b, m + 1, n + 1, *device_limits(cuda.index or 0))
     if m == 2048:
-        assert sinkhorn_chunk(m + 1, n + 1) == 2 < b
+        assert plan.pairs_per_launch == 1 < b and plan.launches == b
+    if b == 16:
+        assert plan.launches == 1
+    if m == 3000:
+        assert plan.resident_rows < plan.rows_per_block
+
+
+@pytest.mark.parametrize("m", [1499, 1999])
+def test_sinkhorn_kernel_same_bits_every_run(cuda, m):
+    """No result depends on timing: at N = 1500 and 2000 the last threads of
+    the column pass take their own column twice, and three calls give the
+    same bits."""
+    cost, mu, nu = _k4_inputs(cuda, 2, m, m, seed=m)
+    outs = [ops.log_sinkhorn_cuda(cost, mu, nu, 30) for _ in range(3)]
+    torch.cuda.synchronize()
+    _k4_close(outs[0], ops.log_sinkhorn(cost, mu, nu, 30))
+    for out in outs[1:]:
+        assert torch.equal(out, outs[0])
 
 
 def test_sinkhorn_kernel_every_keypoint_masked(cuda):

@@ -279,8 +279,11 @@ def test_log_sinkhorn_cuda_takes_plain_on_cpu(rng):
     assert sinkhorn.log_sinkhorn_cuda.launches == before   # no kernel here
     torch.testing.assert_close(out, sinkhorn.log_sinkhorn(cost, mu, nu, 7),
                                rtol=0, atol=0)
-    assert sinkhorn.sinkhorn_chunk(2049, 2049) == 2
-    assert sinkhorn.sinkhorn_chunk(8000, 8000) == 1
+    # The kernel's plan on an H100 (132 SMs, 232,448 B a block): one pair
+    # of 2049² a launch; 16 small pairs in one.
+    assert sinkhorn.sinkhorn_plan(8, 2049, 2049, 132,
+                                  232448).pairs_per_launch == 1
+    assert sinkhorn.sinkhorn_plan(16, 21, 13, 132, 232448).launches == 1
 
 
 def test_extract_matches_matches_jax(rng):
