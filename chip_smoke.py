@@ -34,7 +34,15 @@ paths with seeded random weights:
   * ``linear_attend``: the attention block of the port's decoder layer
     over 400 tokens with ``'linear:cuda'``, the one module path to K1
     (OETR's encoder takes K2, its decoder has one query), against the same
-    block on the CPU.
+    block on the CPU;
+  * ``grad``: the gradients through K1, K5, K6 ([8, 400, 8, 32]), K2
+    ([8, 400, 256]) and K3 ([16, 320, 320, 64]) in bf16, each the same
+    bits as plain autograd of the function JAX differentiates, then the
+    flagship's forward and backward in f32 at 2 pairs with the switches on
+    against off: every parameter has a gradient, within OETR_GRAD_TOL
+    outside the backbone and at OETR_BACKBONE_COS inside it.
+K1's lines give its cluster (blocks per batch row and head), its grid and
+its device time at every cluster size.
 One JSON line per phase, each with ``t_s``, seconds since start. The last
 line is ``{"ok": true, "device": {...}}``; it is printed only when every
 check passed. Without a CUDA card, or without the port beside it, the
@@ -95,6 +103,18 @@ K4_MASKED = -1e8
 K4_OVER_SMEM_K = 3000
 K4_WIDE_SCALE = 300.0
 MATCH_AGREE_MIN = 0.99   # matches0 agreement, K4 on vs off, valid keypoints
+# OETR's parameter gradients in f32, switches on (K2, K3) against off. The
+# two forwards differ in f32 summation order only, so outside the backbone
+# the gradients agree to within OETR_GRAD_TOL of max(1, the off path's
+# largest |gradient| of the parameter). The backbone's gradients, with
+# random weights, are sensitive to rounding itself: a forward that differs
+# by rounding moves a weight's gradient by some percent of its largest
+# entry (the phase reports how far scaling one input by 1 + 1e-7 moves
+# them, beside how far the switches do). So each backbone parameter's
+# gradient is held to its direction instead: its cosine similarity with
+# the off path's.
+OETR_GRAD_TOL = 1e-3
+OETR_BACKBONE_COS = 0.999
 SFU_PER_CLK_PER_SM = 16  # exponentials per clock per SM (Hopper SFUs)
 
 
@@ -576,6 +596,18 @@ def check_attention(torch, F, ops, kind, dtype_name, b, l, s, masks, seed,
     lib_dev_ms = device_ms(torch, library, reps=reps)
     fields.update(device_ms=dev_ms, library_device_ms=lib_dev_ms,
                   device_over_library=dev_ms / lib_dev_ms)
+    if kind == "linear":
+        # K1's plan: blocks per (batch row, head) and the grid; then the
+        # device time at every cluster size, the plan's among them.
+        from oetr_tpu_torch.ops.attention_kernels import (
+            _linear_launch, cluster_capacity, linear_attention_cluster)
+        capacity = cluster_capacity(0, dt, d)
+        nc = linear_attention_cluster(b * h, max(l, s), capacity)
+        fields.update(cluster=nc, grid=[nc, h, b],
+                      clusters_at_once=capacity, cluster_device_ms={
+            n: device_ms(torch, lambda: _linear_launch(q, k, v, qm, km, 1e-6,
+                                                       n), reps=reps)
+            for n in (1, 2, 4, 8)})
     if pair is not None:
         # SDPA turns a boolean mask into an additive one inside the call;
         # given that bias ready-made, its time is the attention's alone.
@@ -607,6 +639,22 @@ def tensor_core_resources(resources):
     if len(rows) != 14:
         raise AssertionError(f"ptxas reported {len(rows)} of the 14 bf16 "
                              "K2/K5/K6 kernels")
+    return sorted(rows, key=lambda r: r["kernel"])
+
+
+def k1_resources(resources):
+    """ptxas's registers and spill bytes of K1's kernels, by dtype and
+    head width rounded up to 16; raises if one is missing."""
+    rows = []
+    for mangled, res in sorted(resources.items()):
+        m = re.search(r"linear_attention_kernelI(13__nv_bfloat16|f)Li(\d+)E",
+                      mangled)
+        if m:
+            dt = "f32" if m.group(1) == "f" else "bf16"
+            rows.append({"kernel": f"K1 {dt} DP={m.group(2)}", **res})
+    if len(rows) != 8:
+        raise AssertionError(f"ptxas reported {len(rows)} of the 8 K1 "
+                             "kernels")
     return sorted(rows, key=lambda r: r["kernel"])
 
 
@@ -819,6 +867,161 @@ def run_linear_attend(torch, port, ops, b):
             "heads": 8, "attention": "linear:cuda",
             "launches": {k: n for k, n in launches.items() if n},
             "card_vs_cpu_max_abs": err, "tol": tol, "block_ms": ms}, launches
+
+
+# ------------------------------------------------------------------ grad --
+
+def grads_of(torch, fn, inputs, up):
+    """Gradients of ``fn(*leaves)`` against the output gradient ``up``,
+    with a fresh leaf for every floating-point tensor in ``inputs``."""
+    leaves = [t.detach().clone().requires_grad_() if t.is_floating_point()
+              else t for t in inputs]
+    fn(*leaves).backward(up)
+    return [t.grad for t in leaves if t.is_floating_point()]
+
+
+def kernel_grads(torch, ops, name, fn, plain, inputs, up):
+    """The gradients through the kernel's wrapper (one launch, its
+    autograd Function) against plain autograd of the function JAX
+    differentiates, on the same inputs: the same function of the same
+    inputs, so they must be bit-equal."""
+    reset_counts(ops)
+    got = grads_of(torch, fn, inputs, up)
+    launched = launch_counts(ops)[name]
+    ref = grads_of(torch, plain, inputs, up)
+    torch.cuda.synchronize()
+    diff = max((a.float() - r.float()).abs().max().item()
+               for a, r in zip(got, ref))
+    equal = all(torch.equal(a, r) for a, r in zip(got, ref))
+    finite = all(torch.isfinite(a).all().item() for a in got)
+    if launched != 1 or not (equal and finite):
+        raise AssertionError(f"grad {name}: launches {launched}, bit-equal "
+                             f"{equal}, finite {finite}, max diff {diff}")
+    return {"inputs": len(got), "launches": launched, "bit_equal": equal,
+            "max_abs_diff": diff, "shape": list(inputs[0].shape)}
+
+
+def oetr_loss(torch, out, seed):
+    """A scalar that reaches every output: each key's mean against fixed
+    random weights."""
+    g = torch.Generator().manual_seed(seed)
+    return sum((out[key] * torch.randn(out[key].shape, generator=g).to(
+        out[key].device)).mean() for key in sorted(out))
+
+
+def run_grad(torch, port, ops, b):
+    """(a) K1, K5, K6 at [b, 400, 8, 32], K2 at [b, 400, 256] and K3 at
+    [2b, 320, 320, 64], bf16: the Function's gradients against plain
+    autograd on the card. (b) The flagship in f32 at 2 pairs, 640x640,
+    forward and backward with the switches on (K2, K3) and off, same
+    weights: every parameter has a finite gradient; outside the backbone
+    each within OETR_GRAD_TOL of max(1, the off path's largest |gradient|
+    of that parameter), in the backbone each at a cosine of at least
+    OETR_BACKBONE_COS with the off path's (see OETR_GRAD_TOL)."""
+    dt = torch.bfloat16
+    g = torch.Generator(device=DEV).manual_seed(40)
+
+    def rn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device=DEV) * scale
+
+    every = torch.ones(b, 400, dtype=torch.bool, device=DEV)
+    q, k, v, up = (rn(b, 400, 8, 32).to(dt) for _ in range(4))
+    fields = {}
+    for name, plain in (("linear_attention_cuda", ops.linear_attention),
+                        ("full_attention_cuda", ops.full_attention),
+                        ("flash_attention_cuda", ops.full_attention)):
+        fields[name] = kernel_grads(
+            torch, ops, name, getattr(ops, name),
+            lambda q_, k_, v_, plain=plain: plain(q_, k_, v_, every, every),
+            (q, k, v), up)
+    c = 256
+    enc = (rn(b, 400, c).to(dt), rn(b, 400, c).to(dt),
+           rn(1, 400, c, scale=0.5).to(dt), rn(1, 400, c, scale=0.5).to(dt),
+           torch.stack([1 + rn(c, scale=0.1), rn(c, scale=0.1)]),
+           torch.stack([1 + rn(c, scale=0.1), rn(c, scale=0.1)]),
+           *(rn(c, c, scale=c ** -0.5) for _ in range(3)))
+    fields["linear_encoder_attention"] = kernel_grads(
+        torch, ops, "linear_encoder_attention",
+        lambda *a: ops.linear_encoder_attention(*a, nhead=8),
+        lambda *a: ops.linear_encoder_attention_op(*a, nhead=8), enc,
+        rn(b, 400, c).to(dt))
+    x = (rn(2 * b, 320, 320, 64) * 2 + 0.5).to(dt)
+    fields["groupnorm_relu_maxpool"] = kernel_grads(
+        torch, ops, "groupnorm_relu_maxpool", ops.groupnorm_relu_maxpool,
+        ops.groupnorm_relu_maxpool_reference,
+        (x, 1 + rn(64, scale=0.1), rn(64, scale=0.1)),
+        rn(2 * b, 160, 160, 64).to(dt))
+    del x
+
+    # (b) OETR's backward, f32, 2 pairs; the off path a second time with
+    # the first image scaled by 1 + 1e-7, the backbone's own sensitivity.
+    cfg_on, cfg_off = slice_configs(port, "float32")
+    on = port.build_oetr(cfg_on, device=DEV,
+                         generator=torch.Generator().manual_seed(0))
+    off = port.build_oetr(cfg_off, device=DEV,
+                          generator=torch.Generator().manual_seed(1))
+    off.load_state_dict(on.state_dict())
+    gi = torch.Generator(device=DEV).manual_seed(2)
+    im1, im2 = (torch.rand(2, IMAGE_HW, IMAGE_HW, 3, generator=gi,
+                           device=DEV) for _ in range(2))
+    reset_counts(ops)
+    t = time.perf_counter()
+    oetr_loss(torch, on(im1, im2), seed=41).backward()
+    torch.cuda.synchronize()
+    on_s = time.perf_counter() - t
+    launches = {k_: n for k_, n in launch_counts(ops).items() if n}
+    grads = {}
+    for tag, scale in (("off", 1.0), ("nudged", 1.0 + 1e-7)):
+        off.zero_grad(set_to_none=True)
+        oetr_loss(torch, off(im1 * scale, im2), seed=41).backward()
+        grads[tag] = {n: p.grad.clone() for n, p in off.named_parameters()}
+    torch.cuda.synchronize()
+    worst = {"rel": (0.0, None), "cos": (1.0, None),
+             "backbone_rel": (0.0, None), "nudged_backbone_rel": (0.0, None)}
+    with_grad, total = 0, 0
+    for name, p in on.named_parameters():
+        total += 1
+        if p.grad is None or not torch.isfinite(p.grad).all():
+            continue
+        with_grad += 1
+        r = grads["off"][name]
+        scale = max(1.0, r.abs().max().item())
+        rel = (p.grad - r).abs().max().item() / scale
+        if name.startswith("backbone."):
+            cos = torch.nn.functional.cosine_similarity(
+                p.grad.double().flatten(), r.double().flatten(), dim=0).item()
+            nudged = (grads["nudged"][name] - r).abs().max().item() / scale
+            for key, val, bad in (("cos", cos, cos < worst["cos"][0]),
+                                  ("backbone_rel", rel,
+                                   rel > worst["backbone_rel"][0]),
+                                  ("nudged_backbone_rel", nudged,
+                                   nudged > worst["nudged_backbone_rel"][0])):
+                if bad:
+                    worst[key] = (val, name)
+        elif rel > worst["rel"][0]:
+            worst["rel"] = (rel, name)
+    want = {"linear_encoder_attention": 4 * cfg_on.neck.num_layers,
+            "groupnorm_relu_maxpool": 1}
+    if (with_grad != total or worst["rel"][0] > OETR_GRAD_TOL
+            or worst["cos"][0] < OETR_BACKBONE_COS or launches != want):
+        raise AssertionError(f"grad OETR: {with_grad} of {total} parameters "
+                             f"with a finite gradient, worst {worst} vs "
+                             f"{OETR_GRAD_TOL} / cos {OETR_BACKBONE_COS}, "
+                             f"launches {launches}")
+    fields["oetr"] = {
+        "dtype": "float32", "pairs": 2, "image_hw": IMAGE_HW,
+        "launches": launches, "parameters": total,
+        "parameters_with_grad": with_grad,
+        "max_rel_grad_diff_outside_backbone": worst["rel"][0],
+        "worst_outside_backbone": worst["rel"][1], "tol": OETR_GRAD_TOL,
+        "min_backbone_grad_cosine": worst["cos"][0],
+        "worst_backbone_cosine_parameter": worst["cos"][1],
+        "backbone_cosine_min": OETR_BACKBONE_COS,
+        "max_rel_grad_diff_backbone": worst["backbone_rel"][0],
+        "max_rel_grad_diff_backbone_input_nudged_1e-7":
+            worst["nudged_backbone_rel"][0],
+        "forward_backward_s": on_s}
+    return fields
 
 
 # ---------------------------------------------------------------- sparse --
@@ -1059,6 +1262,7 @@ def main() -> int:
           steps_s=record["steps_s"],
           tensor_core_kernels=tensor_core_resources(record["resources"]),
           k3_k4_kernels=k3_k4_resources(record["resources"]),
+          k1_kernels=k1_resources(record["resources"]),
           ptxas=record["ptxas"])
 
     k2, k3 = {}, {}
@@ -1096,12 +1300,17 @@ def main() -> int:
                 ("full", 8, 400, ("none", "both", "q_only")),
                 ("flash", 8, 400, ("none", "both")),
                 ("flash", 2, 4096, ("both",)),
-                ("full", 2, 4096, ("both",))):
+                ("full", 2, 4096, ("both",)),
+                ("linear", 2, 2500, ("both",))):
             for i, masks in enumerate(masks_set):
                 res = check_attention(torch, F, ops, op, dtype_name, b, n, n,
                                       masks, seed=20 + i, sfu_per_s=sfu_per_s)
                 attn[op, dtype_name, n, masks] = res
                 phase("kernel", **res)
+        # K1 at D = 64.
+        phase("kernel", **check_attention(torch, F, ops, "linear", dtype_name,
+                                          8, 400, 400, "none", seed=25,
+                                          sfu_per_s=sfu_per_s, h=8, d=64))
     # K5 and K6 at SuperGlue's GNN shape, 2048 keypoints, 4 heads of 64:
     # the tensor-core tile at D = 64.
     for op in ("full", "flash"):
@@ -1150,6 +1359,10 @@ def main() -> int:
     fields, k1_launches = run_linear_attend(torch, port, ops, BATCH_PAIRS)
     phase("linear_attend", **fields)
     launches["linear_attention_cuda"] = k1_launches["linear_attention_cuda"]
+
+    # The kernels' gradients (JAX's: autograd of the plain functions), each
+    # at its main path's shape in bf16, then OETR's backward in f32.
+    phase("grad", **run_grad(torch, port, ops, BATCH_PAIRS))
 
     phase("kernels", ported=["linear_attention_cuda<-K1",
                              "linear_encoder_attention<-K2",

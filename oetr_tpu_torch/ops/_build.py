@@ -60,8 +60,9 @@ ENTRY_POINTS = {
     "oetr_gn_apply_pool_bf16": _GN_APPLY_ARGS,
     "oetr_log_sinkhorn_f32": _SINKHORN_ARGS,
     "oetr_device_limits": [_P, _P],
-    "oetr_linear_attention_f32": _ATTENTION_ARGS + [_F, _F, _P],
-    "oetr_linear_attention_bf16": _ATTENTION_ARGS + [_F, _F, _P],
+    "oetr_linear_attention_capacity": [_I, _I, _I, _P],
+    "oetr_linear_attention_f32": _ATTENTION_ARGS + [_F, _F, _I, _P],
+    "oetr_linear_attention_bf16": _ATTENTION_ARGS + [_F, _F, _I, _P],
     "oetr_full_attention_f32": _ATTENTION_ARGS + [_F, _P],
     "oetr_full_attention_bf16": _ATTENTION_ARGS + [_F, _P],
     "oetr_flash_attention_f32": _ATTENTION_ARGS + [_F, _P],

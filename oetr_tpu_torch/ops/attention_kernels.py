@@ -21,20 +21,33 @@ On a CPU tensor each wrapper runs its ``*_reference``, the plain torch
 version of exactly what its kernel computes, rounded to the I/O dtype at
 the points where the Pallas kernel rounds. On a CUDA tensor it launches the
 kernel (float32 or bfloat16; contiguous; head width up to 64 for K1, 16, 32
-or 64 for K5 and K6) or raises. K5 and K6 have one kernel design per
-dtype: bfloat16 on the tensor cores (mma.sync), float32 on the FP32 pipes.
-Each wrapper counts its launches in ``.launches``.
+or 64 for K5 and K6) or raises. K1 runs a cluster of blocks per (batch
+row, head) (``linear_attention_cluster``). K5 and K6 have one kernel design
+per dtype: bfloat16 on the tensor cores (mma.sync), float32 on the FP32
+pipes. Each wrapper counts its launches in ``.launches``.
+
+Gradients are JAX's (``_with_xla_vjp``): when grad mode is on and q, k or v
+requires grad, the wrapper runs through ``autograd.KernelFunction``, whose
+backward is torch autograd of the plain op, ``ops.attention.linear_attention``
+(``den + eps``) for K1 or ``full_attention`` for K5 and K6, with both masks
+(all true where None). The masks get no gradient.
 """
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
 from ._build import check_launch, load_library
+from .attention import full_attention, linear_attention
+from .autograd import KernelFunction, needs_grad
 from .linear_encoder import (MAX_HEAD_WIDTH, _check, _elu_p1, _mask_ptr,
                              _rounded_inv)
 
 FLASH_BLOCK_K = 64          # K6's keys per block (csrc/softmax_attention.cuh)
 SOFTMAX_HEAD_WIDTHS = (16, 32, 64)
+MAX_CLUSTER = 8             # K1's largest cluster (the portable size)
 
 
 def _masks(q, k, q_mask, kv_mask):
@@ -168,15 +181,19 @@ def _check_inputs(name, q, k, v, head_widths):
     return b, l, s, h, d
 
 
-def _run(name, kind, q, k, v, q_mask, kv_mask, head_widths, *extra):
+def _run(name, kind, q, k, v, q_mask, kv_mask, head_widths, *extra,
+         plan=None):
     """Check, launch the C entry point of ``kind`` ('linear', 'full' or
     'flash') for q's dtype on q's CUDA device, and return the output.
-    ``extra`` are the kernel's own arguments after the shape."""
+    ``extra`` are the kernel's own arguments after the shape, followed by
+    ``plan(B, L, S, H, D)``'s once the inputs are checked."""
     dev = q.device
     if dev.type != "cuda" or k.device != dev or v.device != dev:
         raise ValueError(f"{name}: q, k, v on {q.device}, {k.device}, "
                          f"{v.device}; all must be on one CUDA device")
     b, l, s, h, d = _check_inputs(name, q, k, v, head_widths)
+    if plan is not None:
+        extra += plan(b, l, s, h, d)
     # The contiguous bool masks stay referenced until the launch is queued.
     q_mask, qm_ptr = _mask_ptr("q_mask", q_mask, (b, l), dev)
     kv_mask, km_ptr = _mask_ptr("kv_mask", kv_mask, (b, s), dev)
@@ -197,25 +214,66 @@ def _all_cpu(*tensors) -> bool:
     return all(t is None or t.device.type == "cpu" for t in tensors)
 
 
-def linear_attention_cuda(q, k, v, q_mask=None, kv_mask=None,
-                          eps: float = 1e-6):
-    """Masked linear attention (K1); same contract as
-    ``linear_attention_reference``, with ``max(den, eps)``."""
+def linear_attention_cluster(bh: int, longer: int,
+                             capacity: dict[int, int]) -> int:
+    """K1's blocks per (batch row, head), one cluster, for ``bh`` (batch
+    row, head) pairs whose longer side has ``longer`` rows: the most of 1,
+    2, 4 and 8 whose clusters all fit on the card at once (``capacity``:
+    cluster size -> clusters the card holds, as
+    cudaOccupancyMaxActiveClusters counts them), each block keeping at
+    least 16 rows; 1 where not even that fits one wave."""
+    best = 1
+    for nc in (2, 4, MAX_CLUSTER):
+        if bh <= capacity[nc] and longer >= 16 * nc:
+            best = nc
+    return best
+
+
+@functools.cache
+def cluster_capacity(index: int, dtype: torch.dtype, d: int) -> dict:
+    """Clusters of 1, 2, 4 and 8 K1 blocks at head width ``d`` that CUDA
+    device ``index`` holds at once."""
+    lib, _ = load_library()
+    caps = {}
+    with torch.cuda.device(index):
+        for nc in (1, 2, 4, MAX_CLUSTER):
+            n = ctypes.c_int()
+            check_launch(lib, lib.oetr_linear_attention_capacity(
+                int(dtype == torch.bfloat16), d, nc, ctypes.byref(n)),
+                "linear_attention_cuda")
+            caps[nc] = n.value
+    return caps
+
+
+def _linear_launch(q, k, v, q_mask, kv_mask, eps, cluster=None):
+    """K1's forward: the kernel on CUDA tensors, with ``cluster`` blocks
+    per (batch row, head) (``linear_attention_cluster``'s when None); the
+    plain version on CPU tensors."""
     if _all_cpu(q, k, v, q_mask, kv_mask):
         return linear_attention_reference(q, k, v, q_mask, kv_mask, eps)
+
+    def plan(b, l, s, h, d):
+        if cluster is not None:
+            return (cluster,)
+        return (linear_attention_cluster(
+            b * h, max(l, s), cluster_capacity(q.device.index or 0, q.dtype,
+                                               d)),)
+
     out = _run("linear_attention_cuda", "linear", q, k, v, q_mask, kv_mask,
                range(1, MAX_HEAD_WIDTH + 1), eps,
-               _rounded_inv(k.shape[1], q.dtype))
+               _rounded_inv(k.shape[1], q.dtype), plan=plan)
     linear_attention_cuda.launches += 1
     return out
 
 
-def full_attention_cuda(q, k, v, q_mask=None, kv_mask=None):
-    """Whole-row masked softmax attention (K5); same contract as
-    ``full_attention_reference``. bf16 runs on the tensor cores, walking
-    64-key tiles twice; f32 on the FP32 pipes, with the key rows staged
-    whole in shared memory when they fit its budget, else chunk by
-    chunk."""
+def _linear_vjp(q, k, v, q_mask, kv_mask, eps):
+    """What JAX differentiates for K1: the plain op with both masks, at
+    the op's default eps whatever ``eps`` is (``_with_xla_vjp`` passes
+    none)."""
+    return linear_attention(q, k, v, *_masks(q, k, q_mask, kv_mask))
+
+
+def _full_launch(q, k, v, q_mask, kv_mask):
     if _all_cpu(q, k, v, q_mask, kv_mask):
         return full_attention_reference(q, k, v, q_mask, kv_mask)
     out = _run("full_attention_cuda", "full", q, k, v, q_mask, kv_mask,
@@ -224,10 +282,7 @@ def full_attention_cuda(q, k, v, q_mask=None, kv_mask=None):
     return out
 
 
-def flash_attention_cuda(q, k, v, q_mask=None, kv_mask=None):
-    """Streaming masked softmax attention (K6) over blocks of
-    ``FLASH_BLOCK_K`` keys; same contract as ``flash_attention_reference``
-    at that block size."""
+def _flash_launch(q, k, v, q_mask, kv_mask):
     if _all_cpu(q, k, v, q_mask, kv_mask):
         return flash_attention_reference(q, k, v, q_mask, kv_mask,
                                          FLASH_BLOCK_K)
@@ -235,6 +290,42 @@ def flash_attention_cuda(q, k, v, q_mask=None, kv_mask=None):
                SOFTMAX_HEAD_WIDTHS, _temp(q.shape[-1]))
     flash_attention_cuda.launches += 1
     return out
+
+
+def _full_vjp(q, k, v, q_mask, kv_mask):
+    """What JAX differentiates for K5 and K6: the plain op, both masks."""
+    return full_attention(q, k, v, *_masks(q, k, q_mask, kv_mask))
+
+
+def _apply(launch, vjp, q, k, v, *rest):
+    """``launch(q, k, v, *rest)``, through ``KernelFunction`` when a
+    gradient is wanted."""
+    if needs_grad(q, k, v):
+        return KernelFunction.apply(launch, vjp, q, k, v, *rest)
+    return launch(q, k, v, *rest)
+
+
+def linear_attention_cuda(q, k, v, q_mask=None, kv_mask=None,
+                          eps: float = 1e-6):
+    """Masked linear attention (K1); same contract as
+    ``linear_attention_reference``, with ``max(den, eps)``."""
+    return _apply(_linear_launch, _linear_vjp, q, k, v, q_mask, kv_mask, eps)
+
+
+def full_attention_cuda(q, k, v, q_mask=None, kv_mask=None):
+    """Whole-row masked softmax attention (K5); same contract as
+    ``full_attention_reference``. bf16 runs on the tensor cores, walking
+    64-key tiles twice; f32 on the FP32 pipes, with the key rows staged
+    whole in shared memory when they fit its budget, else chunk by
+    chunk."""
+    return _apply(_full_launch, _full_vjp, q, k, v, q_mask, kv_mask)
+
+
+def flash_attention_cuda(q, k, v, q_mask=None, kv_mask=None):
+    """Streaming masked softmax attention (K6) over blocks of
+    ``FLASH_BLOCK_K`` keys; same contract as ``flash_attention_reference``
+    at that block size."""
+    return _apply(_flash_launch, _full_vjp, q, k, v, q_mask, kv_mask)
 
 
 linear_attention_cuda.launches = 0

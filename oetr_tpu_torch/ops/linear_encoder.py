@@ -12,6 +12,13 @@ call: the source side, then the query side); on a CPU tensor it runs
 Weights are in torch's ``nn.Linear`` layout [C_out, C_in] (the transpose of
 the flax kernels), f32; ``lnq``/``lnkv`` stack LayerNorm (weight, bias) as
 [2, C] f32.
+
+Gradients are JAX's (K2's ``custom_vjp``): when grad mode is on and an
+input requires grad, the call runs through ``autograd.KernelFunction``,
+whose backward is torch autograd of ``linear_encoder_attention_op``, the
+port of ``linear_encoder_attention_xla``. It reaches the f32 weights and
+LayerNorm parameters, not the bf16 copies the kernel reads, and sums a
+positional encoding's gradient over the batch where it has a batch of 1.
 """
 from __future__ import annotations
 
@@ -21,6 +28,8 @@ import weakref
 import torch
 
 from ._build import check_launch, load_library
+from .attention import linear_attention
+from .autograd import KernelFunction, needs_grad
 
 MAX_HEAD_WIDTH = 64   # the widest head the kernel takes
 
@@ -111,6 +120,29 @@ def linear_encoder_attention_reference(x, source, x_pos, s_pos, lnq, lnkv,
     return out.to(dt).reshape(b, l, c)
 
 
+def linear_encoder_attention_op(x, source, x_pos, s_pos, lnq, lnkv, wq, wk,
+                                wv, q_mask=None, kv_mask=None, nhead: int = 8,
+                                eps: float = 1e-6):
+    """The unfused sublayer that JAX differentiates for K2 (port of
+    ``linear_encoder_attention_xla``): f32 LayerNorm (eps 1e-5) plus the
+    positional encoding, cast to x's dtype, the projections in that dtype,
+    then the plain ``linear_attention`` (``den + eps``) with both masks
+    (all true where None)."""
+    dt = x.dtype
+    b, l, c = x.shape
+    s = source.shape[1]
+    q_in = (_layernorm_f32(x, lnq) + x_pos.float()).to(dt)
+    kv_in = (_layernorm_f32(source, lnkv) + s_pos.float()).to(dt)
+    q = (q_in @ wq.to(dt).T).reshape(b, l, nhead, c // nhead)
+    k = (kv_in @ wk.to(dt).T).reshape(b, s, nhead, c // nhead)
+    v = (kv_in @ wv.to(dt).T).reshape(b, s, nhead, c // nhead)
+    qm = (torch.ones(b, l, dtype=torch.bool, device=x.device)
+          if q_mask is None else q_mask.to(torch.bool))
+    km = (torch.ones(b, s, dtype=torch.bool, device=x.device)
+          if kv_mask is None else kv_mask.to(torch.bool))
+    return linear_attention(q, k, v, qm, km, eps=eps).reshape(b, l, c)
+
+
 def _check(name, t, shape, dtype, device):
     if t.device != device or t.dtype != dtype or tuple(t.shape) != shape:
         raise ValueError(f"{name}: expected {dtype} {shape} on {device}, got "
@@ -149,8 +181,20 @@ def linear_encoder_attention(x, source, x_pos, s_pos, lnq, lnkv, wq, wk, wv,
     dtype. A CPU tensor runs the plain version; a CUDA tensor launches the
     kernel (float32 or bfloat16, C a multiple of 32, C/nhead <= 64) or
     raises. In bf16 the kernel reads each weight rounded to bf16 once
-    (``_weight_as``).
+    (``_weight_as``). Differentiable as in JAX (module docstring).
     """
+    args = (x, source, x_pos, s_pos, lnq, lnkv, wq, wk, wv, q_mask,
+            kv_mask, nhead, eps)
+    if needs_grad(*args):
+        return KernelFunction.apply(_launch, linear_encoder_attention_op,
+                                    *args)
+    return _launch(*args)
+
+
+def _launch(x, source, x_pos, s_pos, lnq, lnkv, wq, wk, wv, q_mask, kv_mask,
+            nhead, eps):
+    """K2's forward: the kernel on CUDA tensors, the plain version on CPU
+    tensors."""
     if x.device.type == "cpu":
         return linear_encoder_attention_reference(
             x, source, x_pos, s_pos, lnq, lnkv, wq, wk, wv, q_mask, kv_mask,

@@ -9,6 +9,12 @@ ReLU + pool. On a CUDA tensor both run as the hand-written kernels in
 tensor runs ``groupnorm_relu_maxpool_reference``, the plain torch version.
 ``gn_scale_shift_cuda`` runs the statistics kernels alone, against their
 plain version ``gn_scale_shift``. Tensors are NHWC [B, H, W, C].
+
+Gradients are JAX's (``groupnorm_relu_maxpool_trainable``): when grad mode
+is on and x, gamma or beta requires grad, the call runs through
+``autograd.KernelFunction``, whose backward is torch autograd of
+``groupnorm_relu_maxpool_reference`` (flax's two-pass variance, not the
+kernel's E[x²] - E[x]²).
 """
 from __future__ import annotations
 
@@ -16,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from ._build import check_launch, load_library
+from .autograd import KernelFunction, needs_grad
 
 
 def gn_scale_shift(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
@@ -114,7 +121,17 @@ def groupnorm_relu_maxpool(x, gamma, beta, num_groups: int = 32,
     CUDA tensor (float32 or bfloat16, contiguous) launches the kernels or
     raises. The kernels move 8 channels a thread where C is a multiple of 8
     and x is 16-byte aligned, as at the stem, and one a thread otherwise.
+    Differentiable as in JAX (module docstring).
     """
+    if needs_grad(x, gamma, beta):
+        return KernelFunction.apply(_launch, groupnorm_relu_maxpool_reference,
+                                    x, gamma, beta, num_groups, eps)
+    return _launch(x, gamma, beta, num_groups, eps)
+
+
+def _launch(x, gamma, beta, num_groups, eps):
+    """K3's forward: the kernels on a CUDA tensor, the plain version on a
+    CPU tensor."""
     b, h, w, c = _check_shape(x, num_groups, "groupnorm_relu_maxpool")
     if x.device.type == "cpu":
         return groupnorm_relu_maxpool_reference(x, gamma, beta, num_groups,

@@ -21,6 +21,7 @@ from typing import NamedTuple
 import torch
 
 from ._build import check_launch, load_library
+from .autograd import needs_grad
 
 NEG_INF = -1e9
 # csrc/log_sinkhorn.cu's kStaticSmem: its merge step's (m, s) of 32 slices
@@ -121,10 +122,18 @@ def log_sinkhorn_cuda(log_cost: torch.Tensor, log_mu: torch.Tensor,
 
     A CPU tensor runs the plain version. On the card every input must be
     float32, contiguous and on the same CUDA device; anything else raises.
+    The kernel has no backward, as JAX's Pallas Sinkhorn has none: on the
+    card, with grad mode on and an input that requires grad, it raises
+    rather than hand autograd a constant.
     """
     tensors = (log_cost, log_mu, log_nu)
     if all(t.device.type == "cpu" for t in tensors):
         return log_sinkhorn(log_cost, log_mu, log_nu, iters)
+    if needs_grad(*tensors):
+        raise RuntimeError("log_sinkhorn_cuda: the kernel has no backward "
+                           "(nor has JAX's Pallas Sinkhorn); call "
+                           "log_sinkhorn for gradients, or run under "
+                           "torch.no_grad()")
     if any(t.device != log_cost.device or t.device.type != "cuda"
            for t in tensors):
         raise ValueError("log_sinkhorn_cuda: inputs on "

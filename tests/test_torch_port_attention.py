@@ -220,3 +220,14 @@ def test_fc_config_forward_matches_jax(monkeypatch):
     jout, pout = _forward_pair(jcfg, pcfg, 256, False, seed=13)
     assert pout["mem1"].shape == (2, 16, 512)
     _assert_forward_close(jout, pout)
+
+
+def test_k1_phases_stamps_the_current_kernel():
+    """Every text that k1_phases patches is in csrc/linear_attention.cu
+    once, and the patched copy stamps each phase boundary once."""
+    from oetr_tpu_torch import k1_phases
+    src = k1_phases.stamped_source()
+    for k in range(len(k1_phases.PHASES) + 1):
+        assert src.count(f"STAMP({k}, clock64());") == 1, k
+    assert src.count("global_ns());") == 2
+    assert 'extern "C" int oetr_k1_stamps(' in src

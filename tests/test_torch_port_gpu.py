@@ -23,8 +23,15 @@ launches a call (SuperGlue's k = 2048 at 3 and 8 pairs), 16 small pairs in
 one launch, a pair too large for the grid's shared memory and the same
 bits on every run at N = 1500 and 2000; for K3's statistics kernels against
 ``gn_scale_shift``, widths off 8 pixels, C = 32, 64 and 96, C not a
-multiple of 8, over 2048 channels and x at an element offset; and the
-inputs the kernels refuse.
+multiple of 8, over 2048 channels and x at an element offset; for K1's
+clusters, head widths 1 to 64 off the 16-column tiles and off 16-byte
+rows, 1, 2, 4 and 8 blocks per (batch row, head) with S or L of 1, 2 or 3
+(blocks with no rows), and the same bits on every run; the inputs the
+kernels refuse; and the gradients: through K1, K2, K3, K5 and K6 in f32
+and bf16 the same bits as plain autograd of the functions JAX
+differentiates, K2's reaching its f32 weights and a positional encoding
+with a batch of 1, K4 refusing a gradient, inference keeping the launch
+path, and a small OETR backward with the switches on against off.
 """
 import pytest
 import torch
@@ -400,6 +407,52 @@ def test_attention_kernel_matches_plain(cuda, dtype, kernel, b, l, s, h, d,
         assert (out[1] == 0).all()
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [1, 7, 8, 12, 24, 33, 48, 50, 64])
+def test_linear_kernel_any_head_width(cuda, dtype, d):
+    """K1 at head widths off the 16-column tiles and off 16-byte rows
+    (element-by-element loads and stores), masks on."""
+    q, k, v, qm, km = _attention_args(cuda, dtype, 3, 70, 90, 3, d, d, "both")
+    out = ops.linear_attention_cuda(q, k, v, qm, km)
+    ref = ops.linear_attention_reference(q, k, v, qm, km)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0,
+                               atol=_tol(ref, dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+@pytest.mark.parametrize("l,s", [(1, 1), (2, 3), (3, 2), (1, 400), (400, 1),
+                                 (3, 130), (130, 3)])
+def test_linear_kernel_rows_short_of_the_cluster(cuda, dtype, cluster, l, s):
+    """K1 with as many blocks per (batch row, head) as asked: S and L
+    below the cluster size leave blocks with no key rows or no query rows;
+    S = 1 and L = 1; batch row 1 with every key masked."""
+    from oetr_tpu_torch.ops.attention_kernels import _linear_launch
+    q, k, v, qm, km = _attention_args(cuda, dtype, 2, l, s, 2, 32, l + s,
+                                      "both")
+    out = _linear_launch(q, k, v, qm, km, 1e-6, cluster)
+    ref = ops.linear_attention_reference(q, k, v, qm, km)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0,
+                               atol=_tol(ref, dtype))
+    assert (out[1] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 400, 400, 8, 32), (2, 2500, 2500, 8, 32),
+                                   (3, 90, 700, 2, 64)])
+def test_linear_kernel_same_bits_every_run(cuda, dtype, shape):
+    """The partials are summed in rank order, no atomics: three calls give
+    the same bits."""
+    b, l, s, h, d = shape
+    q, k, v, qm, km = _attention_args(cuda, dtype, b, l, s, h, d, s, "both")
+    outs = [ops.linear_attention_cuda(q, k, v, qm, km) for _ in range(3)]
+    torch.cuda.synchronize()
+    for out in outs[1:]:
+        assert torch.equal(out, outs[0])
+
+
 # Query and key counts around the 16-row mma tiles and the 64-row tiles.
 TILE_EDGES = (1, 15, 16, 17, 63, 65, 400)
 
@@ -508,3 +561,157 @@ def test_small_full_attention_forward_on_card_matches_cpu(cuda, kind):
     for key in b:
         torch.testing.assert_close(a[key].cpu(), b[key], rtol=1e-4,
                                    atol=1e-3, msg=key)
+
+
+# --------------------------------------------------------- gradients --
+#
+# On the card the kernels' gradients are torch autograd of the plain
+# functions JAX differentiates, recomputed from the saved inputs: the same
+# function of the same inputs as plain autograd, so the same bits.
+
+GRAD_PLAIN = {"linear": ops.linear_attention, "full": ops.full_attention,
+              "flash": ops.full_attention}
+
+
+def _leaves(*tensors):
+    return [t.detach().clone().requires_grad_() for t in tensors]
+
+
+def _all_true(mask, b, n, dev):
+    return (torch.ones(b, n, dtype=torch.bool, device=dev) if mask is None
+            else mask)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", sorted(ATTENTION))
+@pytest.mark.parametrize("masks", ["none", "both", "q_only"])
+def test_attention_kernel_grads_equal_plain_autograd(cuda, dtype, kernel,
+                                                     masks):
+    wrapper, _ = ATTENTION[kernel]
+    b, l, s, h, d = 3, 75, 130, 2, 32
+    q, k, v, qm, km = _attention_args(cuda, dtype, b, l, s, h, d, 5, masks)
+    g = torch.randn(b, l, h, d, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(6))
+    g = g.to(dtype)
+    before = wrapper.launches
+    kq, kk, kv_ = _leaves(q, k, v)
+    wrapper(kq, kk, kv_, qm, km).backward(g)
+    assert wrapper.launches == before + 1
+    pq, pk, pv = _leaves(q, k, v)
+    GRAD_PLAIN[kernel](pq, pk, pv, _all_true(qm, b, l, cuda),
+                       _all_true(km, b, s, cuda)).backward(g)
+    for a, r in ((kq, pq), (kk, pk), (kv_, pv)):
+        assert a.grad.dtype == dtype and torch.isfinite(a.grad).all()
+        assert torch.equal(a.grad, r.grad)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pos_batch", [False, True])
+def test_linear_encoder_kernel_grads_equal_plain_autograd(cuda, dtype,
+                                                          pos_batch):
+    """K2's gradients reach x, source, both positional encodings (summed
+    back to a batch of 1), the LayerNorm parameters and the f32 weights,
+    not the bf16 copies the kernel reads."""
+    args = _encoder_args(cuda, dtype, 2, 40, 56, 128, pos_batch, True, 9)
+    up = torch.randn(2, 40, 128, device=cuda,
+                     generator=torch.Generator(device=cuda).manual_seed(1))
+    grads = {}
+    for name, fn in (("kernel", ops.linear_encoder_attention),
+                     ("plain", ops.linear_encoder_attention_op)):
+        leaves = _leaves(*args[:9])
+        fn(*leaves, *args[9:], nhead=8).backward(up.to(dtype))
+        grads[name] = [t.grad for t in leaves]
+    for i, (a, r) in enumerate(zip(grads["kernel"], grads["plain"])):
+        assert a.shape == args[i].shape and a.dtype == args[i].dtype, i
+        assert torch.isfinite(a).all() and torch.equal(a, r), i
+    assert grads["kernel"][6].dtype == torch.float32     # wq
+    assert grads["kernel"][2].shape[0] == (2 if pos_batch else 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gn_pool_kernel_grads_equal_plain_autograd(cuda, dtype):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = (torch.randn(2, 34, 18, 64, generator=g, device=cuda) * 2
+         + 0.5).to(dtype)
+    gamma = 1 + 0.1 * torch.randn(64, generator=g, device=cuda)
+    beta = 0.1 * torch.randn(64, generator=g, device=cuda)
+    up = torch.randn(2, 17, 9, 64, generator=g, device=cuda).to(dtype)
+    grads = {}
+    for name, fn in (("kernel", ops.groupnorm_relu_maxpool),
+                     ("plain", ops.groupnorm_relu_maxpool_reference)):
+        leaves = _leaves(x, gamma, beta)
+        fn(*leaves).backward(up)
+        grads[name] = [t.grad for t in leaves]
+    for a, r in zip(grads["kernel"], grads["plain"]):
+        assert torch.isfinite(a).all() and torch.equal(a, r)
+
+
+def test_sinkhorn_kernel_refuses_grad(cuda):
+    """K4 has no backward (JAX's has none): under grad it raises; under
+    no_grad it runs."""
+    cost, mu, nu = _k4_inputs(cuda, 2, 16, 24, seed=0)
+    leaf = cost.clone().requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.log_sinkhorn_cuda(leaf, mu, nu, 5)
+    with torch.no_grad():
+        _k4_close(ops.log_sinkhorn_cuda(leaf, mu, nu, 5),
+                  ops.log_sinkhorn(cost, mu, nu, 5))
+
+
+def test_inference_keeps_the_launch_path(cuda, monkeypatch):
+    """Under no_grad or inference_mode the wrappers launch as before,
+    without the autograd Function."""
+    from oetr_tpu_torch.ops import autograd
+
+    def refuse(*args):
+        raise AssertionError("KernelFunction built under no_grad")
+
+    monkeypatch.setattr(autograd.KernelFunction, "apply", refuse)
+    q, k, v, qm, km = _attention_args(cuda, torch.bfloat16, 2, 40, 24, 2, 32,
+                                      1, "both")
+    q.requires_grad_()
+    for ctx in (torch.no_grad, torch.inference_mode):
+        with ctx():
+            for wrapper, _ in ATTENTION.values():
+                before = wrapper.launches
+                wrapper(q, k, v, qm, km)
+                assert wrapper.launches == before + 1
+
+
+def _oetr_loss(out, seed):
+    """A scalar that reaches every output: each key's mean against fixed
+    random weights."""
+    g = torch.Generator().manual_seed(seed)
+    return sum((out[key] * torch.randn(out[key].shape, generator=g).to(
+        out[key].device)).mean() for key in sorted(out))
+
+
+def test_small_oetr_backward_on_card(cuda):
+    """The small config in f32, switches on (K2, K3) against off, same
+    weights and images: every parameter gets a gradient, and each within
+    1e-4 of max(1, the largest |gradient| of that parameter)."""
+    cfgs = [port.OETRConfig(
+        backbone=port.BackboneConfig(depth=18, last_layer=256,
+                                     fused_stem=fused),
+        neck=port.NeckConfig(d_model=64, nhead=4, num_layers=1,
+                             num_decoder_layers=1, attention=attention))
+        for fused, attention in ((True, "linear:cuda"), (False, "linear"))]
+    on = port.build_oetr(cfgs[0], device=cuda)
+    off = port.build_oetr(cfgs[1], device=cuda)
+    off.load_state_dict(on.state_dict())
+    g = torch.Generator().manual_seed(0)
+    im1, im2 = (t.to(cuda) for t in torch.rand(2, 2, 160, 160, 3, generator=g))
+    mask = (torch.rand(2, 5, 5, generator=g) > 0.2).to(cuda)
+    before = (ops.linear_encoder_attention.launches,
+              ops.groupnorm_relu_maxpool.launches)
+    for model in (on, off):
+        _oetr_loss(model(im1, im2, mask, mask), seed=1).backward()
+    assert (ops.linear_encoder_attention.launches,
+            ops.groupnorm_relu_maxpool.launches) == (before[0] + 4,
+                                                     before[1] + 1)
+    ref = dict(off.named_parameters())
+    for name, p in on.named_parameters():
+        assert p.grad is not None, name
+        r = ref[name].grad
+        tol = 1e-4 * max(1.0, r.abs().max().item())
+        assert (p.grad - r).abs().max().item() <= tol, name
