@@ -40,7 +40,23 @@ paths with seeded random weights:
     bits as plain autograd of the function JAX differentiates, then the
     flagship's forward and backward in f32 at 2 pairs with the switches on
     against off: every parameter has a gradient, within OETR_GRAD_TOL
-    outside the backbone and at OETR_BACKBONE_COS inside it.
+    outside the backbone and at OETR_BACKBONE_COS inside it;
+  * ``loftr``: bench stage 6's LoFTR (d_coarse 192, d_fine 96, 4 coarse
+    layers, K = 1024, f32) on 16 scene pairs of 256x256: pairs/s, device
+    busy ms and peak memory, and 2 of the pairs against the same weights on
+    the CPU (it runs no kernel of the port: its attention is the plain
+    ``den + eps`` op, as in JAX);
+  * ``dense``: the dense pipeline (OETR in bf16 on 640x640 copies, heatmap
+    boxes, gate, crops onto 832x832, that LoFTR in f32) on 4 scene pairs
+    with OETR's switches on (K2, K3, their launches also counted in a
+    trace, and every output of theirs in one OETR pass held to the plain
+    version on the same inputs) against off; ``dense_retry``: one call
+    whose low-match pairs take the full-image retry;
+  * ``scenes``: the port's scene generator on the card (8 pairs of 832x832,
+    bench stage 5's settings), its ground-truth boxes against the geometry
+    path on the CPU, then bench stage 5's pattern on them: the sparse
+    pipeline (descriptor 128, keypoint threshold 0, K2, K3, K4 on) with the
+    < 30 matches retry.
 K1's lines give its cluster (blocks per batch row and head), its grid and
 its device time at every cluster size.
 One JSON line per phase, each with ``t_s``, seconds since start. The last
@@ -50,6 +66,8 @@ script exits 1 and prints no result. It imports nothing of JAX.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import json
 import math
 import re
@@ -116,6 +134,21 @@ MATCH_AGREE_MIN = 0.99   # matches0 agreement, K4 on vs off, valid keypoints
 OETR_GRAD_TOL = 1e-3
 OETR_BACKBONE_COS = 0.999
 SFU_PER_CLK_PER_SM = 16  # exponentials per clock per SM (Hopper SFUs)
+# LoFTR at bench stage 6's widths (profile_forward.LOFTR_KW), f32.
+LOFTR_PAIRS, LOFTR_HW = 16, 256
+# LoFTR on the card against the CPU, f32 with TF32 off. coarse_conf to
+# LOFTR_CONF_RTOL of the CPU's largest entry: cuDNN and cuBLAS sum in other
+# orders through 4 layers, and with seeded weights the largest entry is
+# ~5e-4 and a typical one ~1e-6 (1/1024 squared), so an absolute bound
+# would pass a wrong coarse stage. Each row's argmax (what the coarse
+# stage decides, valid match or not) agrees on >= 99% of the rows, and
+# where it differs the card's pick is a row maximum of the CPU's within
+# that tolerance. The valid masks equal on >= 99% of the K slots, and the
+# image-1 positions of slots whose cells agree within 1e-2 px.
+LOFTR_CONF_RTOL = 1e-4
+LOFTR_PX_TOL = 1e-2
+DENSE_PAIRS = 4
+SCENE_PAIRS = 8
 
 
 def elapsed() -> float:
@@ -148,14 +181,20 @@ def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
 
 
 def device_ms(torch, fn, reps: int = 20, warmup: int = 3,
-              sessions: int = 3) -> float:
+              sessions: int = 6) -> float:
     """Device time per call of ``fn()``: the summed duration of the device
-    activity (kernels, copies) of ``reps`` calls in a torch.profiler trace,
-    over ``reps``. Unlike ``time_ms`` it leaves out the host's work between
-    launches. ``fn`` launches the same work on every call, so a trace whose
-    count of device events is 0 or not a multiple of ``reps`` missed some
-    (seen once on the H100 in ~100 traces): it is taken again, up to
-    ``sessions`` traces in all."""
+    activity (kernels, copies; not the device-side spans of record_function
+    ranges, which the profiler marks as user annotations) of ``reps`` calls
+    in a torch.profiler trace, over ``reps``. Unlike ``time_ms`` it leaves
+    out the host's work between launches. Each trace opens with
+    profile_forward's pad kernels, which absorb the device events a trace
+    can miss at its start, and are left out. ``fn`` launches the same work
+    on every call, so a trace whose count of device events is 0 or not a
+    multiple of ``reps`` missed some (seen once on the H100 in ~100 traces,
+    and once in two traces in a row): it is taken again, up to ``sessions``
+    traces in all."""
+    from oetr_tpu_torch.profile_forward import PAD_KERNEL, pad_trace
+
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -164,24 +203,33 @@ def device_ms(torch, fn, reps: int = 20, warmup: int = 3,
     counts = []
     for _ in range(sessions):
         with torch.profiler.profile(activities=acts) as prof:
+            pad_trace()
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
         dev = [evt for evt in prof.events()
-               if evt.device_type == torch.autograd.DeviceType.CUDA]
+               if evt.device_type == torch.autograd.DeviceType.CUDA
+               and not evt.is_user_annotation
+               and PAD_KERNEL not in evt.name]
         if dev and len(dev) % reps == 0:
             return sum(e.time_range.elapsed_us() for e in dev) / 1e3 / reps
-        counts.append(len(dev))
-    raise RuntimeError(f"torch.profiler recorded {counts} device events for "
-                       f"{reps} calls")
+        names = collections.Counter(e.name for e in dev)
+        counts.append((len(dev), {name[:80]: n for name, n in names.items()
+                                  if n % reps}))
+    raise RuntimeError(f"torch.profiler recorded (device events, the names "
+                       f"whose count is not a multiple of {reps}) {counts} "
+                       f"for {reps} calls")
 
 
 def traced_launches(torch, fn, kernel_name: str, reps: int = 3,
-                    sessions: int = 3) -> int:
+                    sessions: int = 6) -> int:
     """Launches per call of ``fn()`` of the kernels whose name holds
     ``kernel_name``: their device events in a torch.profiler trace of
-    ``reps`` calls, over ``reps``. A count that is not a multiple of
-    ``reps`` missed an event, and is traced again as in ``device_ms``."""
+    ``reps`` calls, over ``reps``. The trace opens with pad kernels, and a
+    count that is not a multiple of ``reps`` missed an event and is traced
+    again, both as in ``device_ms``."""
+    from oetr_tpu_torch.profile_forward import pad_trace
+
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -189,6 +237,7 @@ def traced_launches(torch, fn, kernel_name: str, reps: int = 3,
     counts = []
     for _ in range(sessions):
         with torch.profiler.profile(activities=acts) as prof:
+            pad_trace()
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
@@ -1222,6 +1271,377 @@ def run_sparse_f32(torch, port, b):
                                  r["num_matches"].tolist()]}
 
 
+# ----------------------------------------------------- loftr, dense, scenes --
+
+def scene_inputs(b, seed):
+    """b scene pairs of CANVAS_HW² from the port's generator on the card
+    (bench stage 5's settings) and the pipeline's arguments for them, with
+    IMAGE_HW² OETR copies. Returns (arguments, the generator's batch)."""
+    from oetr_tpu_torch import profile_forward as pf
+
+    raw = pf.scene_pairs(CANVAS_HW, b, seed, device=DEV)
+    return pf.pipeline_args(raw, IMAGE_HW), raw
+
+
+def run_loftr(torch, port, ops):
+    """bench stage 6's LoFTR on LOFTR_PAIRS scene pairs of LOFTR_HW², f32,
+    seeded weights: the forward once with the launch counts read around it
+    (LoFTR runs none of the port's kernels), 2 pairs against the same
+    weights on the CPU, pairs/s (median of CUDA-event timings), device busy
+    ms (torch.profiler) and peak memory."""
+    from oetr_tpu_torch import profile_forward as pf
+    from oetr_tpu_torch.models.superpoint import grayscale
+
+    model = pf.loftr_model(DEV)
+    raw = pf.scene_pairs(LOFTR_HW, LOFTR_PAIRS, seed=8, device=DEV)
+    g0, g1 = grayscale(raw["image1"]), grayscale(raw["image2"])
+    b, n = LOFTR_PAIRS, (LOFTR_HW // 8) ** 2
+    k = min(pf.LOFTR_KW["max_matches"], n)
+    with torch.inference_mode():
+        model(g0, g1)       # cuDNN times its algorithms for these shapes
+        torch.cuda.synchronize()
+        reset_counts(ops)
+        torch.cuda.reset_peak_memory_stats()
+        out = model(g0, g1)
+        torch.cuda.synchronize()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        launches = launch_counts(ops)
+        if any(launches.values()):
+            raise AssertionError(f"loftr launched {launches}")
+        for key, shape in (("mkpts0", (b, k, 2)), ("mkpts1", (b, k, 2)),
+                           ("conf", (b, k)), ("coarse_conf", (b, n, n))):
+            if tuple(out[key].shape) != shape or \
+                    not torch.isfinite(out[key]).all():
+                raise AssertionError(f"loftr {key}: shape "
+                                     f"{tuple(out[key].shape)}, or not finite")
+        ref = pf.loftr_model("cpu")(g0[:2].cpu(), g1[:2].cpu())
+        call = lambda: model(g0, g1)
+        ms = time_ms(torch, call, reps=10, warmup=2)
+        busy = device_ms(torch, call, reps=3, warmup=1)
+    got = {key: out[key][:2].cpu() for key in ref}
+    conf, conf_ref = got["coarse_conf"], ref["coarse_conf"]
+    conf_tol = LOFTR_CONF_RTOL * conf_ref.max().item()
+    conf_err = (conf - conf_ref).abs().max().item()
+    pick, pick_ref = conf.argmax(-1), conf_ref.argmax(-1)
+    argmax_agree = (pick == pick_ref).float().mean().item()
+    # How far below the CPU's row maximum the card's pick lies there.
+    pick_gap = (conf_ref.amax(-1) - conf_ref.gather(-1, pick[..., None])[
+        ..., 0]).max().item()
+    valid_agree = (got["valid"] == ref["valid"]).float().mean().item()
+    same_cells = (got["cells0"] == ref["cells0"]) & \
+        (got["cells1"] == ref["cells1"])
+    px = (got["mkpts1"] - ref["mkpts1"]).abs().amax(-1)
+    both = got["valid"] & ref["valid"] & same_cells
+    px_valid = px[both].max().item() if both.any() else 0.0
+    px_cells = px[same_cells].max().item()
+    if not (conf_err <= conf_tol and argmax_agree >= MATCH_AGREE_MIN
+            and pick_gap <= conf_tol and valid_agree >= MATCH_AGREE_MIN
+            and same_cells.float().mean().item() >= MATCH_AGREE_MIN
+            and px_valid <= LOFTR_PX_TOL and px_cells <= LOFTR_PX_TOL):
+        raise AssertionError(
+            f"loftr card vs CPU: coarse_conf {conf_err} (tol {conf_tol}), "
+            f"row argmax agree {argmax_agree} (gap {pick_gap}), valid agree "
+            f"{valid_agree}, cells agree {same_cells.float().mean().item()}, "
+            f"mkpts1 {px_valid} (valid) / {px_cells} (all rows)")
+    return {"dtype": "float32", "pairs": b, "image_hw": LOFTR_HW,
+            "widths": dict(pf.LOFTR_KW), "cudnn_deterministic":
+            torch.backends.cudnn.deterministic,
+            "launches": {}, "pairs_per_s": b / ms * 1e3, "forward_ms": ms,
+            "device_busy_ms": busy, "peak_mem_gb": peak_gb,
+            "valid_per_pair": out["valid"].sum(-1).tolist(),
+            "coarse_conf_max": out["coarse_conf"].max().item(),
+            "cpu_pairs": 2, "coarse_conf_max_abs_err": conf_err,
+            "coarse_conf_tol": conf_tol,
+            "coarse_conf_rtol": LOFTR_CONF_RTOL,
+            "row_argmax_agree": argmax_agree,
+            "row_argmax_gap": pick_gap,
+            "valid_agree": valid_agree,
+            "cells_agree": same_cells.float().mean().item(),
+            "mkpts1_max_err_px_valid": px_valid,
+            "mkpts1_max_err_px_all_rows": px_cells,
+            "mkpts1_tol_px": LOFTR_PX_TOL}
+
+
+@contextlib.contextmanager
+def recorded_kernel_calls():
+    """Records every call OETR makes to K2's and K3's wrappers, as
+    {wrapper name: [(args, kwargs, output), ...]}, passing each on."""
+    from oetr_tpu_torch.models import resnet, transformer
+
+    calls = {}
+    sites = [(mod, name, getattr(mod, name)) for mod, name in (
+        (transformer, "linear_encoder_attention"),
+        (resnet, "groupnorm_relu_maxpool"))]
+
+    def recorder(name, fn):
+        def call(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            calls.setdefault(name, []).append((args, kwargs, out))
+            return out
+        return call
+
+    try:
+        for mod, name, fn in sites:
+            setattr(mod, name, recorder(name, fn))
+        yield calls
+    finally:
+        for mod, name, fn in sites:
+            setattr(mod, name, fn)
+
+
+def recorded_kernel_errors(torch, ops, calls):
+    """Each recorded output of K2 and K3 against the plain version on the
+    same inputs, at the kernel checks' tolerances (K2: 2 bf16 ulps or 1e-4,
+    K3: 1 ulp or 1e-5, of max(1, the plain output's largest magnitude)).
+    Returns {name: {"calls", "max_abs_err", "max_err_over_tol"}}; raises
+    where an output is outside its tolerance."""
+    plain = {"linear_encoder_attention":
+             (ops.linear_encoder_attention_reference, 2, 1e-4),
+             "groupnorm_relu_maxpool":
+             (ops.groupnorm_relu_maxpool_reference, 1, 1e-5)}
+    result = {}
+    for name, recorded in calls.items():
+        reference, ulps, rel = plain[name]
+        errs, ratios = [], []
+        for args, kwargs, out in recorded:
+            ref = reference(*args, **kwargs).float()
+            err = (out.float() - ref).abs().max().item()
+            dtype_name = str(args[0].dtype).removeprefix("torch.")
+            tol = tolerance(dtype_name, ref.abs().max().item(), ulps, rel)
+            if tuple(out.shape) != tuple(ref.shape) or not err <= tol:
+                raise AssertionError(f"{name} on the dense path, input "
+                                     f"{tuple(args[0].shape)}: max_abs_err "
+                                     f"{err} > tol {tol}")
+            errs.append(err)
+            ratios.append(err / tol)
+        result[name] = {"calls": len(recorded), "input": list(
+            recorded[0][0][0].shape), "max_abs_err": max(errs),
+            "max_err_over_tol": max(ratios)}
+    return result
+
+
+def dense_pipeline(port, oetr, loftr, min_matches):
+    cfg = port.PipelineConfig(canvas_hw=(CANVAS_HW, CANVAS_HW),
+                              oetr_hw=(IMAGE_HW, IMAGE_HW),
+                              fallback_min_matches=min_matches,
+                              retry_batch=2, box_source="heatmap")
+    return port.DensePipeline(loftr, oetr=oetr, cfg=cfg)
+
+
+def slot_agreement(a, b):
+    """Share of the K slots of every pair where two dense outputs agree:
+    the same validity and image-0 position, the image-1 position within
+    LOFTR_PX_TOL."""
+    same = ((a["valid"] == b["valid"])
+            & ((a["mkpts0"] - b["mkpts0"]).abs().amax(-1) <= LOFTR_PX_TOL)
+            & ((a["mkpts1"] - b["mkpts1"]).abs().amax(-1) <= LOFTR_PX_TOL))
+    return same.float().mean().item()
+
+
+def run_dense(torch, port, ops, b):
+    """The dense pipeline on b scene pairs: OETR in bf16 with K2 and K3 on
+    against ``oetr_r50_config()`` (switches off), one LoFTR in f32 for
+    both. Returns the ``dense`` and ``dense_retry`` phase fields and the
+    main path's launches."""
+    from oetr_tpu_torch import profile_forward as pf
+
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    cfg_on = port.oetr_r50_kernels_config("bfloat16")
+    cfg_off = port.replace(port.oetr_r50_config(), dtype="bfloat16")
+    oetr_on = port.build_oetr(cfg_on, device=DEV,
+                              generator=torch.Generator().manual_seed(0))
+    oetr_off = port.build_oetr(cfg_off, device=DEV,
+                               generator=torch.Generator().manual_seed(1))
+    oetr_off.load_state_dict(oetr_on.state_dict())
+    loftr = pf.loftr_model(DEV)
+    pipe_on = dense_pipeline(port, oetr_on, loftr, 0)
+    pipe_off = dense_pipeline(port, oetr_off, loftr, 0)
+    args, _ = scene_inputs(b, seed=9)
+    tol = BOX_TOL_PX["bfloat16"] * CANVAS_HW / IMAGE_HW
+
+    with torch.inference_mode():
+        pipe_on(*args)      # cuDNN times LoFTR's convolutions at 832²
+        torch.cuda.synchronize()
+        # The main path, once, with the launch counts read around it.
+        reset_counts(ops)
+        torch.cuda.reset_peak_memory_stats()
+        out = pipe_on(*args)
+        torch.cuda.synchronize()
+        launches = launch_counts(ops)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        want = {name: 0 for name in KERNELS}
+        want.update(linear_encoder_attention=16, groupnorm_relu_maxpool=1)
+        if launches != want:
+            raise AssertionError(f"dense launches {launches} != {want}")
+        ref = pipe_off(*args)
+        torch.cuda.synchronize()
+        # With seeded weights every heatmap box is the full frame and no
+        # LoFTR slot is valid, so the pipeline's outputs cannot see a wrong
+        # K2 or K3. So the path's OETR pass once more: every K2 and K3 output
+        # against its plain version on the inputs the path gave it, and
+        # OETR's raw outputs with the switches on against off.
+        with recorded_kernel_calls() as calls:
+            raw_on = oetr_on(args[4], args[5])
+        kernel_errs = recorded_kernel_errors(torch, ops, calls)
+        if {k: v["calls"] for k, v in kernel_errs.items()} != {
+                k: n for k, n in want.items() if n}:
+            raise AssertionError(f"dense: recorded kernel calls "
+                                 f"{kernel_errs}")
+        del calls
+        raw_off = oetr_off(args[4], args[5])
+        check_outputs(torch, cfg_on, raw_on, b, IMAGE_HW, "dense kernels")
+        check_outputs(torch, cfg_off, raw_off, b, IMAGE_HW, "dense plain")
+        oetr_px = box_diff_px(port, raw_on, raw_off, IMAGE_HW)
+        raw_diff = {k: (raw_on[k].float() - raw_off[k].float()).abs().max()
+                    .item() for k in ("tlbr1", "tlbr2", "prob_map1",
+                                      "prob_map2")}
+        if not oetr_px <= BOX_TOL_PX["bfloat16"]:
+            raise AssertionError(f"dense: OETR on vs off {oetr_px} px > "
+                                 f"{BOX_TOL_PX['bfloat16']}")
+        box = max((out[k] - ref[k]).abs().max().item()
+                  for k in ("bbox0", "bbox1"))
+        agree = slot_agreement(out, ref)
+        if not (box <= tol and agree >= MATCH_AGREE_MIN and torch.equal(
+                out["used_overlap"], ref["used_overlap"])):
+            raise AssertionError(f"dense on vs off: boxes {box} px apart "
+                                 f"(tol {tol}), slots agree {agree}, used "
+                                 f"{out['used_overlap']} / "
+                                 f"{ref['used_overlap']}")
+        # K2 (two CUDA launches a call) and K3 (statistics, fold, apply)
+        # in a trace of the path.
+        call = lambda: pipe_on(*args)
+        traced = {"linear_encoder_kernel": traced_launches(
+                      torch, call, "linear_encoder_kernel"),
+                  "gn_apply_pool_kernel": traced_launches(
+                      torch, call, "gn_apply_pool_kernel")}
+        if traced != {"linear_encoder_kernel": 32,
+                      "gn_apply_pool_kernel": 1}:
+            raise AssertionError(f"dense: traced launches a call {traced}")
+        fields = {
+            "pairs": b, "canvas_hw": CANVAS_HW, "oetr_hw": IMAGE_HW,
+            "oetr_dtype": "bfloat16", "loftr_dtype": "float32",
+            "launches_per_call": {k: n for k, n in launches.items() if n},
+            "cuda_launches_per_call_traced": traced,
+            "path_kernels_vs_plain": kernel_errs,
+            "oetr_box_max_diff_px": oetr_px,
+            "oetr_box_tol_px": BOX_TOL_PX["bfloat16"],
+            "oetr_raw_max_diff": raw_diff,
+            "box_max_diff_px": box, "box_tol_px": tol,
+            "slots_agree": agree, "agree_min": MATCH_AGREE_MIN,
+            "used_overlap": out["used_overlap"].tolist(),
+            "matches_per_pair": out["num_matches"].tolist(),
+            "bbox0": [[round(v, 2) for v in row]
+                      for row in out["bbox0"].tolist()],
+            "peak_mem_gb_one_call": peak_gb}
+        torch.cuda.reset_peak_memory_stats()
+        fields["pairs_per_s"] = pairs_per_s(torch, pipe_on, args, reps=5)
+        fields["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        fields["plain_pairs_per_s"] = pairs_per_s(torch, pipe_off, args,
+                                                  reps=5)
+        del pipe_off, oetr_off, raw_on, raw_off
+
+        # One call with the reference's rule: < 30 matches -> full image.
+        need = ((out["num_matches"] < 30) & out["used_overlap"]).cpu()
+        n_retry = int(need.sum())
+        reset_counts(ops)
+        retried = dense_pipeline(port, oetr_on, loftr, 30)(*args)
+        torch.cuda.synchronize()
+        retry_launches = launch_counts(ops)
+        used_after = retried["used_overlap"].cpu()
+        plain = pipe_on._run(*[a[need.to(DEV)] for a in args[:4]])
+        if n_retry < 1 or retry_launches != want or not (
+                torch.equal(used_after, out["used_overlap"].cpu() & ~need)
+                and torch.equal(retried["num_matches"][need.to(DEV)],
+                                plain["num_matches"])):
+            raise AssertionError(f"dense retry: {n_retry} pairs, launches "
+                                 f"{retry_launches}, used {used_after}")
+        retry = {"fallback_min_matches": 30, "retry_batch": 2,
+                 "pairs_retried": n_retry,
+                 "launches": {k: n for k, n in retry_launches.items() if n},
+                 "matches_per_pair": retried["num_matches"].tolist()}
+    return fields, retry, launches
+
+
+def run_scenes(torch, port, ops, b):
+    """The port's scene generator on the card, its ground-truth boxes
+    against ``overlap_bbox_pair`` on the CPU on the same tensors, then bench
+    stage 5's pattern on its pairs (seeded weights)."""
+    from oetr_tpu_torch import profile_forward as pf
+    from oetr_tpu_torch.geometry.overlap import overlap_bbox_pair
+
+    gen_ms = time_ms(torch, lambda: pf.scene_pairs(CANVAS_HW, b, 7, DEV),
+                     reps=3, warmup=1)
+    args, raw = scene_inputs(b, seed=7)
+    names = ("K1", "depth1", "pose1", "crop1", "ratio1", "K2", "depth2",
+             "pose2", "crop2", "ratio2")
+    box1, _, box2, _, valid = overlap_bbox_pair(*(raw[n].cpu()
+                                                  for n in names))
+    gt_equal = (torch.equal(box1, raw["overlap_box1"].cpu())
+                and torch.equal(box2, raw["overlap_box2"].cpu())
+                and torch.equal(valid, raw["overlap_valid"].cpu()))
+    img = raw["image1"]
+    levels = img * 255.0
+    s = raw["scale"]
+    lo, hi = pf.SCENE_KW["scale_range"]
+    in_range = ((s == 1.0) | ((s >= lo) & (s <= hi))).all()
+    if not (gt_equal and bool(in_range) and 0.0 <= img.min().item()
+            and img.max().item() <= 1.0
+            and (levels - levels.round()).abs().max().item() <= 1e-3):
+        raise AssertionError(f"scenes: GT boxes equal to the CPU's "
+                             f"{gt_equal}, scales {s.tolist()}")
+
+    dt = torch.bfloat16
+    oetr = port.build_oetr(port.oetr_r50_kernels_config("bfloat16"),
+                           device=DEV,
+                           generator=torch.Generator().manual_seed(0))
+    sp = port.build_superpoint(device=DEV, max_keypoints=SPARSE_K,
+                               keypoint_threshold=0.0, descriptor_dim=128,
+                               dtype=dt,
+                               generator=torch.Generator().manual_seed(3))
+    sg = port.build_superglue(device=DEV, descriptor_dim=128, dtype=dt,
+                              cuda_sinkhorn=True,
+                              generator=torch.Generator().manual_seed(4))
+    cfg = port.PipelineConfig(canvas_hw=(CANVAS_HW, CANVAS_HW),
+                              oetr_hw=(IMAGE_HW, IMAGE_HW),
+                              fallback_min_matches=30, box_source="heatmap")
+    pipe = port.SparsePipeline(sp, sg, oetr=oetr, cfg=cfg)
+    with torch.inference_mode():
+        first = pipe._run(*args, use_overlap=True)
+        need = ((first["num_matches"] < 30) & first["used_overlap"]).cpu()
+        n_retry = int(need.sum())
+        reset_counts(ops)
+        out = pipe(*args)
+        torch.cuda.synchronize()
+        launches = launch_counts(ops)
+        want = {name: 0 for name in KERNELS}
+        want.update(linear_encoder_attention=16, groupnorm_relu_maxpool=1,
+                    log_sinkhorn_cuda=1 + -(-n_retry // 2))
+        used = first["used_overlap"].cpu() & ~need
+        if launches != want or not torch.equal(out["used_overlap"].cpu(),
+                                               used):
+            raise AssertionError(f"scenes: launches {launches} != {want}, "
+                                 f"or used_overlap {out['used_overlap']}")
+        rate = pairs_per_s(torch, pipe, args, reps=3)
+    return {"weights": "seeded", "pairs": b, "canvas_hw": CANVAS_HW,
+            "generator": {**pf.SCENE_KW, "ms": gen_ms,
+                          "translated_pairs": int((s == 1.0).sum()),
+                          "scale": [round(v, 4) for v in s.tolist()]},
+            "gt_boxes_equal_cpu": gt_equal,
+            "overlap_box1": raw["overlap_box1"].tolist(),
+            "descriptor_dim": 128, "keypoints": SPARSE_K,
+            "keypoint_threshold": 0.0, "fallback_min_matches": 30,
+            "launches": {k: n for k, n in launches.items() if n},
+            "matches_per_pair_first_pass": first["num_matches"].tolist(),
+            "matches_per_pair": out["num_matches"].tolist(),
+            "pairs_used_overlap": int(out["used_overlap"].sum()),
+            "pairs_gated": int((~first["used_overlap"]).sum()),
+            "pairs_retried": n_retry,
+            "bbox0": [[round(v, 1) for v in row]
+                      for row in first["bbox0"].tolist()],
+            "pairs_per_s": rate}
+
+
 def main() -> int:
     import torch
 
@@ -1364,6 +1784,18 @@ def main() -> int:
     # at its main path's shape in bf16, then OETR's backward in f32.
     phase("grad", **run_grad(torch, port, ops, BATCH_PAIRS))
 
+    # Path 6, bench stage 6's LoFTR alone, then the dense pipeline, whose
+    # K2 and K3 launches the table adds to the sparse path's.
+    phase("loftr", **run_loftr(torch, port, ops))
+    fields, retry, dense_launches = run_dense(torch, port, ops,
+                                              DENSE_PAIRS)
+    phase("dense", **fields)
+    phase("dense_retry", **retry)
+    torch.cuda.empty_cache()
+
+    # Path 7, the scene generator and bench stage 5's pattern on its pairs.
+    phase("scenes", **run_scenes(torch, port, ops, SCENE_PAIRS))
+
     phase("kernels", ported=["linear_attention_cuda<-K1",
                              "linear_encoder_attention<-K2",
                              "groupnorm_relu_maxpool<-K3",
@@ -1373,30 +1805,36 @@ def main() -> int:
     main_dtype = "bfloat16"
     pallas = "oetr_tpu/ops/pallas_attention.py"
     table = []
-    for name, src, replaces, res in (
+    # (name, source, TPU kernel, kernel phase, the path of ``launches``)
+    for name, src, replaces, res, path in (
             ("linear_attention_cuda",
              "oetr_tpu_torch/csrc/linear_attention.cu",
-             f"{pallas}:172", attn["linear", main_dtype, 400, "none"]),
+             f"{pallas}:172", attn["linear", main_dtype, 400, "none"],
+             "linear_attend"),
             ("linear_encoder_attention",
              "oetr_tpu_torch/csrc/linear_encoder.cu",
-             f"{pallas}:461", k2[main_dtype]),
+             f"{pallas}:461", k2[main_dtype], "sparse"),
             ("groupnorm_relu_maxpool",
              "oetr_tpu_torch/csrc/gn_relu_maxpool.cu",
-             "oetr_tpu/ops/pallas_norm.py:97", k3[main_dtype]),
+             "oetr_tpu/ops/pallas_norm.py:97", k3[main_dtype], "sparse"),
             ("log_sinkhorn_cuda", "oetr_tpu_torch/csrc/log_sinkhorn.cu",
-             "oetr_tpu/ops/pallas_sinkhorn.py:53", k4),
+             "oetr_tpu/ops/pallas_sinkhorn.py:53", k4, "sparse"),
             ("full_attention_cuda", "oetr_tpu_torch/csrc/full_attention.cu",
-             f"{pallas}:201", attn["full", main_dtype, 400, "none"]),
+             f"{pallas}:201", attn["full", main_dtype, 400, "none"], "full"),
             ("flash_attention_cuda", "oetr_tpu_torch/csrc/flash_attention.cu",
-             f"{pallas}:289", attn["flash", main_dtype, 400, "none"])):
+             f"{pallas}:289", attn["flash", main_dtype, 400, "none"],
+             "full")):
+        by_path = {p: n for p, n in ((path, launches[name]),
+                                     ("dense", dense_launches[name])) if n}
         row = {"name": name, "route": "cuda", "source": src,
-               "replaces": replaces, "launches": launches[name],
+               "replaces": replaces, "launches": sum(by_path.values()),
                "max_abs_err": res["max_abs_err"],
                "ms": res["kernel_ms"], "plain_ms": res["plain_ms"],
                "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
                "library_ms": res["library_ms"]}
         row.update(device_ms=res["device_ms"],
-                   library_device_ms=res.get("library_device_ms"))
+                   library_device_ms=res.get("library_device_ms"),
+                   launches_by_path=by_path)
         table.append(row)
     if elapsed() > BUDGET_S:
         raise RuntimeError(f"over the {BUDGET_S:.0f} s budget")

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..config import OETRConfig
+from ..models.loftr import build_loftr
 from ..models.oetr import build_oetr
 from ..models.superglue import build_superglue
 from ..models.superpoint import build_superpoint
@@ -102,3 +103,10 @@ def convert_superglue_params(params: Mapping, **kwargs) -> dict:
     ``convert_flax_params`` does."""
     return _state_dict(_unwrap(params),
                        build_superglue(device="meta", **kwargs))
+
+
+def convert_loftr_params(params: Mapping, **kwargs) -> dict:
+    """A flax LoFTR tree -> the state_dict of the port's
+    ``LoFTR(**kwargs)`` (``backbone``, ``coarse``, ``fine`` and
+    ``fine_proj``). Raises as ``convert_flax_params`` does."""
+    return _state_dict(_unwrap(params), build_loftr(device="meta", **kwargs))

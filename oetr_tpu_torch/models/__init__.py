@@ -1,4 +1,5 @@
 """Model modules of the port."""
+from .loftr import LoFTR, build_loftr
 from .oetr import (OETR, PatchMerging, build_oetr, decode_boxes,
                    sine_position_encoding)
 from .resnet import ResNetEncoder, backbone_channels
@@ -7,7 +8,7 @@ from .superpoint import SuperPoint, SuperPointNet, build_superpoint, grayscale
 from .transformer import (DecoderLayer, EncoderLayer, MultiHeadAttention,
                           QueryTransformer)
 
-__all__ = ["OETR", "PatchMerging", "build_oetr", "decode_boxes",
+__all__ = ["LoFTR", "build_loftr", "OETR", "PatchMerging", "build_oetr", "decode_boxes",
            "sine_position_encoding", "ResNetEncoder", "backbone_channels",
            "SuperGlue", "build_superglue", "SuperPoint", "SuperPointNet",
            "build_superpoint", "grayscale", "DecoderLayer", "EncoderLayer",

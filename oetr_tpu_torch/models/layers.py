@@ -66,17 +66,19 @@ class LayerNorm(nn.Module):
 
 
 class GroupNorm(nn.Module):
-    """GroupNorm over NCHW, 32 groups, eps 1e-5."""
+    """GroupNorm over NCHW: 32 groups and eps 1e-5 by default (OETR's);
+    LoFTR keeps flax's eps of 1e-6 with its own group counts."""
 
     is_norm = True
-    num_groups = 32
-    eps = 1e-5
 
-    def __init__(self, channels: int, dtype: torch.dtype):
+    def __init__(self, channels: int, dtype: torch.dtype,
+                 num_groups: int = 32, eps: float = 1e-5):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(channels))
         self.bias = nn.Parameter(torch.empty(channels))
         self.dtype = dtype
+        self.num_groups = num_groups
+        self.eps = eps
 
     def forward(self, x):
         return F.group_norm(x.float(), self.num_groups, self.weight,

@@ -1,6 +1,6 @@
 """The port's matching pipelines."""
-from .matching import (PipelineConfig, SparsePipeline, gate_boxes,
-                       overlap_scale_score)
+from .matching import (DensePipeline, PipelineConfig, SparsePipeline,
+                       gate_boxes, overlap_scale_score)
 
-__all__ = ["PipelineConfig", "SparsePipeline", "gate_boxes",
+__all__ = ["DensePipeline", "PipelineConfig", "SparsePipeline", "gate_boxes",
            "overlap_scale_score"]

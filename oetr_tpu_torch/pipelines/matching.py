@@ -1,19 +1,22 @@
-"""Overlap-guided sparse matching pipeline (port of
-``oetr_tpu/pipelines/matching.py``: ``SparsePipeline`` and its helpers).
+"""Overlap-guided matching pipelines (port of
+``oetr_tpu/pipelines/matching.py``: ``SparsePipeline``, ``DensePipeline``
+and their helpers).
 
 OETR predicts the co-visible boxes on small copies of the images; the boxes
 are rescaled to the full-resolution frame and gated, both overlap regions
 are crop-resized onto a fixed canvas, SuperPoint and a matcher (SuperGlue)
-run on the crops, and keypoints are mapped back to the original frame
-(``kpts / ratio + box[:2]``). The reference's fallback rules:
+or the dense matcher LoFTR run on the crops, and keypoints are mapped back
+to the original frame (``kpts / ratio + box[:2]``). The reference's
+fallback rules, which both pipelines apply:
   * a degenerate box (a side <= min_box_size) -> the full image;
   * the optional overlap-scale gate -> the full image;
   * fewer than ``fallback_min_matches`` matches -> the failing pairs only
     are re-run on the full image, in chunks of ``retry_batch`` pairs.
 Everything is batched over pairs. Images are NHWC [B, H, W, 3] in [0, 1].
 The OETR pass and the crop run in ``torch.profiler.record_function``
-ranges (``oetr``, ``crop``), as do SuperPoint's and SuperGlue's stages, so
-a trace splits the device time by stage (``profile_forward.py``).
+ranges (``oetr``, ``crop``), as do SuperPoint's, SuperGlue's and LoFTR's
+stages, so a trace splits the device time by stage
+(``profile_forward.py``).
 """
 from __future__ import annotations
 
@@ -114,18 +117,13 @@ def _bucketed_retry(run_plain: Callable, out: dict, image0, image1,
     return merged
 
 
-class SparsePipeline:
-    """OETR -> crop -> SuperPoint -> matcher (SuperGlue).
+class _OverlapPipeline:
+    """What both pipelines share: OETR's boxes on the small copies, the
+    gates, the crops onto the canvas, and the low-match retry. ``oetr`` is
+    an OETR module or None (then every pair is matched on the full
+    images); a subclass's ``_run`` matches the crops."""
 
-    ``extractor`` is a SuperPoint module, ``match_fn`` takes the matcher's
-    data dict and returns its matches dict, and ``oetr`` is an OETR module
-    or None (then every pair is matched on the full images).
-    """
-
-    def __init__(self, extractor, match_fn: Callable, oetr=None,
-                 cfg: PipelineConfig = PipelineConfig()):
-        self.extractor = extractor
-        self.match_fn = match_fn
+    def __init__(self, oetr=None, cfg: PipelineConfig = PipelineConfig()):
         self.oetr = oetr
         self.cfg = cfg
 
@@ -140,22 +138,10 @@ class SparsePipeline:
         return (b0 * torch.cat([scales0, scales0], dim=-1),
                 b1 * torch.cat([scales1, scales1], dim=-1))
 
-    def _extract_and_match(self, crop0, crop1, hw):
-        e0 = self.extractor(grayscale(crop0))
-        e1 = self.extractor(grayscale(crop1))
-        data = {
-            "keypoints0": e0["keypoints"], "keypoints1": e1["keypoints"],
-            "scores0": e0["scores"], "scores1": e1["scores"],
-            "descriptors0": e0["descriptors"],
-            "descriptors1": e1["descriptors"],
-            "valid0": e0["valid"], "valid1": e1["valid"],
-            "image_hw0": hw, "image_hw1": hw,
-        }
-        return e0, e1, self.match_fn(data)
-
-    def _run(self, image0, image1, full_hw0, full_hw1, oetr_img0=None,
-             oetr_img1=None, scales0=None, scales1=None,
-             use_overlap: bool = False) -> dict:
+    def _crops(self, image0, image1, full_hw0, full_hw1, oetr_img0,
+               oetr_img1, scales0, scales1, use_overlap: bool):
+        """The gated boxes (OETR's, or the full images) and the crops onto
+        the canvas: (crop0, crop1, bbox0, bbox1, ratio0, ratio1, used)."""
         if use_overlap and self.oetr is not None:
             with record_function("oetr"):
                 bbox0, bbox1 = self.predict_boxes(oetr_img0, oetr_img1,
@@ -170,22 +156,7 @@ class SparsePipeline:
         with record_function("crop"):
             crop0, ratio0, _ = crop_resize_batch(image0, bbox0, canvas)
             crop1, ratio1, _ = crop_resize_batch(image1, bbox1, canvas)
-        e0, e1, m = self._extract_and_match(crop0, crop1, canvas)
-        matches0 = m["matches0"]
-        return {
-            "keypoints0": unwarp_keypoints(e0["keypoints"], bbox0, ratio0),
-            "keypoints1": unwarp_keypoints(e1["keypoints"], bbox1, ratio1),
-            "valid0": e0["valid"], "valid1": e1["valid"],
-            "scores0": e0["scores"], "scores1": e1["scores"],
-            "descriptors0": e0["descriptors"],
-            "descriptors1": e1["descriptors"],
-            "matches0": matches0,
-            "matching_scores0": m.get("matching_scores0"),
-            "bbox0": bbox0, "bbox1": bbox1,
-            "ratio0": ratio0, "ratio1": ratio1,
-            "used_overlap": used,
-            "num_matches": ((matches0 > -1) & e0["valid"]).sum(dim=-1),
-        }
+        return crop0, crop1, bbox0, bbox1, ratio0, ratio1, used
 
     @torch.no_grad()
     def __call__(self, image0, image1, full_hw0, full_hw1, oetr_img0=None,
@@ -205,3 +176,84 @@ class SparsePipeline:
         return _bucketed_retry(self._run, out, image0, image1, full_hw0,
                                full_hw1, self.cfg.fallback_min_matches,
                                self.cfg.retry_batch)
+
+
+class SparsePipeline(_OverlapPipeline):
+    """OETR -> crop -> SuperPoint -> matcher (SuperGlue).
+
+    ``extractor`` is a SuperPoint module, ``match_fn`` takes the matcher's
+    data dict and returns its matches dict, and ``oetr`` is an OETR module
+    or None.
+    """
+
+    def __init__(self, extractor, match_fn: Callable, oetr=None,
+                 cfg: PipelineConfig = PipelineConfig()):
+        super().__init__(oetr, cfg)
+        self.extractor = extractor
+        self.match_fn = match_fn
+
+    def _extract_and_match(self, crop0, crop1, hw):
+        e0 = self.extractor(grayscale(crop0))
+        e1 = self.extractor(grayscale(crop1))
+        data = {
+            "keypoints0": e0["keypoints"], "keypoints1": e1["keypoints"],
+            "scores0": e0["scores"], "scores1": e1["scores"],
+            "descriptors0": e0["descriptors"],
+            "descriptors1": e1["descriptors"],
+            "valid0": e0["valid"], "valid1": e1["valid"],
+            "image_hw0": hw, "image_hw1": hw,
+        }
+        return e0, e1, self.match_fn(data)
+
+    def _run(self, image0, image1, full_hw0, full_hw1, oetr_img0=None,
+             oetr_img1=None, scales0=None, scales1=None,
+             use_overlap: bool = False) -> dict:
+        crop0, crop1, bbox0, bbox1, ratio0, ratio1, used = self._crops(
+            image0, image1, full_hw0, full_hw1, oetr_img0, oetr_img1,
+            scales0, scales1, use_overlap)
+        canvas = self.cfg.canvas_hw
+        e0, e1, m = self._extract_and_match(crop0, crop1, canvas)
+        matches0 = m["matches0"]
+        return {
+            "keypoints0": unwarp_keypoints(e0["keypoints"], bbox0, ratio0),
+            "keypoints1": unwarp_keypoints(e1["keypoints"], bbox1, ratio1),
+            "valid0": e0["valid"], "valid1": e1["valid"],
+            "scores0": e0["scores"], "scores1": e1["scores"],
+            "descriptors0": e0["descriptors"],
+            "descriptors1": e1["descriptors"],
+            "matches0": matches0,
+            "matching_scores0": m.get("matching_scores0"),
+            "bbox0": bbox0, "bbox1": bbox1,
+            "ratio0": ratio0, "ratio1": ratio1,
+            "used_overlap": used,
+            "num_matches": ((matches0 > -1) & e0["valid"]).sum(dim=-1),
+        }
+
+
+class DensePipeline(_OverlapPipeline):
+    """OETR -> crop -> LoFTR (dense, detector-free matching): the
+    reference's 'direct' matcher path. ``loftr`` is a LoFTR module,
+    ``oetr`` an OETR module or None. The canvas (832x832 by default) is a
+    multiple of LoFTR's size divisor of 8."""
+
+    def __init__(self, loftr, oetr=None,
+                 cfg: PipelineConfig = PipelineConfig(canvas_hw=(832, 832))):
+        super().__init__(oetr, cfg)
+        self.loftr = loftr
+
+    def _run(self, image0, image1, full_hw0, full_hw1, oetr_img0=None,
+             oetr_img1=None, scales0=None, scales1=None,
+             use_overlap: bool = False) -> dict:
+        crop0, crop1, bbox0, bbox1, ratio0, ratio1, used = self._crops(
+            image0, image1, full_hw0, full_hw1, oetr_img0, oetr_img1,
+            scales0, scales1, use_overlap)
+        m = self.loftr(grayscale(crop0), grayscale(crop1))
+        return {
+            "mkpts0": unwarp_keypoints(m["mkpts0"], bbox0, ratio0),
+            "mkpts1": unwarp_keypoints(m["mkpts1"], bbox1, ratio1),
+            "conf": m["conf"], "valid": m["valid"],
+            "bbox0": bbox0, "bbox1": bbox1,
+            "ratio0": ratio0, "ratio1": ratio1,
+            "used_overlap": used,
+            "num_matches": m["valid"].sum(dim=-1),
+        }

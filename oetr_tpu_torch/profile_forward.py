@@ -1,6 +1,7 @@
 """Where the device time of the port's main paths goes on the card.
 
-    python -m oetr_tpu_torch.profile_forward [--plain] [--pipeline oetr|sparse]
+    python -m oetr_tpu_torch.profile_forward [--plain]
+        [--pipeline oetr|sparse|dense|loftr]
         [--attention linear:cuda|full:cuda|full:flash]
 
 ``--pipeline oetr`` (the default): the flagship OETR forward in bf16 on 8
@@ -9,14 +10,20 @@ pairs of 640x640 images, its encoder attention as ``--attention`` says
 op of the same kind). ``--pipeline sparse``: the overlap-guided sparse
 pipeline as ``chip_smoke.py`` drives it (OETR on 640x640 copies, heatmap
 boxes, crops onto 832x832, SuperPoint with k = 2048, SuperGlue with 9
-layers and 30 Sinkhorn iterations; bf16, 8 pairs, no retry). Every kernel
-switch is on (``--plain``: every switch off), the weights are seeded and
-random. After warm-up, 3 calls are traced with torch.profiler and one JSON
-line is printed: wall and device-busy ms per call, the device's idle share,
-device ms per call by category of kernel and, for the sparse pipeline, by
-stage (a kernel counts for the ``record_function`` range of
-``SparsePipeline``, ``SuperPoint`` or ``SuperGlue`` whose device-side span
-it starts in), and the kernels that take the most device time.
+layers and 30 Sinkhorn iterations; bf16, 8 pairs, no retry). ``--pipeline
+dense``: the dense pipeline as ``chip_smoke.py`` drives it (4 scene pairs
+from the port's generator, OETR in bf16 on 640x640 copies, heatmap boxes,
+crops onto 832x832, bench stage 6's LoFTR in f32; no retry). ``--pipeline
+loftr``: that LoFTR alone as bench stage 6 runs it (16 scene pairs of
+256x256, f32; it runs no kernel of the port). Every kernel switch is on
+(``--plain``: every switch off), the weights are seeded and random. After
+warm-up, 3 calls are traced with torch.profiler and one JSON line is
+printed: wall and device-busy ms per call, the device's idle share, the
+peak memory of the traced calls, device ms per call by category of kernel
+and, for a pipeline, by stage (a kernel counts for the
+``record_function`` range of the pipeline, ``SuperPoint``, ``SuperGlue``
+or ``LoFTR`` whose device-side span it starts in), and the kernels that
+take the most device time.
 """
 from __future__ import annotations
 
@@ -27,12 +34,23 @@ from collections import defaultdict
 
 import torch
 
-from . import (PipelineConfig, SparsePipeline, build_oetr, build_superglue,
-               build_superpoint, oetr_r50_config, oetr_r50_kernels_config,
-               replace)
+from . import (DensePipeline, PipelineConfig, SparsePipeline, build_loftr,
+               build_oetr, build_superglue, build_superpoint,
+               make_device_generator, oetr_r50_config,
+               oetr_r50_kernels_config, replace)
+from .models.superpoint import grayscale
 
 PAIRS, HW, DTYPE = 8, 640, "bfloat16"   # the chip_smoke.py paths
 CANVAS, KEYPOINTS = 832, 2048
+DENSE_PAIRS = 4
+LOFTR_PAIRS, LOFTR_HW = 16, 256
+# bench stage 6's LoFTR (bench.py:196-199), run in f32; chip_smoke.py
+# builds it from here.
+LOFTR_KW = dict(d_coarse=192, d_fine=96, coarse_layers=4, fine_layers=1,
+                nhead=8, temperature=0.1, match_threshold=0.2,
+                max_matches=1024, fine_window=5)
+# The scene generator's settings in bench stage 5 (bench.py:377-379).
+SCENE_KW = dict(scale_range=(1.0, 1.6), p_translate=0.5)
 
 # Kernel-name substrings -> category, first match wins.
 CATEGORIES = (
@@ -53,9 +71,26 @@ CATEGORIES = (
     ("reduction", ("reduce",)),
     ("elementwise / copy", ("elementwise", "copy", "cat", "vectorized")),
 )
-# The sparse pipeline's record_function ranges, in path order.
-STAGES = ("oetr", "crop", "superpoint_net", "nms_topk", "superglue_gnn",
-          "sinkhorn", "match_extraction")
+# A torch.profiler trace on the H100 can miss the first device events of
+# the calls it traces (the first 2 of a trace, LoFTR's first convolution
+# and copy, in chip_smoke.py's runs). So a trace starts with PADS sleep
+# kernels, which absorb what it misses; their events are left out by name.
+PADS, PAD_KERNEL = 4, "spin_kernel"
+
+
+def pad_trace() -> None:
+    """Launch the PADS sleep kernels that open a trace."""
+    for _ in range(PADS):
+        torch.cuda._sleep(1000)
+
+
+# The pipelines' record_function ranges, in path order.
+STAGES = {"sparse": ("oetr", "crop", "superpoint_net", "nms_topk",
+                     "superglue_gnn", "sinkhorn", "match_extraction"),
+          "dense": ("oetr", "crop", "loftr_backbone", "loftr_coarse",
+                    "coarse_matching", "loftr_fine"),
+          "loftr": ("loftr_backbone", "loftr_coarse", "coarse_matching",
+                    "loftr_fine")}
 
 
 def category(name: str) -> str:
@@ -107,24 +142,80 @@ def sparse_call(plain: bool):
     return lambda: pipe(im0, im1, hw, hw, o0, o1, sc, sc)
 
 
+def scene_pairs(hw: int, b: int, seed: int, device: str = "cuda"):
+    """b scene pairs of hw² from the port's generator (bench stage 5's
+    settings) on ``device``."""
+    return make_device_generator(hw, b, device=device, **SCENE_KW)(
+        torch.Generator(device=device).manual_seed(seed))
+
+
+def pipeline_args(raw: dict, oetr_hw: int) -> tuple:
+    """A pipeline's arguments for the generator's batch ``raw``: the
+    canvases, their valid sizes, their oetr_hw² copies (antialiased
+    bilinear, as jax.image.resize shrinks) and full px per copy px."""
+    im0, im1 = raw["image1"], raw["image2"]
+    b, hw, dev = im0.shape[0], im0.shape[1], im0.device
+    small = lambda im: torch.nn.functional.interpolate(
+        im.permute(0, 3, 1, 2), size=(oetr_hw, oetr_hw), mode="bilinear",
+        align_corners=False, antialias=True).permute(0, 2, 3, 1).contiguous()
+    sizes = torch.full((b, 2), hw, dtype=torch.int32, device=dev)
+    sc = torch.full((b, 2), hw / oetr_hw, device=dev)
+    return (im0, im1, sizes, sizes, small(im0), small(im1), sc, sc)
+
+
+def loftr_model(device: str = "cuda"):
+    """bench stage 6's LoFTR with seeded weights (seed 8)."""
+    return build_loftr(device=device,
+                       generator=torch.Generator().manual_seed(8), **LOFTR_KW)
+
+
+def loftr_call():
+    """bench stage 6: LoFTR on LOFTR_PAIRS grayscale scene pairs."""
+    model = loftr_model()
+    raw = scene_pairs(LOFTR_HW, LOFTR_PAIRS, seed=8)
+    g0, g1 = grayscale(raw["image1"]), grayscale(raw["image2"])
+    return lambda: model(g0, g1)
+
+
+def dense_call(plain: bool):
+    """The dense pipeline on DENSE_PAIRS scene pairs: OETR in bf16 (kernel
+    switches on, or off), LoFTR in f32, seeds as in ``chip_smoke.py``."""
+    pipe = DensePipeline(loftr_model(), oetr=build_flagship(plain),
+                         cfg=PipelineConfig(canvas_hw=(CANVAS, CANVAS),
+                                            oetr_hw=(HW, HW),
+                                            fallback_min_matches=0,
+                                            box_source="heatmap"))
+    args = pipeline_args(scene_pairs(CANVAS, DENSE_PAIRS, seed=9), HW)
+    return lambda: pipe(*args)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--plain", action="store_true",
                     help="every kernel switch off")
-    ap.add_argument("--pipeline", choices=("oetr", "sparse"), default="oetr")
+    ap.add_argument("--pipeline", choices=("oetr", "sparse", "dense", "loftr"),
+                    default="oetr")
     ap.add_argument("--attention", default="linear:cuda",
                     choices=("linear:cuda", "full:cuda", "full:flash"),
                     help="the OETR encoder's attention (--pipeline oetr)")
     args = ap.parse_args(argv)
-    if args.pipeline == "sparse" and args.attention != "linear:cuda":
+    if args.pipeline != "oetr" and args.attention != "linear:cuda":
         ap.error("--attention applies to --pipeline oetr")
+    if args.pipeline == "loftr" and args.plain:
+        ap.error("--pipeline loftr runs no kernel switch")
     if not torch.cuda.is_available():
         raise SystemExit("profile_forward: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    call = (sparse_call(args.plain) if args.pipeline == "sparse"
-            else oetr_call(args.plain, args.attention))
+    call = {"sparse": lambda: sparse_call(args.plain),
+            "dense": lambda: dense_call(args.plain),
+            "loftr": loftr_call,
+            "oetr": lambda: oetr_call(args.plain, args.attention)}[
+        args.pipeline]()
+    pairs = {"dense": DENSE_PAIRS, "loftr": LOFTR_PAIRS}.get(args.pipeline,
+                                                           PAIRS)
+    stages = STAGES.get(args.pipeline, ())
     n = 3
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -132,7 +223,10 @@ def main(argv=None) -> int:
         for _ in range(3):
             call()
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         with torch.profiler.profile(activities=acts) as prof:
+            pad_trace()
+            torch.cuda.synchronize()
             t0 = time.perf_counter()
             for _ in range(n):
                 call()
@@ -140,12 +234,13 @@ def main(argv=None) -> int:
             wall_ms = (time.perf_counter() - t0) * 1e3 / n
 
     # Device events: the kernels, and the device-side spans of the
-    # record_function ranges (which are not kernels: they are kept apart).
+    # record_function ranges (user annotations, not kernels: kept apart).
     kernels, spans = [], []
     for evt in prof.events():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
+        if evt.device_type != torch.autograd.DeviceType.CUDA \
+                or PAD_KERNEL in evt.name:
             continue
-        if evt.name in STAGES:
+        if evt.is_user_annotation:
             spans.append((evt.time_range.start, evt.time_range.end, evt.name))
         else:
             kernels.append(evt)
@@ -164,20 +259,27 @@ def main(argv=None) -> int:
     busy_ms = sum(by_cat.values())
     result = {
         "device": torch.cuda.get_device_name(0),
-        "config": {"pipeline": args.pipeline, "dtype": DTYPE, "pairs": PAIRS,
+        "config": {"pipeline": args.pipeline, "dtype": DTYPE, "pairs": pairs,
                    "hw": HW, "kernels": not args.plain,
                    "attention": args.attention},
         "wall_ms_per_call": wall_ms,
         "device_busy_ms_per_call": busy_ms,
         "device_idle_share": (1 - busy_ms / wall_ms) if busy_ms else None,
-        "pairs_per_s_traced": PAIRS / wall_ms * 1e3,
+        "pairs_per_s_traced": pairs / wall_ms * 1e3,
+        "peak_mem_gb_traced": torch.cuda.max_memory_allocated() / 1e9,
         "device_ms_by_category": dict(sorted(by_cat.items(),
                                              key=lambda kv: -kv[1])),
     }
     if args.pipeline == "sparse":
         result["config"].update(canvas=CANVAS, keypoints=KEYPOINTS)
+    if args.pipeline == "dense":
+        result["config"].update(canvas=CANVAS, loftr=LOFTR_KW,
+                                loftr_dtype="float32")
+    if args.pipeline == "loftr":
+        result["config"].update(hw=LOFTR_HW, dtype="float32", loftr=LOFTR_KW)
+    if stages:
         result["device_ms_by_stage"] = {
-            s: by_stage.get(s, 0.0) for s in STAGES + ("outside the ranges",)}
+            s: by_stage.get(s, 0.0) for s in stages + ("outside the ranges",)}
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:12]
     result["top_kernels"] = [{"name": k[:120], "ms": v[0],
                               "launches": v[1] // n} for k, v in top]

@@ -715,3 +715,123 @@ def test_small_oetr_backward_on_card(cuda):
         r = ref[name].grad
         tol = 1e-4 * max(1.0, r.abs().max().item())
         assert (p.grad - r).abs().max().item() <= tol, name
+
+
+# ------------------------------------------- LoFTR, dense pipeline, scenes --
+
+LOFTR_SMALL = dict(d_coarse=64, d_fine=32, coarse_layers=1, nhead=4,
+                   match_threshold=0.0)
+
+
+def _assert_same_matches(a, b, tol):
+    """Each pair's valid matches as a set: the image-0 positions pair up
+    within ``tol`` px, and so do their image-1 positions. (Random weights
+    at threshold 0 give diffuse confidences; two rows of the top K whose
+    confidences lie within a rounding of each other may swap.)"""
+    assert torch.equal(a["valid"].sum(-1).cpu(), b["valid"].sum(-1).cpu())
+    for i in range(a["valid"].shape[0]):
+        va, vb = a["valid"][i].cpu(), b["valid"][i].cpu()
+        pa, pb = a["mkpts0"][i].cpu()[va], b["mkpts0"][i].cpu()[vb]
+        dist = (pa[:, None] - pb[None]).abs().amax(-1)
+        assert (dist.amin(1) <= tol).all(), i
+        perm = dist.argmin(1)
+        assert len(set(perm.tolist())) == len(perm), i
+        torch.testing.assert_close(a["mkpts1"][i].cpu()[va],
+                                   b["mkpts1"][i].cpu()[vb][perm], rtol=0,
+                                   atol=tol)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_small_loftr_on_card_matches_cpu(cuda, masked):
+    """A small LoFTR in f32 (TF32 off), same weights and images, on the
+    card and on the CPU: coarse_conf within 1e-5, the same valid matches,
+    image-1 positions within 1e-3 px. It launches no kernel of the
+    port."""
+    on_card = port.build_loftr(device=cuda, **LOFTR_SMALL)
+    on_cpu = port.build_loftr(device="cpu", **LOFTR_SMALL)
+    g = torch.Generator().manual_seed(0)
+    im0, im1 = torch.rand(2, 3, 96, 96, 1, generator=g)
+    masks = list(torch.rand(2, 3, 12, 12, generator=g) > 0.15) \
+        if masked else []
+    before = {name: getattr(ops, name).launches for name in ops.__all__
+              if hasattr(getattr(ops, name), "launches")}
+    with torch.inference_mode():
+        a = on_card(im0.to(cuda), im1.to(cuda), *[m.to(cuda) for m in masks])
+        b = on_cpu(im0, im1, *masks)
+    assert before == {name: getattr(ops, name).launches for name in before}
+    torch.testing.assert_close(a["coarse_conf"].cpu(), b["coarse_conf"],
+                               rtol=0, atol=1e-5)
+    _assert_same_matches(a, b, 1e-3)
+    assert 0 < int(b["valid"].sum()) < b["valid"].numel()
+
+
+def test_scene_generator_on_card(cuda):
+    """The generator on the card: shapes, [0, 1] on the 1/255 grid, scales
+    in range, and its GT boxes the geometry path's on the CPU on the same
+    tensors; the homography generator's warp is warp_gray's."""
+    from oetr_tpu_torch.data.device_synth import warp_gray
+    from oetr_tpu_torch.geometry import overlap_bbox_pair
+
+    hw, b = 128, 5
+    gen = port.make_device_generator(hw, b, scale_range=(1.0, 1.6),
+                                     p_translate=0.5, device=cuda)
+    out = gen(torch.Generator(device=cuda).manual_seed(0))
+    assert out["image1"].shape == out["image2"].shape == (b, hw, hw, 3)
+    assert all(v.device.type == "cuda" for v in out.values())
+    for key in ("image1", "image2"):
+        assert 0.0 <= out[key].min().item() and out[key].max().item() <= 1.0
+    levels = out["image1"] * 255
+    assert (levels - levels.round()).abs().max().item() <= 1e-3
+    s = out["scale"]
+    assert ((s == 1.0) | ((s >= 1.0) & (s <= 1.6))).all()
+    names = ("K1", "depth1", "pose1", "crop1", "ratio1", "K2", "depth2",
+             "pose2", "crop2", "ratio2")
+    box1, _, box2, _, valid = overlap_bbox_pair(*(out[n].cpu()
+                                                  for n in names))
+    assert torch.equal(box1, out["overlap_box1"].cpu())
+    assert torch.equal(box2, out["overlap_box2"].cpu())
+    assert valid.all()
+
+    im0, im1, H = port.make_homography_pair_generator(64, 3, device=cuda)(
+        torch.Generator(device=cuda).manual_seed(1))
+    assert im0.shape == im1.shape == (3, 64, 64, 1) and H.is_cuda
+    torch.testing.assert_close(warp_gray(im0, H, 64)[0], im1, rtol=0,
+                               atol=0)
+
+
+def test_small_dense_pipeline_switches_on_vs_off(cuda):
+    """The dense pipeline with a small OETR whose switches are on (K2, K3)
+    against off, one small LoFTR, f32: boxes within 0.02 px, the same
+    matches within 1e-2 px, K2 launched 4 times a call (self and cross,
+    each image) and K3 once."""
+    cfgs = [port.OETRConfig(
+        backbone=port.BackboneConfig(depth=18, last_layer=256,
+                                     fused_stem=fused),
+        neck=port.NeckConfig(d_model=64, nhead=4, num_layers=1,
+                             num_decoder_layers=1, attention=attention))
+        for fused, attention in ((True, "linear:cuda"), (False, "linear"))]
+    on = port.build_oetr(cfgs[0], device=cuda)
+    off = port.build_oetr(cfgs[1], device=cuda)
+    off.load_state_dict(on.state_dict())
+    loftr = port.build_loftr(device=cuda, **LOFTR_SMALL)
+    cfg = port.PipelineConfig(canvas_hw=(128, 128), oetr_hw=(160, 160),
+                              fallback_min_matches=0)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    b = 3
+    im0, im1 = torch.rand(2, b, 192, 160, 3, generator=g, device=cuda)
+    o0, o1 = torch.rand(2, b, 160, 160, 3, generator=g, device=cuda)
+    hw = torch.tensor([[192, 160]] * b, dtype=torch.int32, device=cuda)
+    sc = torch.tensor([[1.0, 1.2]] * b, device=cuda)
+    args = (im0, im1, hw, hw, o0, o1, sc, sc)
+    before = (ops.linear_encoder_attention.launches,
+              ops.groupnorm_relu_maxpool.launches)
+    a = port.DensePipeline(loftr, oetr=on, cfg=cfg)(*args)
+    assert (ops.linear_encoder_attention.launches,
+            ops.groupnorm_relu_maxpool.launches) == (before[0] + 4,
+                                                     before[1] + 1)
+    r = port.DensePipeline(loftr, oetr=off, cfg=cfg)(*args)
+    for key in ("bbox0", "bbox1"):
+        torch.testing.assert_close(a[key], r[key], rtol=0, atol=0.02)
+    assert torch.equal(a["used_overlap"], r["used_overlap"])
+    _assert_same_matches(a, r, 1e-2)
+    assert a["num_matches"].min().item() > 0
