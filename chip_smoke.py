@@ -56,7 +56,19 @@ paths with seeded random weights:
     bench stage 5's settings), its ground-truth boxes against the geometry
     path on the CPU, then bench stage 5's pattern on them: the sparse
     pipeline (descriptor 128, keypoint threshold 0, K2, K3, K4 on) with the
-    < 30 matches retry.
+    < 30 matches retry;
+  * ``pose``: two-view pose (``estimate_pose`` with JAX's defaults: 512
+    hypotheses, 8 LO candidates, the planar fallback) on 8 pairs of 2048
+    slots: general scenes (1400 true correspondences, 0.5 px noise, 30%
+    outliers) held to the truth, and the scene generator's planar pairs
+    with the route that won each (H, P&P or E); the 5-point stage off (the
+    card's default) and on; each against the port on the CPU on the same
+    inputs and draws; the eigh kernel (``csrc/small_eigh.cu``, the
+    estimator's null vectors and 3x3 SVDs) on every call of the path
+    against LAPACK; the scenes phase's sparse matches scored (pose AUC);
+    ms a call, device busy ms, idle share, launches and device -> host
+    copies a call (none with the 5-point stage off), and the host 5-point
+    stage alone.
 K1's lines give its cluster (blocks per batch row and head), its grid and
 its device time at every cluster size.
 One JSON line per phase, each with ``t_s``, seconds since start. The last
@@ -100,7 +112,7 @@ LONG_HW = 1600       # 50 x 50 tokens: MegaDepth's long side, K6's regime
 # The kernels' wrappers, each with its launch count.
 KERNELS = ("linear_encoder_attention", "groupnorm_relu_maxpool",
            "log_sinkhorn_cuda", "linear_attention_cuda",
-           "full_attention_cuda", "flash_attention_cuda")
+           "full_attention_cuda", "flash_attention_cuda", "eigh")
 # Sparse pipeline at bench stage 4's shapes.
 CANVAS_HW = 832
 SPARSE_K = 2048
@@ -149,6 +161,25 @@ LOFTR_CONF_RTOL = 1e-4
 LOFTR_PX_TOL = 1e-2
 DENSE_PAIRS = 4
 SCENE_PAIRS = 8
+# The pose path (profile_forward.general_pose_pairs: 8 pairs of 2048 slots,
+# 1400 true correspondences with 0.5 px noise and 30% outliers; and the
+# scene generator's planar pairs), JAX's estimator defaults. On the
+# general scenes every pair within POSE_GT_R_DEG / POSE_GT_T_DEG of the
+# truth (the JAX tests' bounds at 200 points). The card against the port
+# on the CPU, on the same inputs and draws: each pair's err_R and err_t
+# within POSE_CPU_DEG of the CPU's, inlier counts within POSE_CPU_INLIERS
+# (relative). The eigensolvers differ (the Jacobi kernel against LAPACK),
+# so hypotheses differ in their last bits and a vote between two near
+# equal candidates can go either way; the refinement then settles a
+# rounding apart.
+POSE_GT_R_DEG, POSE_GT_T_DEG = 2.0, 5.0
+POSE_CPU_DEG = 0.25
+POSE_CPU_INLIERS = 0.01
+# The eigh kernel against LAPACK's syevd (its plain version) on the path's
+# matrices: eigenvalues, the residual |A V - V diag(w)| and V's
+# orthogonality, relative to each matrix's largest |eigenvalue|; both are
+# backward stable, to ~n float32 ulps.
+EIGH_TOL = 1e-5
 
 
 def elapsed() -> float:
@@ -180,75 +211,63 @@ def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_ms(torch, fn, reps: int = 20, warmup: int = 3,
-              sessions: int = 6) -> float:
-    """Device time per call of ``fn()``: the summed duration of the device
-    activity (kernels, copies; not the device-side spans of record_function
-    ranges, which the profiler marks as user annotations) of ``reps`` calls
-    in a torch.profiler trace, over ``reps``. Unlike ``time_ms`` it leaves
-    out the host's work between launches. Each trace opens with
-    profile_forward's pad kernels, which absorb the device events a trace
-    can miss at its start, and are left out. ``fn`` launches the same work
-    on every call, so a trace whose count of device events is 0 or not a
-    multiple of ``reps`` missed some (seen once on the H100 in ~100 traces,
-    and once in two traces in a row): it is taken again, up to ``sessions``
-    traces in all."""
-    from oetr_tpu_torch.profile_forward import PAD_KERNEL, pad_trace
+def trace_calls(torch, fn, reps: int, warmup: int = 1, sessions: int = 6,
+                select=None):
+    """``reps`` calls of ``fn()`` in a torch.profiler trace, after
+    ``warmup`` calls: (the profile, its device events (kernels, copies,
+    sets; profile_forward.device_events leaves out the pad kernels that
+    open the trace and absorb the device events it can miss at its start,
+    and the device-side spans of record_function ranges), the wall ms per
+    call, the traces taken). ``fn`` launches the same work on every call,
+    so a trace where the count of events that ``select`` keeps (all by
+    default) is 0 or not a multiple of ``reps`` missed some (seen once on
+    the H100 in ~100 traces, and once in two traces in a row): it is
+    taken again, up to ``sessions`` traces in all."""
+    from oetr_tpu_torch.profile_forward import device_events, pad_trace
 
+    select = select or (lambda evts: evts)
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     counts = []
-    for _ in range(sessions):
+    for taken in range(1, sessions + 1):
         with torch.profiler.profile(activities=acts) as prof:
             pad_trace()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        dev = [evt for evt in prof.events()
-               if evt.device_type == torch.autograd.DeviceType.CUDA
-               and not evt.is_user_annotation
-               and PAD_KERNEL not in evt.name]
-        if dev and len(dev) % reps == 0:
-            return sum(e.time_range.elapsed_us() for e in dev) / 1e3 / reps
-        names = collections.Counter(e.name for e in dev)
-        counts.append((len(dev), {name[:80]: n for name, n in names.items()
-                                  if n % reps}))
+            wall = (time.perf_counter() - t0) * 1e3 / reps
+        dev, _ = device_events(prof)
+        kept = select(dev)
+        if kept and len(kept) % reps == 0:
+            return prof, dev, wall, taken
+        names = collections.Counter(e.name for e in kept)
+        counts.append((len(kept), {name[:80]: n for name, n in names.items()
+                                   if n % reps}))
     raise RuntimeError(f"torch.profiler recorded (device events, the names "
                        f"whose count is not a multiple of {reps}) {counts} "
                        f"for {reps} calls")
 
 
-def traced_launches(torch, fn, kernel_name: str, reps: int = 3,
-                    sessions: int = 6) -> int:
-    """Launches per call of ``fn()`` of the kernels whose name holds
-    ``kernel_name``: their device events in a torch.profiler trace of
-    ``reps`` calls, over ``reps``. The trace opens with pad kernels, and a
-    count that is not a multiple of ``reps`` missed an event and is traced
-    again, both as in ``device_ms``."""
-    from oetr_tpu_torch.profile_forward import pad_trace
+def device_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
+    """Device time per call of ``fn()``: the summed duration of the device
+    events of ``reps`` calls in a trace (``trace_calls``), over ``reps``.
+    Unlike ``time_ms`` it leaves out the host's work between launches."""
+    _, dev, _, _ = trace_calls(torch, fn, reps, warmup)
+    return sum(e.time_range.elapsed_us() for e in dev) / 1e3 / reps
 
-    fn()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    counts = []
-    for _ in range(sessions):
-        with torch.profiler.profile(activities=acts) as prof:
-            pad_trace()
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        n = sum(1 for evt in prof.events()
-                if evt.device_type == torch.autograd.DeviceType.CUDA
-                and kernel_name in evt.name)
-        if n % reps == 0:
-            return n // reps
-        counts.append(n)
-    raise RuntimeError(f"torch.profiler recorded {counts} {kernel_name} "
-                       f"events for {reps} calls")
+
+def traced_launches(torch, fn, kernel_name: str, reps: int = 3) -> int:
+    """Launches per call of ``fn()`` of the kernels whose name holds
+    ``kernel_name``: their device events in a trace of ``reps`` calls
+    (``trace_calls``), over ``reps``."""
+    pick = lambda evts: [e for e in evts if kernel_name in e.name]
+    _, dev, _, _ = trace_calls(torch, fn, reps, select=pick)
+    return len(pick(dev)) // reps
 
 
 def nbytes(*tensors) -> int:
@@ -1179,7 +1198,7 @@ def run_sparse(torch, port, ops, b):
         out = pipe_on(*args)
         torch.cuda.synchronize()
         launches = launch_counts(ops)
-        want = dict(zip(KERNELS, (16, 1, 1, 0, 0, 0)))
+        want = dict(zip(KERNELS, (16, 1, 1, 0, 0, 0, 0)))
         if launches != want:
             raise AssertionError(f"sparse launches {launches} != {want}")
         ref = pipe_k4_off(*args)
@@ -1566,7 +1585,9 @@ def run_dense(torch, port, ops, b):
 def run_scenes(torch, port, ops, b):
     """The port's scene generator on the card, its ground-truth boxes
     against ``overlap_bbox_pair`` on the CPU on the same tensors, then bench
-    stage 5's pattern on its pairs (seeded weights)."""
+    stage 5's pattern on its pairs (seeded weights). Returns the phase
+    fields, and the pipeline's output with the generator's batch (the pose
+    phase scores its matches)."""
     from oetr_tpu_torch import profile_forward as pf
     from oetr_tpu_torch.geometry.overlap import overlap_bbox_pair
 
@@ -1639,7 +1660,318 @@ def run_scenes(torch, port, ops, b):
             "pairs_retried": n_retry,
             "bbox0": [[round(v, 1) for v in row]
                       for row in first["bbox0"].tolist()],
-            "pairs_per_s": rate}
+            "pairs_per_s": rate}, {"out": out, "raw": raw}
+
+
+# ------------------------------------------------------------------ pose --
+
+@contextlib.contextmanager
+def pose_draws(replay=None, device=None):
+    """Records the estimator's draws of one call by stage ({stage: tensor},
+    ``replay`` None), or hands it the draws ``replay`` copied to
+    ``device``."""
+    from oetr_tpu_torch.geometry import draws
+
+    real, log = draws.gumbel, {}
+
+    def recording(stage, shape, generator):
+        log[stage] = real(stage, shape, generator)
+        return log[stage]
+
+    def replaying(stage, shape, generator):
+        g = replay[stage]
+        if tuple(g.shape) != tuple(shape):
+            raise AssertionError(f"draw {stage}: {tuple(g.shape)} != {shape}")
+        return g.to(device)
+
+    draws.gumbel = recording if replay is None else replaying
+    try:
+        yield log
+    finally:
+        draws.gumbel = real
+
+
+@contextlib.contextmanager
+def recorded_eigh_inputs():
+    """Records the input of every eigh call, passing each on."""
+    from oetr_tpu_torch.geometry import homography, ransac
+    from oetr_tpu_torch.ops import small_eigh
+
+    calls, real = [], small_eigh.eigh
+
+    def recorder(A):
+        calls.append(A)
+        return real(A)
+
+    sites = (small_eigh, homography, ransac)
+    try:
+        for mod in sites:
+            mod.eigh = recorder
+        yield calls
+    finally:
+        for mod in sites:
+            mod.eigh = real
+
+
+def eigh_errors(torch, ops, calls):
+    """Each recorded eigh input through the kernel against LAPACK's syevd
+    (the plain version) on the host, relative to each matrix's largest
+    |eigenvalue|: eigenvalues, the residual |A V - V diag(w)| and the
+    orthogonality of V. Raises beyond EIGH_TOL. Returns the fields."""
+    worst = {"eigenvalues": 0.0, "residual": 0.0, "orthogonality": 0.0}
+    abs_err, shapes = 0.0, collections.Counter()
+    for A in calls:
+        w, V = ops.eigh(A)
+        w_ref, _ = ops.eigh_reference(A.cpu())
+        w, V, Ac = w.cpu().double(), V.cpu().double(), A.cpu().double()
+        scale = w_ref.double().abs().amax(-1, keepdim=True).clamp(min=1e-30)
+        n = A.shape[-1]
+        errs = {"eigenvalues": ((w - w_ref.double()).abs() / scale).max(),
+                "residual": ((Ac @ V - V * w[..., None, :]).abs().amax(-1)
+                             / scale).max(),
+                "orthogonality": (V.transpose(-1, -2) @ V - torch.eye(
+                    n, dtype=torch.float64)).abs().max()}
+        for k, v in errs.items():
+            worst[k] = max(worst[k], v.item())
+        abs_err = max(abs_err, (w - w_ref.double()).abs().max().item())
+        if not bool((w[..., 1:] >= w[..., :-1]).all()):
+            raise AssertionError("eigh: eigenvalues not ascending")
+        shapes[str(list(A.shape))] += 1
+    if not max(worst.values()) <= EIGH_TOL:
+        raise AssertionError(f"eigh kernel vs LAPACK: {worst} > {EIGH_TOL}")
+    return {"calls": len(calls), "shapes": dict(shapes), "tol": EIGH_TOL,
+            "max_rel_err": worst, "max_abs_err": abs_err}
+
+
+def eigh_row(torch, ops, A):
+    """The eigh kernel's row of the kernels line on the path's largest
+    call, A [8, 512, 9, 9] (round 1's normal matrices). Its bound is the
+    function's, not the Jacobi kernel's: each matrix read once and w, V
+    written once, and ~9 n³ flops a matrix, what a symmetric
+    eigendecomposition with vectors needs (Householder tridiagonalization
+    and implicit QL, Golub & Van Loan §8.3)."""
+    batch, n = A.numel() // (A.shape[-1] ** 2), A.shape[-1]
+    w, V = ops.eigh(A)
+    bnd, bound_by = bound(nbytes(A, w, V), batch * 9 * n ** 3, "float32")
+    host = A.cpu()
+    t = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        ops.eigh_reference(host)
+        t.append((time.perf_counter() - t0) * 1e3)
+    return {"shape": list(A.shape), "matrices": batch,
+            "kernel_ms": time_ms(torch, lambda: ops.eigh(A)),
+            "device_ms": device_ms(torch, lambda: ops.eigh(A)),
+            "plain_ms": statistics.median(t),
+            "plain": "LAPACK syevd on the host (scipy), the CPU path",
+            "library_ms": time_ms(torch, lambda: torch.linalg.eigh(A)),
+            "library_device_ms": device_ms(torch,
+                                           lambda: torch.linalg.eigh(A)),
+            "bound_ms": bnd, "bound_by": bound_by}
+
+
+def traced_stats(torch, fn, reps=3):
+    """Per call of ``fn()`` in a trace of ``reps`` calls (``trace_calls``):
+    wall ms, device busy ms, the idle share, kernel launches, device ->
+    host copies, and the CPU ops that read a device value back."""
+    prof, dev, wall, taken = trace_calls(torch, fn, reps)
+    copies = [e for e in dev if e.name.startswith(("Memcpy", "Memset"))]
+    dtoh = [e for e in copies if "DtoH" in e.name]
+    busy = sum(e.time_range.elapsed_us() for e in dev) / 1e3 / reps
+    readers = collections.Counter()
+    for e in prof.events():
+        if e.name in ("aten::_local_scalar_dense", "aten::nonzero",
+                      "aten::item"):
+            top = e
+            while top.cpu_parent is not None:
+                top = top.cpu_parent
+            readers[f"{e.name} in {top.name}"] += 1
+    return {"wall_ms": wall, "device_busy_ms": busy,
+            "idle_share": 1.0 - busy / wall,
+            "launches_per_call": (len(dev) - len(copies)) / reps,
+            "dtoh_copies_per_call": len(dtoh) / reps,
+            "device_reads": dict(readers), "traces_taken": taken}
+
+
+def pose_case(torch, port, d, use_5pt, seed, device=None, replay=None):
+    """estimate_pose with JAX's defaults on the problems ``d`` (on
+    ``device``, DEV by default); its draws from a generator seeded
+    ``seed``, or ``replay``. Returns (result, per-pair errors, the draws,
+    the route whose candidate won each pair's vote: 'H' (a homography
+    decomposition), 'P&P' (plane and parallax) or 'E' (the LO-RANSAC's
+    pose), as the estimator's vote picked it)."""
+    from oetr_tpu_torch.geometry.ransac import VOTE_ROUTES
+    from oetr_tpu_torch.pose_parting import recorded
+
+    device = device or DEV
+    d = {k: v.to(device) for k, v in d.items()}
+    with pose_draws(replay, device) as log, recorded() as stages:
+        res = port.estimate_pose(
+            d["kpts0"], d["kpts1"], d["valid"], d["K"], d["K"],
+            torch.Generator(device=device).manual_seed(seed),
+            use_5pt=use_5pt)
+    err_t, err_R = port.pose_error(d["T_0to1"], res["R"], res["t"])
+    routes = [VOTE_ROUTES[i] for i in stages["_vote"][0][1].tolist()]
+    return (res, (err_R.cpu(), err_t.cpu()),
+            log if replay is None else replay, routes)
+
+
+def run_pose(torch, port, ops, scenes):
+    """Two-view pose on the card (``estimate_pose`` with JAX's defaults,
+    B = 8, N = 2048): general scenes (the ground truth within
+    POSE_GT_R_DEG / POSE_GT_T_DEG, no padded slot an inlier) and the scene
+    generator's planar pairs, with the 5-point stage off (the card's
+    default) and on; the card against the CPU on the same inputs and
+    draws; the eigh kernel on every call of the path against LAPACK; the
+    scenes phase's sparse matches scored (pose AUC); times. Returns the
+    phase fields and the eigh kernel's row."""
+    from oetr_tpu_torch import profile_forward as pf
+    from oetr_tpu_torch.geometry import draws, normalize_keypoints
+    from oetr_tpu_torch.geometry.fivepoint import five_point_hypotheses
+    from oetr_tpu_torch.geometry.overlap import rigid_inverse
+    from oetr_tpu_torch.geometry.homography import sample_minimal_sets
+
+    general = pf.general_pose_pairs(
+        pf.POSE_PAIRS, torch.Generator(device=DEV).manual_seed(11))
+    planar = pf.planar_pose_pairs(
+        pf.scene_pairs(CANVAS_HW, pf.POSE_PAIRS, 13, device=DEV),
+        torch.Generator(device=DEV).manual_seed(14))
+    fields = {"pairs": general["valid"].shape[0],
+              "slots": general["valid"].shape[1],
+              "true": int(general["valid"][0].sum()), "hw": CANVAS_HW,
+              "dtype": "float32",
+              "num_hypotheses": 512, "lo_candidates": 8,
+              "planar_fallback": True}
+    start, seconds = time.perf_counter(), {}
+
+    def lap(part):
+        seconds[part] = time.perf_counter() - start - sum(seconds.values())
+
+    with torch.inference_mode():
+        # The main path, once, with the launch counts read around it.
+        reset_counts(ops)
+        with recorded_eigh_inputs() as eigh_calls:
+            pose_case(torch, port, general, False, 12)
+            torch.cuda.synchronize()
+        launches = launch_counts(ops)
+        if launches["eigh"] == 0 or any(n for k, n in launches.items()
+                                        if k != "eigh"):
+            raise AssertionError(f"pose launches {launches}")
+        fields["launches"] = {k: n for k, n in launches.items() if n}
+        fields["eigh"] = eigh_errors(torch, ops, eigh_calls)
+        row = eigh_row(torch, ops, max(eigh_calls, key=lambda a: a.numel()))
+        row.update(launches=launches["eigh"],
+                   max_abs_err=fields["eigh"]["max_abs_err"])
+        fields["eigh_kernel"] = row
+        lap("main_path_and_eigh")
+
+        failures = []
+        for name, d, seed in (("general", general, 12), ("planar", planar,
+                                                          15)):
+            out = {}
+            for use_5pt in (False, True):
+                res, (eR, et), log, route = pose_case(torch, port, d,
+                                                      use_5pt, seed)
+                cpu, (cR, ct), _, cpu_route = pose_case(
+                    torch, port, d, use_5pt, seed, device="cpu", replay=log)
+                n_card = res["num_inliers"].cpu()
+                n_cpu = cpu["num_inliers"]
+                padded = bool((res["inliers"] & ~d["valid"]).any())
+                dR = (eR - cR).abs().max().item()
+                dt = (et - ct).abs().max().item()
+                dn = ((n_card - n_cpu).abs().float()
+                      / n_cpu.clamp(min=1).float()).max().item()
+                case = {"err_R_deg": eR.tolist(), "err_t_deg": et.tolist(),
+                        "ok": res["ok"].tolist(),
+                        "num_inliers": n_card.tolist(),
+                        "valid": d["valid"].sum(-1).tolist(),
+                        "route": route, "cpu_route": cpu_route,
+                        "cpu_err_R_deg": cR.tolist(),
+                        "cpu_err_t_deg": ct.tolist(),
+                        "cpu_num_inliers": n_cpu.tolist(),
+                        "card_vs_cpu_max_deg": max(dR, dt),
+                        "card_vs_cpu_inliers_max_rel": dn,
+                        "padded_inliers": padded}
+                bad = padded or max(dR, dt) > POSE_CPU_DEG \
+                    or dn > POSE_CPU_INLIERS
+                if name == "general":
+                    bad |= not (bool(res["ok"].all())
+                                and eR.max().item() < POSE_GT_R_DEG
+                                and et.max().item() < POSE_GT_T_DEG)
+                if bad:
+                    failures.append(f"{name} use_5pt={use_5pt}")
+                out[f"use_5pt={use_5pt}"] = case
+            fields[name] = out
+        if failures:
+            raise AssertionError(f"pose: {failures} out of bounds: "
+                                 f"{json.dumps(fields)}")
+        lap("card_vs_cpu")
+        fields["bounds"] = {"gt_R_deg": POSE_GT_R_DEG,
+                            "gt_t_deg": POSE_GT_T_DEG,
+                            "card_vs_cpu_deg": POSE_CPU_DEG,
+                            "card_vs_cpu_inliers": POSE_CPU_INLIERS}
+
+        # The scenes phase's sparse matches, against the generator's truth.
+        out, raw = scenes["out"], scenes["raw"]
+        m0 = out["matches0"]
+        valid = m0 > -1
+        k1 = torch.gather(out["keypoints1"].float(), 1,
+                          m0.clamp(min=0)[..., None].expand(-1, -1, 2))
+        reset_counts(ops)
+        res = port.estimate_pose(out["keypoints0"].float(), k1, valid,
+                                 raw["K1"], raw["K2"],
+                                 torch.Generator(device=DEV).manual_seed(16))
+        torch.cuda.synchronize()
+        e2e_launches = launch_counts(ops)
+        T = raw["pose2"] @ rigid_inverse(raw["pose1"])
+        et, eR = port.pose_error(T, res["R"], res["t"])
+        err = torch.where(res["ok"], torch.maximum(et, eR), float("inf"))
+        fields["scene_matches"] = {
+            "matches_per_pair": valid.sum(-1).tolist(),
+            "pairs_ok": int(res["ok"].sum()),
+            "pose_auc@5/10/20": port.pose_auc(err.tolist(), [5, 10, 20]),
+            "launches": {k: n for k, n in e2e_launches.items() if n},
+            "weights": "seeded"}
+        lap("scene_matches")
+
+        # Times on the card, B = 8, N = 2048.
+        timing = {}
+        for use_5pt in (False, True):
+            gen = torch.Generator(device=DEV)
+
+            def call():
+                gen.manual_seed(12)
+                return port.estimate_pose(
+                    general["kpts0"], general["kpts1"], general["valid"],
+                    general["K"], general["K"], gen, use_5pt=use_5pt)
+
+            ms = time_ms(torch, call, reps=5, warmup=2)
+            stats = traced_stats(torch, call)
+            if not use_5pt and stats["dtoh_copies_per_call"] != 0:
+                raise AssertionError(f"pose, use_5pt off: device -> host "
+                                     f"copies {stats}")
+            timing[f"use_5pt={use_5pt}"] = {"ms_per_call": ms,
+                                             "pairs_per_s": pf.POSE_PAIRS
+                                             / ms * 1e3, **stats}
+        k0n = normalize_keypoints(general["kpts0"], general["K"])
+        k1n = normalize_keypoints(general["kpts1"], general["K"])
+        g5 = draws.gumbel("five_point", general["valid"].shape[:1] + (
+            128,) + general["valid"].shape[1:],
+                          torch.Generator(device=DEV).manual_seed(17))
+        idx5 = sample_minimal_sets(g5, general["valid"], 5)
+        host = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            five_point_hypotheses(k0n, k1n, idx5)
+            torch.cuda.synchronize()
+            host.append((time.perf_counter() - t0) * 1e3)
+        timing["five_point_host_ms"] = statistics.median(host)
+        timing["five_point_samples"] = pf.POSE_PAIRS * 128
+        fields["timing"] = timing
+        lap("timing")
+    fields["seconds"] = seconds
+    return fields, row
 
 
 def main() -> int:
@@ -1794,14 +2126,22 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # Path 7, the scene generator and bench stage 5's pattern on its pairs.
-    phase("scenes", **run_scenes(torch, port, ops, SCENE_PAIRS))
+    fields, scenes = run_scenes(torch, port, ops, SCENE_PAIRS)
+    phase("scenes", **fields)
+
+    # Path 8, two-view pose: the estimator on general and planar scenes,
+    # the card against the CPU, then the scenes' matches scored.
+    fields, eigh_row = run_pose(torch, port, ops, scenes)
+    phase("pose", **fields)
 
     phase("kernels", ported=["linear_attention_cuda<-K1",
                              "linear_encoder_attention<-K2",
                              "groupnorm_relu_maxpool<-K3",
                              "log_sinkhorn_cuda<-K4",
                              "full_attention_cuda<-K5",
-                             "flash_attention_cuda<-K6"])
+                             "flash_attention_cuda<-K6"],
+          also=["eigh<-jnp.linalg.eigh (no pallas_call), "
+                "oetr_tpu/geometry/ransac.py:52"])
     main_dtype = "bfloat16"
     pallas = "oetr_tpu/ops/pallas_attention.py"
     table = []
@@ -1836,6 +2176,21 @@ def main() -> int:
                    library_device_ms=res.get("library_device_ms"),
                    launches_by_path=by_path)
         table.append(row)
+    # The pose path's eigensolver: not the port of a Pallas kernel (JAX's
+    # estimator calls jnp.linalg.eigh), a kernel all the same.
+    table.append({"name": "eigh", "route": "cuda",
+                  "source": "oetr_tpu_torch/csrc/small_eigh.cu",
+                  "replaces": "oetr_tpu/geometry/ransac.py:52",
+                  "launches": eigh_row["launches"],
+                  "max_abs_err": eigh_row["max_abs_err"],
+                  "ms": eigh_row["kernel_ms"],
+                  "plain_ms": eigh_row["plain_ms"],
+                  "bound_ms": eigh_row["bound_ms"],
+                  "bound_by": eigh_row["bound_by"],
+                  "library_ms": eigh_row["library_ms"],
+                  "device_ms": eigh_row["device_ms"],
+                  "library_device_ms": eigh_row["library_device_ms"],
+                  "launches_by_path": {"pose": eigh_row["launches"]}})
     if elapsed() > BUDGET_S:
         raise RuntimeError(f"over the {BUDGET_S:.0f} s budget")
     print(json.dumps({"kernels": table}), flush=True)

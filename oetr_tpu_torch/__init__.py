@@ -1,6 +1,7 @@
 """PyTorch + CUDA port of oetr_tpu: the OETR forward, the overlap-guided
-sparse (SuperPoint + SuperGlue) and dense (LoFTR) matching pipelines, and
-the on-device synthetic scene and homography pair generators.
+sparse (SuperPoint + SuperGlue) and dense (LoFTR) matching pipelines, the
+on-device synthetic scene and homography pair generators, two-view pose
+estimation and the benchmark evaluation.
 
 The package stands alone: it imports torch and numpy, never JAX or the
 ``oetr_tpu`` package, so it runs where only torch is installed (the
@@ -9,12 +10,18 @@ package's models and checkpoints need).
 Entry points (``build_oetr``, ``build_superpoint``, ``build_superglue``,
 ``build_loftr``, the modules and pipelines they feed, and the generators of
 ``make_device_generator`` and ``make_homography_pair_generator``) run on
-the card unless the caller passes ``device="cpu"``.
+the card unless the caller passes ``device="cpu"``. ``estimate_pose`` and
+the other geometry functions run where their tensors lie;
+``validation_error`` and the benchmark harnesses take numpy and run the
+estimator on the card unless the caller passes ``device="cpu"``.
 """
 from .config import (BackboneConfig, NeckConfig, OETRConfig,
                      oetr_fc_r50_config, oetr_r50_config,
                      oetr_r50_kernels_config, replace)
 from .data import make_device_generator, make_homography_pair_generator
+from .evalx import pose_auc, validation_error
+from .geometry import (estimate_pose, pose_error, ransac_essential,
+                       ransac_homography, recover_pose)
 from .models import (OETR, LoFTR, SuperGlue, SuperPoint, build_loftr,
                      build_oetr, build_superglue, build_superpoint,
                      decode_boxes)
@@ -26,4 +33,6 @@ __all__ = ["BackboneConfig", "NeckConfig", "OETRConfig", "oetr_fc_r50_config",
            "build_superglue",
            "build_superpoint", "LoFTR", "build_loftr", "PipelineConfig",
            "SparsePipeline", "DensePipeline", "make_device_generator",
-           "make_homography_pair_generator"]
+           "make_homography_pair_generator", "estimate_pose",
+           "ransac_essential", "recover_pose", "ransac_homography",
+           "pose_error", "validation_error", "pose_auc"]

@@ -67,6 +67,8 @@ ENTRY_POINTS = {
     "oetr_full_attention_bf16": _ATTENTION_ARGS + [_F, _P],
     "oetr_flash_attention_f32": _ATTENTION_ARGS + [_F, _P],
     "oetr_flash_attention_bf16": _ATTENTION_ARGS + [_F, _P],
+    # A, w, V, batch, n, stream
+    "oetr_sym_eigh_f32": [_P, _P, _P, _LL, _I, _P],
 }
 
 

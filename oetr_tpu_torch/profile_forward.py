@@ -1,7 +1,7 @@
 """Where the device time of the port's main paths goes on the card.
 
     python -m oetr_tpu_torch.profile_forward [--plain]
-        [--pipeline oetr|sparse|dense|loftr]
+        [--pipeline oetr|sparse|dense|loftr|pose]
         [--attention linear:cuda|full:cuda|full:flash]
 
 ``--pipeline oetr`` (the default): the flagship OETR forward in bf16 on 8
@@ -15,7 +15,11 @@ dense``: the dense pipeline as ``chip_smoke.py`` drives it (4 scene pairs
 from the port's generator, OETR in bf16 on 640x640 copies, heatmap boxes,
 crops onto 832x832, bench stage 6's LoFTR in f32; no retry). ``--pipeline
 loftr``: that LoFTR alone as bench stage 6 runs it (16 scene pairs of
-256x256, f32; it runs no kernel of the port). Every kernel switch is on
+256x256, f32; it runs no kernel of the port). ``--pipeline pose``:
+``estimate_pose`` with JAX's defaults (512 hypotheses, 8 LO candidates,
+the planar fallback, the 5-point stage off as on the card by default) on
+8 general two-view problems of 2048 slots (``general_pose_pairs``); its
+eigensolves run the Jacobi kernel. Every kernel switch is on
 (``--plain``: every switch off), the weights are seeded and random. After
 warm-up, 3 calls are traced with torch.profiler and one JSON line is
 printed: wall and device-busy ms per call, the device's idle share, the
@@ -29,6 +33,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import time
 from collections import defaultdict
 
@@ -38,6 +43,8 @@ from . import (DensePipeline, PipelineConfig, SparsePipeline, build_loftr,
                build_oetr, build_superglue, build_superpoint,
                make_device_generator, oetr_r50_config,
                oetr_r50_kernels_config, replace)
+from .geometry import estimate_pose
+from .geometry.overlap import rigid_inverse, warp_grid_via_depth
 from .models.superpoint import grayscale
 
 PAIRS, HW, DTYPE = 8, 640, "bfloat16"   # the chip_smoke.py paths
@@ -52,6 +59,13 @@ LOFTR_KW = dict(d_coarse=192, d_fine=96, coarse_layers=4, fine_layers=1,
 # The scene generator's settings in bench stage 5 (bench.py:377-379).
 SCENE_KW = dict(scale_range=(1.0, 1.6), p_translate=0.5)
 
+# The pose path: 8 pairs of 2048 correspondence slots (the sparse path's
+# k), 1400 true correspondences of a general scene with
+# tests/test_ransac.py's recipe (0.5 px noise, 30% outliers) in an 832²
+# frame (its 600 px focal length at 640, scaled).
+POSE_PAIRS, POSE_SLOTS, POSE_TRUE = 8, 2048, 1400
+POSE_FOCAL, POSE_NOISE_PX, POSE_OUTLIERS = 780.0, 0.5, 0.3
+
 # Kernel-name substrings -> category, first match wins.
 CATEGORIES = (
     ("K2 linear_encoder", ("linear_encoder_kernel",)),
@@ -63,6 +77,7 @@ CATEGORIES = (
     # true> K6.
     ("K5 full_attention", ("16, false>", "32, false>", "64, false>")),
     ("K6 flash_attention", ("16, true>", "32, true>", "64, true>")),
+    ("small eigh (Jacobi)", ("sym_eigh_kernel",)),
     ("convolution", ("conv", "fprop", "implicit", "dgrad", "nhwc", "nchw")),
     ("matmul", ("gemm", "cutlass", "cublas", "xmma")),
     ("softmax", ("softmax",)),
@@ -82,6 +97,20 @@ def pad_trace() -> None:
     """Launch the PADS sleep kernels that open a trace."""
     for _ in range(PADS):
         torch.cuda._sleep(1000)
+
+
+def device_events(prof) -> tuple[list, list]:
+    """The device events of a trace opened by ``pad_trace``, the pads left
+    out: (kernels, copies and sets; the device-side spans of the
+    record_function ranges, which the profiler marks as user annotations
+    and which are not device work)."""
+    work, spans = [], []
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CUDA \
+                or PAD_KERNEL in evt.name:
+            continue
+        (spans if evt.is_user_annotation else work).append(evt)
+    return work, spans
 
 
 # The pipelines' record_function ranges, in path order.
@@ -189,11 +218,146 @@ def dense_call(plain: bool):
     return lambda: pipe(*args)
 
 
+def _uniform(g: torch.Generator, shape, lo: float, hi: float):
+    return lo + (hi - lo) * torch.rand(shape, generator=g, device=g.device)
+
+
+def _rotation_xyz(a: torch.Tensor) -> torch.Tensor:
+    """[..., 3] angles (radians) -> Rz Ry Rx [..., 3, 3] (scipy's
+    extrinsic 'xyz' Euler angles)."""
+    c, s = torch.cos(a), torch.sin(a)
+    one, zero = torch.ones_like(a[..., 0]), torch.zeros_like(a[..., 0])
+
+    def mat(rows):
+        return torch.stack([torch.stack(r, -1) for r in rows], -2)
+
+    rx = mat([[one, zero, zero], [zero, c[..., 0], -s[..., 0]],
+              [zero, s[..., 0], c[..., 0]]])
+    ry = mat([[c[..., 1], zero, s[..., 1]], [zero, one, zero],
+              [-s[..., 1], zero, c[..., 1]]])
+    rz = mat([[c[..., 2], -s[..., 2], zero], [s[..., 2], c[..., 2], zero],
+              [zero, zero, one]])
+    return rz @ ry @ rx
+
+
+def _intrinsics(b: int, focal: float, hw: int, device) -> torch.Tensor:
+    K = torch.zeros((b, 3, 3), dtype=torch.float32, device=device)
+    K[:, 0, 0], K[:, 1, 1] = focal, focal
+    K[:, 0, 2], K[:, 1, 2], K[:, 2, 2] = hw / 2.0, hw / 2.0, 1.0
+    return K
+
+
+def _with_outliers(g, kpts1, candidates, frac, hw):
+    """kpts1 with ``frac`` of the candidate slots (the first of a random
+    order) moved to uniform points of the frame; and that mask."""
+    b, n = candidates.shape
+    order = torch.argsort(torch.rand((b, n), generator=g, device=g.device)
+                          - 2.0 * candidates.float(), dim=-1)
+    n_out = (frac * candidates.sum(-1).float()).round().long()
+    rank = torch.empty_like(order)
+    rank.scatter_(1, order, torch.arange(n, device=g.device).expand(b, n))
+    out = rank < n_out[:, None]
+    moved = _uniform(g, (b, n, 2), 0.0, float(hw))
+    return torch.where(out[..., None], moved, kpts1), out
+
+
+def general_pose_pairs(b: int, generator: torch.Generator,
+                       n_true: int = POSE_TRUE, n_slots: int = POSE_SLOTS,
+                       outlier_frac: float = POSE_OUTLIERS,
+                       hw: int = CANVAS, focal: float = POSE_FOCAL) -> dict:
+    """b general two-view problems drawn on the generator's device, with
+    the recipe of tests/test_ransac.py: points uniform in a 6-unit cube 8
+    units in front of camera 0, R from Euler angles in ±15°, a random unit
+    t, POSE_NOISE_PX of Gaussian noise on both views, ``outlier_frac`` of
+    the true slots moved to uniform points of the hw² frame, and the slots
+    after ``n_true`` padding. Returns kpts0, kpts1 [b, n_slots, 2], valid
+    [b, n_slots], K [b, 3, 3] (both views), T_0to1 [b, 4, 4] and outlier
+    [b, n_slots]."""
+    g, dev = generator, generator.device
+    R = _rotation_xyz(_uniform(g, (b, 3), -15.0, 15.0) * (math.pi / 180.0))
+    t = torch.randn((b, 3), generator=g, device=dev)
+    t = t / torch.linalg.norm(t, dim=-1, keepdim=True)
+    X = _uniform(g, (b, n_true, 3), -3.0, 3.0)
+    X[..., 2] += 8.0
+    K = _intrinsics(b, focal, hw, dev)
+
+    def project(P):
+        uv = P @ K.transpose(-1, -2)
+        return uv[..., :2] / uv[..., 2:]
+
+    noise = lambda: POSE_NOISE_PX * torch.randn((b, n_true, 2), generator=g,
+                                                device=dev)
+    uv0 = project(X) + noise()
+    uv1 = project(X @ R.transpose(-1, -2) + t[:, None]) + noise()
+    uv1, out = _with_outliers(g, uv1, torch.ones((b, n_true), dtype=torch.bool,
+                                                 device=dev),
+                              outlier_frac, hw)
+    pad = lambda x: torch.cat([x, torch.zeros((b, n_slots - n_true)
+                                              + x.shape[2:], dtype=x.dtype,
+                                              device=dev)], dim=1)
+    T = torch.eye(4, device=dev).repeat(b, 1, 1)
+    T[:, :3, :3], T[:, :3, 3] = R, t
+    valid = (torch.arange(n_slots, device=dev) < n_true).expand(b, n_slots)
+    return {"kpts0": pad(uv0), "kpts1": pad(uv1), "valid": valid, "K": K,
+            "T_0to1": T, "outlier": pad(out)}
+
+
+def planar_pose_pairs(raw: dict, generator: torch.Generator,
+                      step: int = 16, n_slots: int = POSE_SLOTS) -> dict:
+    """Correspondences of the scene generator's pairs ``raw`` (a
+    fronto-parallel textured plane; pure translation or a dolly-in): the
+    centres of a grid of image-1 pixels at ``step`` px, warped into image
+    2 by ``warp_grid_via_depth`` with the pair's depth and poses; those
+    that land in image 2 first (up to ``n_slots``, the rest padding), and
+    POSE_OUTLIERS of them moved to uniform points of the frame. Returns
+    the keys of ``general_pose_pairs``, in original-frame pixels (the
+    generator's crop is 0 and its ratio 1)."""
+    g = generator
+    uv2, _, has_depth = warp_grid_via_depth(
+        raw["K1"], raw["depth1"], raw["pose1"], raw["crop1"], raw["ratio1"],
+        raw["K2"], raw["pose2"], raw["crop2"], raw["ratio2"])
+    b, hw = uv2.shape[0], uv2.shape[1]
+    dev = uv2.device
+    c = torch.arange(step // 2, hw, step, device=dev, dtype=torch.float32)
+    cy, cx = torch.meshgrid(c, c, indexing="ij")
+    pick = lambda x: x[:, step // 2::step, step // 2::step].reshape(
+        (b, -1) + x.shape[3:])
+    kp0 = torch.stack([cx, cy], -1).reshape(1, -1, 2).expand(b, -1, -1) + 0.5
+    kp1 = pick(uv2) + 0.5
+    inside = pick(has_depth) & ((kp1 >= 0) & (kp1 < hw)).all(-1)
+    order = torch.argsort((~inside).to(torch.int8), dim=-1, stable=True)
+    order = order[:, :n_slots]
+    take = lambda x: torch.gather(x, 1, order[..., None].expand(-1, -1, 2))
+    valid = torch.gather(inside, 1, order)
+    kp0, kp1 = take(kp0), take(kp1)
+    kp1, out = _with_outliers(g, kp1, valid, POSE_OUTLIERS, hw)
+    zero = torch.zeros_like(kp0)
+    return {"kpts0": torch.where(valid[..., None], kp0, zero),
+            "kpts1": torch.where(valid[..., None], kp1, zero),
+            "valid": valid, "K": raw["K1"],
+            "T_0to1": raw["pose2"] @ rigid_inverse(raw["pose1"]),
+            "outlier": out}
+
+
+def pose_call(use_5pt=None):
+    """estimate_pose with JAX's defaults on POSE_PAIRS general problems."""
+    g = torch.Generator(device="cuda").manual_seed(11)
+    d = general_pose_pairs(POSE_PAIRS, g)
+    draw = torch.Generator(device="cuda")
+
+    def call():
+        draw.manual_seed(12)
+        return estimate_pose(d["kpts0"], d["kpts1"], d["valid"], d["K"],
+                             d["K"], draw, use_5pt=use_5pt)
+    return call
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--plain", action="store_true",
                     help="every kernel switch off")
-    ap.add_argument("--pipeline", choices=("oetr", "sparse", "dense", "loftr"),
+    ap.add_argument("--pipeline",
+                    choices=("oetr", "sparse", "dense", "loftr", "pose"),
                     default="oetr")
     ap.add_argument("--attention", default="linear:cuda",
                     choices=("linear:cuda", "full:cuda", "full:flash"),
@@ -201,8 +365,8 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.pipeline != "oetr" and args.attention != "linear:cuda":
         ap.error("--attention applies to --pipeline oetr")
-    if args.pipeline == "loftr" and args.plain:
-        ap.error("--pipeline loftr runs no kernel switch")
+    if args.pipeline in ("loftr", "pose") and args.plain:
+        ap.error(f"--pipeline {args.pipeline} runs no kernel switch")
     if not torch.cuda.is_available():
         raise SystemExit("profile_forward: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -211,10 +375,11 @@ def main(argv=None) -> int:
     call = {"sparse": lambda: sparse_call(args.plain),
             "dense": lambda: dense_call(args.plain),
             "loftr": loftr_call,
+            "pose": pose_call,
             "oetr": lambda: oetr_call(args.plain, args.attention)}[
         args.pipeline]()
-    pairs = {"dense": DENSE_PAIRS, "loftr": LOFTR_PAIRS}.get(args.pipeline,
-                                                           PAIRS)
+    pairs = {"dense": DENSE_PAIRS, "loftr": LOFTR_PAIRS,
+             "pose": POSE_PAIRS}.get(args.pipeline, PAIRS)
     stages = STAGES.get(args.pipeline, ())
     n = 3
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -233,17 +398,8 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3 / n
 
-    # Device events: the kernels, and the device-side spans of the
-    # record_function ranges (user annotations, not kernels: kept apart).
-    kernels, spans = [], []
-    for evt in prof.events():
-        if evt.device_type != torch.autograd.DeviceType.CUDA \
-                or PAD_KERNEL in evt.name:
-            continue
-        if evt.is_user_annotation:
-            spans.append((evt.time_range.start, evt.time_range.end, evt.name))
-        else:
-            kernels.append(evt)
+    kernels, ranges = device_events(prof)
+    spans = [(e.time_range.start, e.time_range.end, e.name) for e in ranges]
     by_cat = defaultdict(float)
     by_kernel = defaultdict(lambda: [0.0, 0])
     by_stage = defaultdict(float)
@@ -277,6 +433,9 @@ def main(argv=None) -> int:
                                 loftr_dtype="float32")
     if args.pipeline == "loftr":
         result["config"].update(hw=LOFTR_HW, dtype="float32", loftr=LOFTR_KW)
+    if args.pipeline == "pose":
+        result["config"].update(hw=CANVAS, dtype="float32", slots=POSE_SLOTS,
+                                true=POSE_TRUE, use_5pt=False)
     if stages:
         result["device_ms_by_stage"] = {
             s: by_stage.get(s, 0.0) for s in stages + ("outside the ranges",)}

@@ -2,9 +2,11 @@
 
 The port must start where only torch is installed: the machine with the
 CUDA card lacks flax and orbax, which the JAX package's models and
-checkpoints need. A child interpreter refuses jax, jaxlib, flax, optax,
-orbax and oetr_tpu, then imports every module of the port and
-``chip_smoke``, and runs a small forward on the CPU.
+checkpoints need, and h5py and cv2. A child interpreter refuses jax,
+jaxlib, flax, optax, orbax, oetr_tpu, h5py and cv2, then imports every
+module of the port (the geometry, the evaluation package, the h5 utilities
+and the pair lists among them) and ``chip_smoke``, and runs a small
+forward on the CPU.
 """
 import os
 import re
@@ -18,7 +20,18 @@ PORT = ROOT / "oetr_tpu_torch"
 CHILD = r'''
 import importlib, pkgutil, sys
 
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "oetr_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "oetr_tpu", "h5py",
+           "cv2")
+MUST_LIST = ("oetr_tpu_torch.geometry.ransac",
+             "oetr_tpu_torch.geometry.fivepoint",
+             "oetr_tpu_torch.geometry.homography",
+             "oetr_tpu_torch.geometry.epipolar",
+             "oetr_tpu_torch.ops.small_eigh",
+             "oetr_tpu_torch.evalx.twoview", "oetr_tpu_torch.evalx.imc_math",
+             "oetr_tpu_torch.evalx.megadepth", "oetr_tpu_torch.evalx.imc",
+             "oetr_tpu_torch.evalx.hpatches", "oetr_tpu_torch.evalx.datasets",
+             "oetr_tpu_torch.evalx.metrics", "oetr_tpu_torch.evalx.trajectory",
+             "oetr_tpu_torch.utils.h5io", "oetr_tpu_torch.data.pairs")
 
 
 class Refuse:
@@ -35,6 +48,8 @@ import oetr_tpu_torch
 torch.set_num_threads(2)
 names = [m.name for m in pkgutil.walk_packages(oetr_tpu_torch.__path__,
                                                "oetr_tpu_torch.")]
+missing = [m for m in MUST_LIST if m not in names]
+assert not missing, missing
 for name in names:
     importlib.import_module(name)
 import chip_smoke  # noqa: F401
@@ -61,7 +76,7 @@ def test_port_runs_with_jax_refused():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     n_modules = int(proc.stdout.split("modules")[-1])
-    assert n_modules >= 12
+    assert n_modules >= 49
 
 
 def test_port_sources_name_no_jax_import():

@@ -211,7 +211,8 @@ def test_build_module_imports_without_nvcc(monkeypatch):
     srcs = build.sources()
     assert {s.name for s in srcs} == {
         "flash_attention.cu", "full_attention.cu", "gn_relu_maxpool.cu",
-        "linear_attention.cu", "linear_encoder.cu", "log_sinkhorn.cu"}
+        "linear_attention.cu", "linear_encoder.cu", "log_sinkhorn.cu",
+        "small_eigh.cu"}
     compiles, link = build.build_commands("nvcc", build.BUILD_DIR,
                                           build.BUILD_DIR / "lib.so", srcs)
     assert len(compiles) == len(srcs)
