@@ -62,16 +62,28 @@ paths with seeded random weights:
     slots: general scenes (1400 true correspondences, 0.5 px noise, 30%
     outliers) held to the truth, and the scene generator's planar pairs
     with the route that won each (H, P&P or E); the 5-point stage off (the
-    card's default) and on; each against the port on the CPU on the same
-    inputs and draws; the eigh kernel (``csrc/small_eigh.cu``, the
-    estimator's null vectors and 3x3 SVDs) on every call of the path
-    against LAPACK; the scenes phase's sparse matches scored (pose AUC);
+    card's default) and on; each against the port on the CPU given the
+    card's eigh and svd3 results, on the same inputs and draws, and read
+    beside the plain CPU and the CPU's own spread; the eigh kernel
+    (``csrc/small_eigh.cu``, the estimator's null vectors and 3x3 SVDs) on
+    every call of the path against LAPACK; the scenes phase's sparse matches scored (pose AUC);
     ms a call, device busy ms, idle share, launches and device -> host
     copies a call (none with the 5-point stage off), and the host 5-point
-    stage alone.
+    stage alone. In float32 the refinement returns its input, as JAX's
+    does;
+  * ``train``: OETR training at full width (the flagship in f32 with K2
+    and K3 on, 8 pairs of 640² from the device generator a step, AdamW
+    with TrainConfig's defaults, cycle=True, seeded weights): the step's
+    launch counts and every K2 and K3 output of its forward against the
+    plain version; the losses, gradient norm and gradients of a step with
+    the kernels on against off (dropout off); a step with every loss
+    switch on; ms a step, pairs/s, peak memory, traced K2 and K3 launches
+    and device -> host copies (none) a step; and a checkpoint resumed to
+    the same bits.
 K1's lines give its cluster (blocks per batch row and head), its grid and
 its device time at every cluster size.
-One JSON line per phase, each with ``t_s``, seconds since start. The last
+One JSON line per phase, each with ``t_s``, seconds since start, and
+``phase_s``, seconds since the line before. The last
 line is ``{"ok": true, "device": {...}}``; it is printed only when every
 check passed. Without a CUDA card, or without the port beside it, the
 script exits 1 and prints no result. It imports nothing of JAX.
@@ -163,15 +175,22 @@ DENSE_PAIRS = 4
 SCENE_PAIRS = 8
 # The pose path (profile_forward.general_pose_pairs: 8 pairs of 2048 slots,
 # 1400 true correspondences with 0.5 px noise and 30% outliers; and the
-# scene generator's planar pairs), JAX's estimator defaults. On the
-# general scenes every pair within POSE_GT_R_DEG / POSE_GT_T_DEG of the
-# truth (the JAX tests' bounds at 200 points). The card against the port
-# on the CPU, on the same inputs and draws: each pair's err_R and err_t
-# within POSE_CPU_DEG of the CPU's, inlier counts within POSE_CPU_INLIERS
-# (relative). The eigensolvers differ (the Jacobi kernel against LAPACK),
-# so hypotheses differ in their last bits and a vote between two near
-# equal candidates can go either way; the refinement then settles a
-# rounding apart.
+# scene generator's planar pairs), JAX's estimator defaults, float32 (no
+# Gauss-Newton refinement, as in JAX). On the general scenes every pair
+# within POSE_GT_R_DEG / POSE_GT_T_DEG of the truth (the JAX tests' bounds
+# at 200 points), on the card and on the CPU. The card against the port
+# on the CPU given the card's eigh and svd3 results, on the same inputs
+# and draws: each pair's err_R and err_t within POSE_CPU_DEG of the CPU's,
+# inlier counts within POSE_CPU_INLIERS (relative). That run differs from
+# the card's everywhere but in the eigensolvers, and EIGH_TOL holds the
+# eigh kernel to LAPACK on every call of the path. The card against the
+# plain CPU (LAPACK's eigensolvers) is read beside the CPU's own spread,
+# the plain CPU against the CPU on LAPACK's float64 routines rounded to
+# float32 (pose_parting.wide_lapack), and bounded by the truth only: without
+# the refinement the float32 estimator's null vectors of nearly singular
+# 8-point normal matrices follow the eigensolver's last bits, so its
+# hypotheses, LO candidates and result move with any change of rounding
+# (``python -m oetr_tpu_torch.pose_parting --spread``).
 POSE_GT_R_DEG, POSE_GT_T_DEG = 2.0, 5.0
 POSE_CPU_DEG = 0.25
 POSE_CPU_INLIERS = 0.01
@@ -180,18 +199,33 @@ POSE_CPU_INLIERS = 0.01
 # orthogonality, relative to each matrix's largest |eigenvalue|; both are
 # backward stable, to ~n float32 ulps.
 EIGH_TOL = 1e-5
+# The train step, f32, kernels (K2, K3) on against off, one step from the
+# same weights, batch and generator, dropout off: the two forwards differ
+# in summation order only, so the total loss within TRAIN_LOSS_RTOL and the
+# global gradient norm within TRAIN_NORM_RTOL (relative); each parameter's
+# gradient at the grad phase's bounds (OETR_GRAD_TOL, OETR_BACKBONE_COS).
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_NORM_RTOL = 1e-3
 
 
 def elapsed() -> float:
     return time.perf_counter() - T0
 
 
+LAST_PHASE_S = [0.0]
+
+
 def phase(phase_name: str, /, **fields) -> None:
-    if elapsed() > BUDGET_S:
+    """One JSON line: the phase, t_s (seconds since start), phase_s (since
+    the line before) and its fields."""
+    now = elapsed()
+    if now > BUDGET_S:
         raise RuntimeError(f"over the {BUDGET_S:.0f} s budget at phase "
                            f"{phase_name}")
-    print(json.dumps({"phase": phase_name, "t_s": round(elapsed(), 3),
+    print(json.dumps({"phase": phase_name, "t_s": round(now, 3),
+                      "phase_s": round(now - LAST_PHASE_S[0], 3),
                       **fields}), flush=True)
+    LAST_PHASE_S[0] = now
 
 
 def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
@@ -216,8 +250,9 @@ def trace_calls(torch, fn, reps: int, warmup: int = 1, sessions: int = 6,
     """``reps`` calls of ``fn()`` in a torch.profiler trace, after
     ``warmup`` calls: (the profile, its device events (kernels, copies,
     sets; profile_forward.device_events leaves out the pad kernels that
-    open the trace and absorb the device events it can miss at its start,
-    and the device-side spans of record_function ranges), the wall ms per
+    open and close the trace and absorb the device events it can miss at
+    its ends, and the device-side spans of record_function ranges), the
+    wall ms per
     call, the traces taken). ``fn`` launches the same work on every call,
     so a trace where the count of events that ``select`` keeps (all by
     default) is 0 or not a multiple of ``reps`` missed some (seen once on
@@ -241,6 +276,8 @@ def trace_calls(torch, fn, reps: int, warmup: int = 1, sessions: int = 6,
                 fn()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3 / reps
+            pad_trace()
+            torch.cuda.synchronize()
         dev, _ = device_events(prof)
         kept = select(dev)
         if kept and len(kept) % reps == 0:
@@ -1384,7 +1421,9 @@ def run_loftr(torch, port, ops):
 @contextlib.contextmanager
 def recorded_kernel_calls():
     """Records every call OETR makes to K2's and K3's wrappers, as
-    {wrapper name: [(args, kwargs, output), ...]}, passing each on."""
+    {wrapper name: [(args, kwargs, output), ...]}, passing each on. The
+    tensors are copies taken at the call: a train step updates the
+    parameters among the arguments in place after its forward."""
     from oetr_tpu_torch.models import resnet, transformer
 
     calls = {}
@@ -1395,7 +1434,11 @@ def recorded_kernel_calls():
     def recorder(name, fn):
         def call(*args, **kwargs):
             out = fn(*args, **kwargs)
-            calls.setdefault(name, []).append((args, kwargs, out))
+            copy = lambda a: a.detach().clone() if hasattr(a, "detach") \
+                else a
+            calls.setdefault(name, []).append(
+                (tuple(copy(a) for a in args),
+                 {k: copy(v) for k, v in kwargs.items()}, copy(out)))
             return out
         return call
 
@@ -1408,7 +1451,7 @@ def recorded_kernel_calls():
             setattr(mod, name, fn)
 
 
-def recorded_kernel_errors(torch, ops, calls):
+def recorded_kernel_errors(torch, ops, calls, path="dense"):
     """Each recorded output of K2 and K3 against the plain version on the
     same inputs, at the kernel checks' tolerances (K2: 2 bf16 ulps or 1e-4,
     K3: 1 ulp or 1e-5, of max(1, the plain output's largest magnitude)).
@@ -1428,7 +1471,7 @@ def recorded_kernel_errors(torch, ops, calls):
             dtype_name = str(args[0].dtype).removeprefix("torch.")
             tol = tolerance(dtype_name, ref.abs().max().item(), ulps, rel)
             if tuple(out.shape) != tuple(ref.shape) or not err <= tol:
-                raise AssertionError(f"{name} on the dense path, input "
+                raise AssertionError(f"{name} on the {path} path, input "
                                      f"{tuple(args[0].shape)}: max_abs_err "
                                      f"{err} > tol {tol}")
             errs.append(err)
@@ -1770,11 +1813,20 @@ def eigh_row(torch, ops, A):
             "bound_ms": bnd, "bound_by": bound_by}
 
 
-def traced_stats(torch, fn, reps=3):
+def traced_stats(torch, fn, reps=3, names=()):
     """Per call of ``fn()`` in a trace of ``reps`` calls (``trace_calls``):
-    wall ms, device busy ms, the idle share, kernel launches, device ->
-    host copies, and the CPU ops that read a device value back."""
+    wall ms, device busy ms (and by profile_forward's kernel categories),
+    the idle share, kernel launches (and those of the kernels whose names
+    hold each of ``names``), device -> host copies, and the CPU ops that
+    read a value back."""
+    from oetr_tpu_torch.profile_forward import PAD_KERNEL, PADS, category
+
     prof, dev, wall, taken = trace_calls(torch, fn, reps)
+    pads = sum(e.device_type == torch.autograd.DeviceType.CUDA
+               and PAD_KERNEL in e.name for e in prof.events())
+    by_category = collections.Counter()
+    for e in dev:
+        by_category[category(e.name)] += e.time_range.elapsed_us() / 1e3 / reps
     copies = [e for e in dev if e.name.startswith(("Memcpy", "Memset"))]
     dtoh = [e for e in copies if "DtoH" in e.name]
     busy = sum(e.time_range.elapsed_us() for e in dev) / 1e3 / reps
@@ -1790,22 +1842,29 @@ def traced_stats(torch, fn, reps=3):
             "idle_share": 1.0 - busy / wall,
             "launches_per_call": (len(dev) - len(copies)) / reps,
             "dtoh_copies_per_call": len(dtoh) / reps,
-            "device_reads": dict(readers), "traces_taken": taken}
+            "device_reads": dict(readers), "traces_taken": taken,
+            "pad_events_missed": 2 * PADS - pads,
+            "device_ms_by_category": dict(by_category.most_common()),
+            **{f"{name}_per_call": sum(name in e.name for e in dev) / reps
+               for name in names}}
 
 
-def pose_case(torch, port, d, use_5pt, seed, device=None, replay=None):
+def pose_case(torch, port, d, use_5pt, seed, device=None, replay=None,
+              linalg=None):
     """estimate_pose with JAX's defaults on the problems ``d`` (on
     ``device``, DEV by default); its draws from a generator seeded
-    ``seed``, or ``replay``. Returns (result, per-pair errors, the draws,
-    the route whose candidate won each pair's vote: 'H' (a homography
-    decomposition), 'P&P' (plane and parallax) or 'E' (the LO-RANSAC's
-    pose), as the estimator's vote picked it)."""
+    ``seed``, or ``replay``; with ``linalg`` (an earlier call's stages)
+    every eigh and svd3 result taken from that call instead. Returns
+    (result, per-pair errors, the draws, the route whose candidate won
+    each pair's vote: 'H' (a homography decomposition), 'P&P' (plane and
+    parallax) or 'E' (the LO-RANSAC's pose), as the estimator's vote
+    picked it, the stages recorded)."""
     from oetr_tpu_torch.geometry.ransac import VOTE_ROUTES
     from oetr_tpu_torch.pose_parting import recorded
 
     device = device or DEV
     d = {k: v.to(device) for k, v in d.items()}
-    with pose_draws(replay, device) as log, recorded() as stages:
+    with pose_draws(replay, device) as log, recorded(linalg) as stages:
         res = port.estimate_pose(
             d["kpts0"], d["kpts1"], d["valid"], d["K"], d["K"],
             torch.Generator(device=device).manual_seed(seed),
@@ -1813,23 +1872,27 @@ def pose_case(torch, port, d, use_5pt, seed, device=None, replay=None):
     err_t, err_R = port.pose_error(d["T_0to1"], res["R"], res["t"])
     routes = [VOTE_ROUTES[i] for i in stages["_vote"][0][1].tolist()]
     return (res, (err_R.cpu(), err_t.cpu()),
-            log if replay is None else replay, routes)
+            log if replay is None else replay, routes, stages)
 
 
 def run_pose(torch, port, ops, scenes):
     """Two-view pose on the card (``estimate_pose`` with JAX's defaults,
     B = 8, N = 2048): general scenes (the ground truth within
-    POSE_GT_R_DEG / POSE_GT_T_DEG, no padded slot an inlier) and the scene
-    generator's planar pairs, with the 5-point stage off (the card's
-    default) and on; the card against the CPU on the same inputs and
-    draws; the eigh kernel on every call of the path against LAPACK; the
-    scenes phase's sparse matches scored (pose AUC); times. Returns the
-    phase fields and the eigh kernel's row."""
+    POSE_GT_R_DEG / POSE_GT_T_DEG on the card and on the CPU, no padded
+    slot an inlier) and the scene generator's planar pairs, with the
+    5-point stage off (the card's default) and on; the card against the
+    CPU given the card's eigh and svd3 results on the same inputs and
+    draws (bounded), and against the plain CPU beside the CPU's own spread
+    (read); the eigh kernel on every call of the path against LAPACK; the scenes phase's sparse matches scored (pose AUC);
+    times. Returns the phase fields (``failures`` lists the cases out of
+    bounds; the phase goes on to its readings) and the eigh kernel's
+    row."""
     from oetr_tpu_torch import profile_forward as pf
     from oetr_tpu_torch.geometry import draws, normalize_keypoints
     from oetr_tpu_torch.geometry.fivepoint import five_point_hypotheses
     from oetr_tpu_torch.geometry.overlap import rigid_inverse
     from oetr_tpu_torch.geometry.homography import sample_minimal_sets
+    from oetr_tpu_torch.pose_parting import parting, wide_lapack
 
     general = pf.general_pose_pairs(
         pf.POSE_PAIRS, torch.Generator(device=DEV).manual_seed(11))
@@ -1870,17 +1933,28 @@ def run_pose(torch, port, ops, scenes):
                                                           15)):
             out = {}
             for use_5pt in (False, True):
-                res, (eR, et), log, route = pose_case(torch, port, d,
-                                                      use_5pt, seed)
-                cpu, (cR, ct), _, cpu_route = pose_case(
+                res, (eR, et), log, route, stages = pose_case(
+                    torch, port, d, use_5pt, seed)
+                given, (gR, gt), _, given_route, _ = pose_case(
+                    torch, port, d, use_5pt, seed, device="cpu", replay=log,
+                    linalg=stages)
+                cpu, (cR, ct), _, cpu_route, _ = pose_case(
                     torch, port, d, use_5pt, seed, device="cpu", replay=log)
+                with wide_lapack():
+                    wide, _, _, _, _ = pose_case(
+                        torch, port, d, use_5pt, seed, device="cpu",
+                        replay=log)
+                del stages
+
+                def gap(a, b):
+                    deg, rel = parting(d["T_0to1"].cpu(), a, b)
+                    return deg.max().item(), rel.max().item()
+
+                deg, dn = gap(res, cpu)
+                given_deg, given_dn = gap(res, given)
+                spread_deg, spread_dn = gap(wide, cpu)
                 n_card = res["num_inliers"].cpu()
-                n_cpu = cpu["num_inliers"]
                 padded = bool((res["inliers"] & ~d["valid"]).any())
-                dR = (eR - cR).abs().max().item()
-                dt = (et - ct).abs().max().item()
-                dn = ((n_card - n_cpu).abs().float()
-                      / n_cpu.clamp(min=1).float()).max().item()
                 case = {"err_R_deg": eR.tolist(), "err_t_deg": et.tolist(),
                         "ok": res["ok"].tolist(),
                         "num_inliers": n_card.tolist(),
@@ -1888,28 +1962,46 @@ def run_pose(torch, port, ops, scenes):
                         "route": route, "cpu_route": cpu_route,
                         "cpu_err_R_deg": cR.tolist(),
                         "cpu_err_t_deg": ct.tolist(),
-                        "cpu_num_inliers": n_cpu.tolist(),
-                        "card_vs_cpu_max_deg": max(dR, dt),
+                        "cpu_num_inliers": cpu["num_inliers"].tolist(),
+                        "card_vs_cpu_max_deg": deg,
                         "card_vs_cpu_inliers_max_rel": dn,
+                        "given_cpu_route": given_route,
+                        "given_cpu_err_R_deg": gR.tolist(),
+                        "given_cpu_err_t_deg": gt.tolist(),
+                        "given_cpu_num_inliers":
+                            given["num_inliers"].tolist(),
+                        "card_vs_given_cpu_max_deg": given_deg,
+                        "card_vs_given_cpu_inliers_max_rel": given_dn,
+                        "wide_cpu_num_inliers":
+                            wide["num_inliers"].tolist(),
+                        "cpu_spread_max_deg": spread_deg,
+                        "cpu_spread_inliers_max_rel": spread_dn,
                         "padded_inliers": padded}
-                bad = padded or max(dR, dt) > POSE_CPU_DEG \
-                    or dn > POSE_CPU_INLIERS
+                checks = {
+                    "card_vs_given_cpu": given_deg <= POSE_CPU_DEG
+                    and given_dn <= POSE_CPU_INLIERS,
+                    "no_padded_inlier": not padded}
                 if name == "general":
-                    bad |= not (bool(res["ok"].all())
-                                and eR.max().item() < POSE_GT_R_DEG
-                                and et.max().item() < POSE_GT_T_DEG)
-                if bad:
-                    failures.append(f"{name} use_5pt={use_5pt}")
+                    checks["truth"] = all(
+                        bool(r["ok"].all()) and R.max().item() < POSE_GT_R_DEG
+                        and t.max().item() < POSE_GT_T_DEG
+                        for r, R, t in ((res, eR, et), (cpu, cR, ct)))
+                failed = [k for k, v in checks.items() if not v]
+                if failed:
+                    failures.append(f"{name} use_5pt={use_5pt}: "
+                                    f"{', '.join(failed)}")
                 out[f"use_5pt={use_5pt}"] = case
             fields[name] = out
-        if failures:
-            raise AssertionError(f"pose: {failures} out of bounds: "
-                                 f"{json.dumps(fields)}")
+        fields["failures"] = failures
         lap("card_vs_cpu")
         fields["bounds"] = {"gt_R_deg": POSE_GT_R_DEG,
                             "gt_t_deg": POSE_GT_T_DEG,
-                            "card_vs_cpu_deg": POSE_CPU_DEG,
-                            "card_vs_cpu_inliers": POSE_CPU_INLIERS}
+                            "gt_holds_for": "the card and the CPU",
+                            "card_vs_given_cpu_deg": POSE_CPU_DEG,
+                            "card_vs_given_cpu_inliers": POSE_CPU_INLIERS,
+                            "read_only": "card_vs_cpu (the plain CPU) "
+                                         "beside cpu_spread (the CPU on "
+                                         "LAPACK's float64 routines)"}
 
         # The scenes phase's sparse matches, against the generator's truth.
         out, raw = scenes["out"], scenes["raw"]
@@ -1972,6 +2064,208 @@ def run_pose(torch, port, ops, scenes):
         lap("timing")
     fields["seconds"] = seconds
     return fields, row
+
+
+# ----------------------------------------------------------------- train --
+
+def finite(metrics) -> bool:
+    return all(bool(v.isfinite().all()) for v in metrics.values())
+
+
+def set_dropout(model, rate):
+    from oetr_tpu_torch.models.transformer import Dropout
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.rate = rate
+
+
+def run_train(torch, port, ops):
+    """OETR training at full width: the flagship (ResNet50 to layer3,
+    d_model 256, 4 x (self + cross), 2 decoder layers) in f32 with K2 and
+    K3 on, 8 pairs of 640² a step from the device generator
+    (overlap_ab_demo.py's defaults: scale 1.8-3.2, no translation), seeded
+    weights, TrainConfig's defaults (AdamW lr 1e-4, weight decay 1e-2),
+    cycle=True; TF32 off, cuDNN's deterministic algorithms. (1) The main
+    path, one step, its launch counts read around it and every K2 and K3
+    output of its forward held to the plain version on the same inputs.
+    (2) One step with the kernels on against off (``oetr_r50_config()``),
+    same weights, batch and generator, dropout off: the losses within
+    TRAIN_LOSS_RTOL, the global gradient norm within TRAIN_NORM_RTOL, and
+    each parameter's gradient at the grad phase's bounds. (3) One step with
+    every loss switch on. (4) Five timed steps after two warm-ups with
+    cuDNN's defaults: ms a step, pairs/s, peak memory; then a trace: K2's
+    and K3's CUDA launches a step, device -> host copies (none), busy ms
+    by kind of kernel, idle share. (1), (2), (3) and (5) use cuDNN's
+    deterministic algorithms. (5) A
+    checkpoint saved after step 2 and loaded into a fresh state: its step 3
+    equals the uninterrupted step 3, bit for bit. Every loss finite."""
+    import tempfile
+
+    from oetr_tpu_torch.training import (create_train_state,
+                                         global_grad_norm, load_checkpoint,
+                                         make_train_step, save_checkpoint)
+
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    tcfg = port.TrainConfig()
+    b = tcfg.batch_size
+    synth = port.make_device_generator(IMAGE_HW, b, scale_range=(1.8, 3.2),
+                                       p_translate=0.0, device=DEV)
+    batches = [synth(torch.Generator(device=DEV).manual_seed(70 + i))
+               for i in range(3)]
+    cfg_on = port.oetr_r50_kernels_config("float32")
+    cfg_off = port.oetr_r50_config()
+    gen = lambda seed: torch.Generator(device=DEV).manual_seed(seed)
+
+    def fresh(cfg, seed):
+        return create_train_state(cfg, tcfg,
+                                  torch.Generator().manual_seed(seed),
+                                  device=DEV)[1]
+
+    step = make_train_step(cycle=True)
+    want = {name: 0 for name in KERNELS}
+    want.update(linear_encoder_attention=4 * cfg_on.neck.num_layers,
+                groupnorm_relu_maxpool=1)
+    fields = {"model": "oetr_r50_kernels_config('float32')",
+              "pairs": b, "image_hw": IMAGE_HW, "dtype": "float32",
+              "lr": tcfg.lr, "weight_decay": tcfg.weight_decay,
+              "cycle": True, "weights": "seeded",
+              "tf32_matmul": torch.backends.cuda.matmul.allow_tf32,
+              "tf32_cudnn": torch.backends.cudnn.allow_tf32,
+              "cudnn_deterministic": torch.backends.cudnn.deterministic}
+
+    # (1) The main path, once, with the launch counts read around it.
+    on = fresh(cfg_on, 0)
+    reset_counts(ops)
+    with recorded_kernel_calls() as calls:
+        on, metrics = step(on, batches[0], gen(80))
+        torch.cuda.synchronize()
+    launches = launch_counts(ops)
+    if launches != want or not finite(metrics):
+        raise AssertionError(f"train launches {launches} != {want}, or a "
+                             f"loss not finite: {metrics}")
+    with torch.no_grad():
+        fields["path_kernels_vs_plain"] = recorded_kernel_errors(
+            torch, ops, calls, "train")
+    del calls
+    fields["launches_per_step"] = {k: n for k, n in launches.items() if n}
+    fields["losses_step1"] = {k: v.item() for k, v in metrics.items()}
+
+    # (2) Kernels on against off: the same weights, batch and generator,
+    # dropout off on both.
+    off = fresh(cfg_off, 1)
+    off.model.load_state_dict(on.model.state_dict())
+    runs = {}
+    for tag, st in (("on", on), ("off", off)):
+        set_dropout(st.model, 0.0)
+        _, m = step(st, batches[1], gen(81))
+        runs[tag] = (m, global_grad_norm(st.model).item())
+        set_dropout(st.model, 0.1)
+    (m_on, n_on), (m_off, n_off) = runs["on"], runs["off"]
+    rel = {k: abs(m_on[k].item() - m_off[k].item())
+           / max(abs(m_off[k].item()), 1e-12) for k in m_off}
+    worst = {"rel": (0.0, None), "cos": (1.0, None)}
+    ref = dict(off.model.named_parameters())
+    for name, p in on.model.named_parameters():
+        r = ref[name].grad
+        if name.startswith("backbone."):
+            cos = torch.nn.functional.cosine_similarity(
+                p.grad.double().flatten(), r.double().flatten(), dim=0).item()
+            if cos < worst["cos"][0]:
+                worst["cos"] = (cos, name)
+        else:
+            d = (p.grad - r).abs().max().item() / max(1.0, r.abs().max()
+                                                     .item())
+            if d > worst["rel"][0]:
+                worst["rel"] = (d, name)
+    norm_rel = abs(n_on - n_off) / n_off
+    if not (rel["loss"] <= TRAIN_LOSS_RTOL and norm_rel <= TRAIN_NORM_RTOL
+            and worst["rel"][0] <= OETR_GRAD_TOL
+            and worst["cos"][0] >= OETR_BACKBONE_COS
+            and finite(m_on) and finite(m_off)):
+        raise AssertionError(f"train on vs off: losses {rel}, grad norm "
+                             f"{n_on} vs {n_off}, gradients {worst}")
+    fields["on_vs_off"] = {
+        "loss_on": m_on["loss"].item(), "loss_off": m_off["loss"].item(),
+        "loss_rel_diff": rel["loss"], "loss_rtol": TRAIN_LOSS_RTOL,
+        "max_entry_rel_diff": max(rel.values()),
+        "grad_norm_on": n_on, "grad_norm_off": n_off,
+        "grad_norm_rel_diff": norm_rel, "grad_norm_rtol": TRAIN_NORM_RTOL,
+        "max_rel_grad_diff_outside_backbone": worst["rel"][0],
+        "worst_outside_backbone": worst["rel"][1], "tol": OETR_GRAD_TOL,
+        "min_backbone_grad_cosine": worst["cos"][0],
+        "worst_backbone_cosine_parameter": worst["cos"][1],
+        "backbone_cosine_min": OETR_BACKBONE_COS, "dropout": 0.0}
+    del off, ref, runs
+
+    # (3) Every loss switch on.
+    every = make_train_step(cycle=True, full_cycle=True,
+                            aux_match_weight=1.0, heatmap_weight=1.0,
+                            size_weight=1.0, reweight_power=1.0)
+    reset_counts(ops)
+    on, m_every = every(on, batches[2], gen(82))
+    torch.cuda.synchronize()
+    every_launches = launch_counts(ops)
+    if every_launches != want or not finite(m_every):
+        raise AssertionError(f"train, every loss: launches "
+                             f"{every_launches}, losses {m_every}")
+    fields["every_loss_switch"] = {
+        "switches": "full_cycle, aux_match 1.0, heatmap 1.0, size_loss 1.0, "
+                    "reweight 1.0",
+        "losses": {k: v.item() for k, v in m_every.items()}}
+
+    # (4) Times: five steps after two warm-ups; then a trace.
+    g = gen(83)
+    seen = []
+
+    def call():
+        _, m = step(on, batches[0], g)
+        seen.append(m)
+
+    torch.cuda.reset_peak_memory_stats()
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=False):
+        ms = time_ms(torch, call, reps=5, warmup=2)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        stats = traced_stats(torch, call, names=("linear_encoder_kernel",
+                                                 "gn_apply_pool_kernel"))
+    if not all(finite(m) for m in seen):
+        raise AssertionError("train: a timed step's loss is not finite")
+    if (stats["dtoh_copies_per_call"] != 0
+            or stats["linear_encoder_kernel_per_call"] != 32
+            or stats["gn_apply_pool_kernel_per_call"] != 1):
+        raise AssertionError(f"train, traced step: {stats}")
+    fields["timing"] = {"cudnn": "default (not deterministic, no autotune)",
+                        "ms_per_step": ms, "pairs_per_s": b / ms * 1e3,
+                        "peak_mem_gb": peak_gb, "steps": len(seen),
+                        "traced_per_step": stats}
+    del on, seen
+
+    # (5) Checkpoint and resume: the same bits as the uninterrupted run.
+    def run(st, i):
+        return step(st, batches[i], gen(90 + i))[0]
+
+    a = fresh(cfg_on, 3)
+    for i in range(3):
+        a = run(a, i)
+    bst = fresh(cfg_on, 3)
+    for i in range(2):
+        bst = run(bst, i)
+    with tempfile.TemporaryDirectory() as tmp:
+        save_checkpoint(tmp, bst)
+        del bst
+        c = run(load_checkpoint(tmp, 2, fresh(cfg_on, 4)), 2)
+    sa, sc = a.model.state_dict(), c.model.state_dict()
+    equal = all(torch.equal(sa[k], sc[k]) for k in sa)
+    diff = max((sa[k] - sc[k]).abs().max().item() for k in sa)
+    if not (equal and a.step == c.step == 3):
+        raise AssertionError(f"train resume: bit-equal {equal}, max diff "
+                             f"{diff}, steps {a.step} / {c.step}")
+    fields["resume"] = {"saved_at_step": 2, "compared_at_step": 3,
+                        "bit_equal": equal, "max_abs_diff": diff}
+    del a, c, sa, sc
+    torch.cuda.empty_cache()
+    return fields, launches
 
 
 def main() -> int:
@@ -2133,6 +2427,14 @@ def main() -> int:
     # the card against the CPU, then the scenes' matches scored.
     fields, eigh_row = run_pose(torch, port, ops, scenes)
     phase("pose", **fields)
+    failed = [f"pose: {f}" for f in fields["failures"]]
+    del scenes
+    torch.cuda.empty_cache()
+
+    # Path 9, OETR training: the flagship's train step in f32 through K2
+    # and K3 (their backward: autograd of the plain functions).
+    fields, train_launches = run_train(torch, port, ops)
+    phase("train", **fields)
 
     phase("kernels", ported=["linear_attention_cuda<-K1",
                              "linear_encoder_attention<-K2",
@@ -2165,7 +2467,8 @@ def main() -> int:
              f"{pallas}:289", attn["flash", main_dtype, 400, "none"],
              "full")):
         by_path = {p: n for p, n in ((path, launches[name]),
-                                     ("dense", dense_launches[name])) if n}
+                                     ("dense", dense_launches[name]),
+                                     ("train", train_launches[name])) if n}
         row = {"name": name, "route": "cuda", "source": src,
                "replaces": replaces, "launches": sum(by_path.values()),
                "max_abs_err": res["max_abs_err"],
@@ -2195,6 +2498,9 @@ def main() -> int:
         raise RuntimeError(f"over the {BUDGET_S:.0f} s budget")
     print(json.dumps({"kernels": table}), flush=True)
     print(smi, flush=True)
+    if failed:
+        print(f"chip_smoke: out of bounds: {failed}", file=sys.stderr)
+        return 1
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

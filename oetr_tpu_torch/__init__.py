@@ -1,7 +1,8 @@
-"""PyTorch + CUDA port of oetr_tpu: the OETR forward, the overlap-guided
-sparse (SuperPoint + SuperGlue) and dense (LoFTR) matching pipelines, the
-on-device synthetic scene and homography pair generators, two-view pose
-estimation and the benchmark evaluation.
+"""PyTorch + CUDA port of oetr_tpu: the OETR forward and its trainer
+(``oetr_tpu_torch.training``), the overlap-guided sparse (SuperPoint +
+SuperGlue) and dense (LoFTR) matching pipelines, the on-device synthetic
+scene and homography pair generators, two-view pose estimation and the
+benchmark evaluation.
 
 The package stands alone: it imports torch and numpy, never JAX or the
 ``oetr_tpu`` package, so it runs where only torch is installed (the
@@ -15,8 +16,8 @@ the other geometry functions run where their tensors lie;
 ``validation_error`` and the benchmark harnesses take numpy and run the
 estimator on the card unless the caller passes ``device="cpu"``.
 """
-from .config import (BackboneConfig, NeckConfig, OETRConfig,
-                     oetr_fc_r50_config, oetr_r50_config,
+from .config import (BackboneConfig, LossConfig, NeckConfig, OETRConfig,
+                     TrainConfig, oetr_fc_r50_config, oetr_r50_config,
                      oetr_r50_kernels_config, replace)
 from .data import make_device_generator, make_homography_pair_generator
 from .evalx import pose_auc, validation_error
@@ -27,7 +28,8 @@ from .models import (OETR, LoFTR, SuperGlue, SuperPoint, build_loftr,
                      decode_boxes)
 from .pipelines import DensePipeline, PipelineConfig, SparsePipeline
 
-__all__ = ["BackboneConfig", "NeckConfig", "OETRConfig", "oetr_fc_r50_config",
+__all__ = ["BackboneConfig", "LossConfig", "NeckConfig", "OETRConfig",
+           "TrainConfig", "oetr_fc_r50_config",
            "oetr_r50_config", "oetr_r50_kernels_config", "replace", "OETR",
            "build_oetr", "decode_boxes", "SuperGlue", "SuperPoint",
            "build_superglue",

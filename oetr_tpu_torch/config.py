@@ -1,11 +1,12 @@
 """Configuration dataclasses of the port.
 
 Own copies of the fields of ``oetr_tpu/config.py`` that the ported OETR
-forward reads: the port imports nothing of the JAX package. The fields the
-port has carry the JAX names and defaults. It lacks these JAX fields, and a
-config that sets one raises a ``TypeError`` here: ``BackboneConfig.norm``
-and ``BackboneConfig.stem_s2d``, ``OETRConfig.loss`` (``LossConfig``), and
-``TrainConfig``. The attention kinds differ in their kernel suffixes (see
+forward and trainer read: the port imports nothing of the JAX package. The
+fields the port has carry the JAX names and defaults. It lacks these JAX
+fields, and a config that sets one raises a ``TypeError`` here:
+``BackboneConfig.norm``, ``BackboneConfig.stem_s2d`` and
+``TrainConfig.data_axis`` (the mesh's data axis: the trainer runs on one
+device). The attention kinds differ in their kernel suffixes (see
 ``NeckConfig``).
 """
 from __future__ import annotations
@@ -42,14 +43,37 @@ class NeckConfig:
 
 
 @dataclass(frozen=True)
+class LossConfig:
+    oiou: bool = False
+    cycle_overlap: bool = False
+    focal_alpha: float = 0.25
+    focal_gamma: float = 2.0
+
+
+@dataclass(frozen=True)
 class OETRConfig:
     backbone: BackboneConfig = field(default_factory=BackboneConfig)
     neck: NeckConfig = field(default_factory=NeckConfig)
+    loss: LossConfig = field(default_factory=LossConfig)
     dtype: str = "float32"          # compute dtype: 'float32' | 'bfloat16'
 
     @property
     def d_model(self) -> int:
         return self.neck.d_model
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    batch_size: int = 8             # pairs a step
+    image_size: tuple[int, int] = (640, 640)
+    epochs: int = 35
+    lr: float = 1e-4
+    weight_decay: float = 1e-2
+    lr_milestones: tuple[int, ...] = (15, 30)   # epochs (MultiStepLR)
+    lr_gamma: float = 0.1
+    pairs_per_epoch: int = 128_000
+    seed: int = 42
+    checkpoint_dir: str = "checkpoints"
 
 
 def replace(cfg, **kwargs):

@@ -1,7 +1,11 @@
-"""The port's data: on-device synthetic pairs, and pair-list parsing."""
+"""The port's data: on-device synthetic pairs, pair-list parsing, and the
+MegaDepth training pairs with their ground-truth boxes on the host."""
 from .device_synth import (make_device_generator,
                            make_homography_pair_generator)
+from .gt import overlap_bbox_np
+from .megadepth import MegaDepthPairsDataset
 from .pairs import EvalPair, PairRecord, load_eval_pairs, load_pairs
 
 __all__ = ["make_device_generator", "make_homography_pair_generator",
-           "EvalPair", "PairRecord", "load_eval_pairs", "load_pairs"]
+           "overlap_bbox_np", "MegaDepthPairsDataset", "EvalPair",
+           "PairRecord", "load_eval_pairs", "load_pairs"]

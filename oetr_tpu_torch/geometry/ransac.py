@@ -4,7 +4,8 @@
 The estimator evaluates a fixed budget of minimal hypotheses at once,
 scores each against every correspondence with a masked Sampson residual,
 refits the best on their inliers (LO-RANSAC), refines them by Gauss-Newton
-on the essential manifold, and picks the winner by cheirality-checked
+on the essential manifold (in float64; float32 keeps them, as JAX's float32
+refinement does), and picks the winner by cheirality-checked
 MSAC score; ``estimate_pose`` adds the planar and plane-and-parallax
 fallback. Static shapes throughout, as in JAX.
 
@@ -147,7 +148,16 @@ def refine_pose_sampson(R: torch.Tensor, t: torch.Tensor,
     outside inference mode: under ``torch.inference_mode`` forward-mode AD
     is off, and torch (2.11) returns zero tangents without a word, which
     would leave (R, t) where they started.
+
+    In float32 it returns (R, t) as they are, which is what JAX's float32
+    refinement returns: its ``jax.jacfwd`` Jacobian through ``so3_exp``
+    (``oetr_tpu/geometry/ransac.py:137``, ``:75``) forms (1 - cos θ)/θ² at
+    θ = 1e-12, whose θ⁻⁴ overflows float32, so the whole Jacobian is NaN
+    and every step is rejected. Float64 takes the Gauss-Newton steps, as
+    JAX's does under x64.
     """
+    if R.dtype == torch.float32:
+        return R, t
     batch = R.shape[:-2]
     n = kpts0n.shape[-2]
     k0 = kpts0n.expand(batch + (n, 2))

@@ -75,10 +75,14 @@ class PatchMerging(nn.Module):
 class OETR(nn.Module):
     """Overlap-box predictor over an image pair.
 
-    forward(image1, image2, mask1=None, mask2=None): images [B, H, W, 3];
-    masks [B, hf, wf] bool at feature resolution (True = valid). Returns a
-    dict of pred_bbox1/2 [B, 4], center1/2 [B, 2], tlbr1/2 [B, 4],
-    prob_map1/2 [B, N] (float32) and mem1/2 [B, N, d] (float32).
+    forward(image1, image2, mask1=None, mask2=None, with_cycle=False,
+    generator=None): images [B, H, W, 3]; masks [B, hf, wf] bool at feature
+    resolution (True = valid). Returns a dict of pred_bbox1/2 [B, 4],
+    center1/2 [B, 2], tlbr1/2 [B, 4], prob_map1/2 [B, N] (float32) and
+    mem1/2 [B, N, d] (float32); with ``with_cycle`` also cycle_center1/2
+    [B, 2], the centres re-estimated with the other image's query. In
+    training mode the decoder's dropout draws its masks from ``generator``
+    (a generator on the images' device).
     """
 
     def __init__(self, cfg: OETRConfig):
@@ -126,7 +130,9 @@ class OETR(nn.Module):
         center = torch.sum(prob * grid, dim=1)
         return center, prob[..., 0]
 
-    def forward(self, image1, image2, mask1=None, mask2=None):
+    def forward(self, image1, image2, mask1=None, mask2=None,
+                with_cycle: bool = False,
+                generator: torch.Generator | None = None):
         cfg = self.cfg
         d = cfg.neck.d_model
         h1, w1 = image1.shape[1:3]
@@ -150,7 +156,8 @@ class OETR(nn.Module):
         m2 = mask2.reshape(b, hf2 * wf2) if mask2 is not None else None
 
         hs1, hs2, mem1, mem2 = self.transformer(
-            t1, t2, self.query_embed1, self.query_embed2, p1, p2, m1, m2)
+            t1, t2, self.query_embed1, self.query_embed2, p1, p2, m1, m2,
+            generator)
 
         center1, prob1 = self.center_estimation(hs1, mem1, hf1, wf1, h1, w1, m1)
         center2, prob2 = self.center_estimation(hs2, mem2, hf2, wf2, h2, w2, m2)
@@ -160,7 +167,7 @@ class OETR(nn.Module):
             return torch.sigmoid(y.float())[:, 0]
 
         tlbr1, tlbr2 = tlbr(hs1), tlbr(hs2)
-        return {
+        out = {
             "pred_bbox1": box_tlbr_to_xyxy(center1, tlbr1, h1, w1),
             "pred_bbox2": box_tlbr_to_xyxy(center2, tlbr2, h2, w2),
             "center1": center1, "center2": center2,
@@ -168,6 +175,24 @@ class OETR(nn.Module):
             "prob_map1": prob1, "prob_map2": prob2,
             "mem1": mem1.float(), "mem2": mem2.float(),
         }
+        if with_cycle:
+            # Cycle consistency: the centres with the queries swapped.
+            out["cycle_center1"], _ = self.center_estimation(
+                hs2, mem1, hf1, wf1, h1, w1, m1)
+            out["cycle_center2"], _ = self.center_estimation(
+                hs1, mem2, hf2, wf2, h2, w2, m2)
+        return out
+
+    def predict_boxes(self, image1, image2, mask1=None, mask2=None):
+        """(pred_bbox1, pred_bbox2), clamped xyxy, from a forward in eval
+        mode (no dropout) whatever the model's mode; the mode is restored."""
+        training = self.training
+        self.eval()
+        try:
+            out = self(image1, image2, mask1, mask2)
+        finally:
+            self.train(training)
+        return out["pred_bbox1"], out["pred_bbox2"]
 
 
 def decode_boxes(out: dict, image_hw1: tuple[int, int],
@@ -205,7 +230,8 @@ def decode_boxes(out: dict, image_hw1: tuple[int, int],
 
 def build_oetr(cfg: OETRConfig | None = None, device="cuda",
                generator: torch.Generator | None = None) -> OETR:
-    """Build OETR on ``device`` in eval mode.
+    """Build OETR on ``device`` in eval mode (a trainer switches it to
+    ``train()``).
 
     Parameters are drawn from ``generator`` (a CPU ``torch.Generator``;
     seed 0 when None), so a seed gives the same weights on every device.

@@ -124,9 +124,32 @@ class MultiHeadAttention(nn.Module):
         return self.merge(out.reshape(b, n, self.d_model))
 
 
+class Dropout(nn.Module):
+    """flax's ``nn.Dropout``: in training mode each element is kept with
+    probability 1 - rate and scaled by 1 / (1 - rate), else zeroed; in
+    eval mode (or at rate 0) the identity. The masks are drawn from the
+    ``torch.Generator`` the caller passes (on the input's device), never
+    from torch's global generator, as JAX takes a dropout key per step."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x, generator: torch.Generator | None = None):
+        if not self.training or self.rate == 0.0:
+            return x
+        if generator is None:
+            raise ValueError("dropout in training mode draws its masks from "
+                             "a torch.Generator: pass the step's generator")
+        keep = 1.0 - self.rate
+        mask = torch.rand(x.shape, generator=generator,
+                          device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
 class DecoderLayer(nn.Module):
-    """Query decoder layer: self-attn + cross-attn + ReLU MLP. Inference
-    only: the reference's dropout is the identity here."""
+    """Query decoder layer: self-attn + cross-attn + ReLU MLP, with dropout
+    (rate 0.1) on the two attention residuals, not on the MLP's."""
 
     def __init__(self, d_model: int, nhead: int, attention: str, dtype):
         super().__init__()
@@ -137,17 +160,19 @@ class DecoderLayer(nn.Module):
         self.norm3 = LayerNorm(d_model, dtype)
         self.Dense_0 = Dense(d_model, 2 * d_model, False, dtype)
         self.Dense_1 = Dense(2 * d_model, d_model, False, dtype)
+        self.dropout = Dropout(0.1)
 
     def forward(self, tgt, memory, memory_mask=None, tgt_pos=None,
-                m_pos=None):
+                m_pos=None, generator=None):
         tgt2 = self.norm1(tgt)
         qk = tgt2 if tgt_pos is None else tgt2 + tgt_pos
-        tgt = tgt + self.self_attn(qk, qk, tgt2)
+        tgt = tgt + self.dropout(self.self_attn(qk, qk, tgt2), generator)
 
         tgt2 = self.norm2(tgt)
         q = tgt2 if tgt_pos is None else tgt2 + tgt_pos
         k = memory if m_pos is None else memory + m_pos
-        tgt = tgt + self.cross_attn(q, k, memory, kv_mask=memory_mask)
+        tgt = tgt + self.dropout(
+            self.cross_attn(q, k, memory, kv_mask=memory_mask), generator)
 
         tgt2 = self.Dense_0(self.norm3(tgt))
         return tgt + self.Dense_1(F.relu(tgt2))
@@ -156,7 +181,8 @@ class DecoderLayer(nn.Module):
 class QueryTransformer(nn.Module):
     """Joint encoder over both images + per-image query decoder (the two
     images share the decoder's weights). Returns (hs0, hs1, memory0,
-    memory1): query embeddings [B, 1, C] and encoded tokens [B, N, C]."""
+    memory1): query embeddings [B, 1, C] and encoded tokens [B, N, C].
+    ``generator`` draws the decoder's dropout masks in training mode."""
 
     def __init__(self, d_model: int = 256, nhead: int = 8,
                  num_layers: int = 4, num_decoder_layers: int = 2,
@@ -175,7 +201,7 @@ class QueryTransformer(nn.Module):
                             DecoderLayer(d_model, nhead, attention, dtype))
 
     def forward(self, feat0, feat1, query_embed0, query_embed1, pos0, pos1,
-                mask0=None, mask1=None):
+                mask0=None, mask1=None, generator=None):
         b = feat0.shape[0]
         q0 = query_embed0[None].expand(b, *query_embed0.shape).to(self.dtype)
         q1 = query_embed1[None].expand(b, *query_embed1.shape).to(self.dtype)
@@ -192,7 +218,7 @@ class QueryTransformer(nn.Module):
             tgt = torch.zeros_like(tgt_pos)
             for i in range(self.num_decoder_layers):
                 tgt = getattr(self, f"dec_{i}")(tgt, memory, memory_mask,
-                                                tgt_pos, m_pos)
+                                                tgt_pos, m_pos, generator)
             return tgt
 
         hs0 = run_decoder(q0, feat0, mask0, pos0)

@@ -24,10 +24,26 @@ where the CPU run parts from the card's; the last line the largest gaps:
 
 For each refinement it also runs Gauss-Newton from the card's start on both
 devices, one step more each time, and gives the first step whose accept
-differs (``gn_flips``: [candidate, step]).
+differs (``gn_flips``: [candidate, step]). It runs them in float64: the
+float32 refinement returns its input, as JAX's does, so in the estimator's
+float32 the refinement stages part only where their starts do.
 
     python -m oetr_tpu_torch.pose_parting [--problems 5] [--pairs 3]
         [--true 200] [--slots 256]
+
+``--spread`` needs no card: it measures the float32 estimator's own spread
+on the CPU, where only the eigensolvers' rounding changes. The same
+problems and draws run twice: with LAPACK's float32 routines (ssyevd,
+sgesdd: the CPU path, JAX's bits) and with its float64 ones (dsyevd,
+dgesdd) on the float64 copy of each input, rounded back to float32. A line
+per problem gives each pair's gap (|Δerr_R|, |Δerr_t| in degrees, the
+inlier counts' relative gap); the last line counts the cases (a problem, 5-point
+stage off or on) whose largest gap is beyond 0.25° or 1%, the bound that
+held the card to the CPU while the float32 refinement moved. At
+``chip_smoke.py``'s pose size:
+
+    python -m oetr_tpu_torch.pose_parting --spread --problems 8 --pairs 8
+        --true 1400 --slots 2048
 """
 from __future__ import annotations
 
@@ -80,6 +96,69 @@ def recorded(replay=None):
         for name in HOOKED:
             setattr(ransac, name, real[name])
         homography.eigh = real_h_eigh
+
+
+@contextlib.contextmanager
+def wide_lapack():
+    """The estimator's eigh and svd3 from LAPACK's float64 routines on the
+    float64 copy of each input, rounded back to the input's dtype: the same
+    functions, another rounding (CPU tensors)."""
+    from .ops import small_eigh
+
+    def eigh(A):
+        return tuple(x.to(A.dtype) for x in small_eigh.eigh(A.double()))
+
+    def svd3(A):
+        return tuple(x.to(A.dtype) for x in small_eigh.svd3(A.double()))
+
+    real = ransac.eigh, ransac.svd3, homography.eigh
+    ransac.eigh = homography.eigh = eigh
+    ransac.svd3 = svd3
+    try:
+        yield
+    finally:
+        ransac.eigh, ransac.svd3, homography.eigh = real
+
+
+def parting(T, a, b):
+    """Per pair, how far result a lies from result b (estimate_pose's, on
+    the problems' truth T): max(|Δerr_R|, |Δerr_t|) in degrees, and
+    |Δnum_inliers| relative to b's; CPU tensors."""
+    (et_a, eR_a), (et_b, eR_b) = (pose_error(T, r["R"].cpu(), r["t"].cpu())
+                                  for r in (a, b))
+    n_a, n_b = a["num_inliers"].cpu(), b["num_inliers"].cpu()
+    return (torch.maximum((eR_a - eR_b).abs(), (et_a - et_b).abs()),
+            (n_a - n_b).abs().float() / n_b.clamp(min=1).float())
+
+
+def spread(args) -> int:
+    """``--spread``: the float32 estimator on the CPU with LAPACK's float32
+    routines against its float64 ones (``wide_lapack``), on the same
+    problems and draws."""
+    cases = beyond = 0
+    worst = {"deg": 0.0, "inliers_rel": 0.0}
+    for problem in range(args.problems):
+        d = general_pose_pairs(args.pairs,
+                               torch.Generator().manual_seed(43 + problem),
+                               n_true=args.true, n_slots=args.slots)
+        for use_5pt in (False, True):
+            plain, _, drawn = run(d, "cpu", use_5pt, 46)
+            with wide_lapack():
+                wide, _, _ = run(d, "cpu", use_5pt, 46, drawn)
+            deg, rel = parting(d["T_0to1"], wide, plain)
+            cases += 1
+            beyond += bool(deg.max() > 0.25 or rel.max() > 0.01)
+            worst["deg"] = max(worst["deg"], deg.max().item())
+            worst["inliers_rel"] = max(worst["inliers_rel"], rel.max().item())
+            print(json.dumps({"problem": 43 + problem, "use_5pt": use_5pt,
+                              "inliers": plain["num_inliers"].tolist(),
+                              "wide_inliers": wide["num_inliers"].tolist(),
+                              "gap_deg": deg.tolist(),
+                              "inliers_rel": rel.tolist()}), flush=True)
+    print(json.dumps({"spread": {"cases": cases,
+                                 "beyond_0.25deg_or_1pct": beyond,
+                                 "worst": worst}}), flush=True)
+    return 0
 
 
 def run(d, device, use_5pt, seed, replay_draws=None, replay=None):
@@ -144,10 +223,12 @@ def same(a, b, pair):
 
 
 def gn_flips(card_log, k):
-    """Gauss-Newton from the card's start of refinement ``k`` on the card
-    and on the CPU, 1 to 15 steps: per pair, the first (candidate, step)
-    whose accept (R moved) differs, or None."""
-    args, _ = card_log["refine_pose_sampson"][k]
+    """Gauss-Newton in float64 from the card's start of refinement ``k``
+    on the card and on the CPU, 1 to 15 steps: per pair, the first
+    (candidate, step) whose accept (R moved) differs, or None."""
+    wide = lambda a: (a.double() if torch.is_tensor(a)
+                      and a.is_floating_point() else a)
+    args = tuple(wide(a) for a in card_log["refine_pose_sampson"][k][0])
     cpu_args = tuple(a.cpu() if torch.is_tensor(a) else a for a in args)
     prev = {"card": args[0], "cpu": cpu_args[0]}
     flips = [None] * args[0].shape[0]
@@ -171,7 +252,11 @@ def main(argv=None) -> int:
     ap.add_argument("--pairs", type=int, default=3)
     ap.add_argument("--true", type=int, default=200)
     ap.add_argument("--slots", type=int, default=256)
+    ap.add_argument("--spread", action="store_true",
+                    help="the float32 estimator's own spread, on the CPU")
     args = ap.parse_args(argv)
+    if args.spread:
+        return spread(args)
     if not torch.cuda.is_available():
         raise SystemExit("pose_parting: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -204,10 +289,9 @@ def main(argv=None) -> int:
                                   and not same(want[s], got[s], pair)), None)
                     parted.append(first)
                 et, eR = errors(res)
-                gap = max((et - et_g).abs().max().item(),
-                          (eR - eR_g).abs().max().item())
+                deg, rel = parting(d["T_0to1"], card, res)
+                gap, rel = deg.max().item(), rel.max().item()
                 n = res["num_inliers"]
-                rel = ((n - n_g).abs() / n.clamp(min=1)).max().item()
                 worst[name]["deg"] = max(worst[name]["deg"], gap)
                 worst[name]["inliers_rel"] = max(worst[name]["inliers_rel"],
                                                  rel)

@@ -78,7 +78,8 @@ CATEGORIES = (
     ("K5 full_attention", ("16, false>", "32, false>", "64, false>")),
     ("K6 flash_attention", ("16, true>", "32, true>", "64, true>")),
     ("small eigh (Jacobi)", ("sym_eigh_kernel",)),
-    ("convolution", ("conv", "fprop", "implicit", "dgrad", "nhwc", "nchw")),
+    ("convolution", ("conv", "fprop", "implicit", "dgrad", "wgrad", "nhwc",
+                     "nchw")),
     ("matmul", ("gemm", "cutlass", "cublas", "xmma")),
     ("softmax", ("softmax",)),
     ("norm statistics", ("norm", "moments", "welford", "rowwise")),
@@ -87,14 +88,20 @@ CATEGORIES = (
     ("elementwise / copy", ("elementwise", "copy", "cat", "vectorized")),
 )
 # A torch.profiler trace on the H100 can miss the first device events of
-# the calls it traces (the first 2 of a trace, LoFTR's first convolution
-# and copy, in chip_smoke.py's runs). So a trace starts with PADS sleep
-# kernels, which absorb what it misses; their events are left out by name.
-PADS, PAD_KERNEL = 4, "spin_kernel"
+# the calls it traces: the first 2 of a trace (LoFTR's first convolution
+# and copy, in chip_smoke.py's runs), and late in a long run the first
+# kernel after 4 pads (the first of 3 pose calls, in every trace; the
+# host launched it, 4,062 launches against 4,061 events). The count, not
+# the time, is what it misses: pads of 1 ms in all did not help, and a
+# trace of 3 train steps missed all of 16 pads. So a trace starts with
+# PADS sleep kernels, which absorb what it misses, and ends with them
+# too; their events are left out by name (chip_smoke.traced_stats
+# reports how many it missed).
+PADS, PAD_KERNEL = 64, "spin_kernel"
 
 
 def pad_trace() -> None:
-    """Launch the PADS sleep kernels that open a trace."""
+    """Launch the PADS sleep kernels that open (and close) a trace."""
     for _ in range(PADS):
         torch.cuda._sleep(1000)
 
@@ -397,6 +404,8 @@ def main(argv=None) -> int:
                 call()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3 / n
+            pad_trace()
+            torch.cuda.synchronize()
 
     kernels, ranges = device_events(prof)
     spans = [(e.time_range.start, e.time_range.end, e.name) for e in ranges]

@@ -8,9 +8,9 @@ numbers, the port draws JAX's: its one draw function, ``draws.gumbel``,
 returns ``jax.random.gumbel`` of the stage's key (the splits of
 ``oetr_tpu/geometry/ransac.py:208,441``) at the shape asked for. JAX runs
 with x64 off, as in production, where its Gauss-Newton refinement never
-moves (``tests/test_torch_port_pose.py``); so the port's refinement is held
-still in every comparison of pose errors with JAX. The last tests run the
-port's harness on its own draws, with its refinement, against ground truth.
+moves (``tests/test_torch_port_pose.py``), and the port's float32
+refinement returns its input likewise. The last tests run the port's
+harness on its own draws against ground truth.
 
 Bounds:
   metrics, trajectory, hpatches           1e-12
@@ -52,7 +52,6 @@ from oetr_tpu_torch.evalx import metrics as pmetrics
 from oetr_tpu_torch.evalx import trajectory as ptrajectory
 from oetr_tpu_torch.evalx import twoview as ptwoview
 from oetr_tpu_torch.geometry import draws
-from oetr_tpu_torch.geometry import ransac as pr
 from oetr_tpu_torch.utils import h5io as ph5io
 
 torch.set_num_threads(2)
@@ -101,12 +100,6 @@ def jax_draws(monkeypatch):
             return torch.from_numpy(np.array(g))
         monkeypatch.setattr(draws, "gumbel", gumbel)
     return install
-
-
-@pytest.fixture
-def gn_still(monkeypatch):
-    monkeypatch.setattr(pr, "refine_pose_sampson",
-                        lambda R, t, *args, **kwargs: (R, t))
 
 
 # ----------------------------------------------------------- metrics --
@@ -289,7 +282,7 @@ VALIDATION = {
 
 
 @pytest.mark.parametrize("case", sorted(VALIDATION))
-def test_validation_error_matches_jax(case, jax_draws, gn_still):
+def test_validation_error_matches_jax(case, jax_draws):
     kw, keep, with_ip = VALIDATION[case]
     k0, k1, K, T = _pair_case(np.random.default_rng(6), **kw)
     m = np.stack([np.arange(len(k0)), np.arange(len(k0))])[:, keep]
@@ -447,7 +440,7 @@ def _scene(tmp_path, dataset, n_pairs, seed):
     return str(pairs_file), str(results)
 
 
-def test_megadepth_harness_matches_jax(tmp_path, jax_draws, gn_still):
+def test_megadepth_harness_matches_jax(tmp_path, jax_draws):
     pairs_file, results = _scene(tmp_path, "mega", 4, seed=11)
     with jax.enable_x64(False):
         want = jmegadepth.benchmark_results(pairs_file, results)
@@ -459,7 +452,7 @@ def test_megadepth_harness_matches_jax(tmp_path, jax_draws, gn_still):
     assert table == jmegadepth.summary_table({"m": got})
 
 
-def test_imc_harness_matches_jax(tmp_path, jax_draws, gn_still):
+def test_imc_harness_matches_jax(tmp_path, jax_draws):
     pairs_file, results = _scene(tmp_path, "phototourism-val", 3, seed=12)
     rule = pimc.dynamic_threshold_for("oetr_superglue")
     assert rule == jimc.dynamic_threshold_for("oetr_superglue") == "sg"
@@ -501,8 +494,8 @@ def test_hpatches_harness_matches_jax():
 
 
 def test_megadepth_harness_recovers_poses(tmp_path):
-    """The port's harness on its own draws, its refinement running: the
-    JAX harness test's bounds (tests/test_eval_harness.py)."""
+    """The port's harness on its own draws: the JAX harness test's bounds
+    (tests/test_eval_harness.py)."""
     pairs_file, results = _scene(tmp_path, "mega", 4, seed=14)
     aucs, prec, ms = pmegadepth.benchmark_results(pairs_file, results,
                                                   device="cpu")

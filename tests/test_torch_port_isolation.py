@@ -4,9 +4,9 @@ The port must start where only torch is installed: the machine with the
 CUDA card lacks flax and orbax, which the JAX package's models and
 checkpoints need, and h5py and cv2. A child interpreter refuses jax,
 jaxlib, flax, optax, orbax, oetr_tpu, h5py and cv2, then imports every
-module of the port (the geometry, the evaluation package, the h5 utilities
-and the pair lists among them) and ``chip_smoke``, and runs a small
-forward on the CPU.
+module of the port (the geometry, the evaluation package, the h5 utilities,
+the pair lists, the trainer and the MegaDepth dataset among them) and
+``chip_smoke``, and runs a small forward on the CPU.
 """
 import os
 import re
@@ -31,7 +31,13 @@ MUST_LIST = ("oetr_tpu_torch.geometry.ransac",
              "oetr_tpu_torch.evalx.megadepth", "oetr_tpu_torch.evalx.imc",
              "oetr_tpu_torch.evalx.hpatches", "oetr_tpu_torch.evalx.datasets",
              "oetr_tpu_torch.evalx.metrics", "oetr_tpu_torch.evalx.trajectory",
-             "oetr_tpu_torch.utils.h5io", "oetr_tpu_torch.data.pairs")
+             "oetr_tpu_torch.utils.h5io", "oetr_tpu_torch.data.pairs",
+             "oetr_tpu_torch.training", "oetr_tpu_torch.training.losses",
+             "oetr_tpu_torch.training.train",
+             "oetr_tpu_torch.training.validation",
+             "oetr_tpu_torch.training.cli", "oetr_tpu_torch.data.gt",
+             "oetr_tpu_torch.data.megadepth",
+             "oetr_tpu_torch.utils.profiling")
 
 
 class Refuse:

@@ -12,11 +12,11 @@ Precision. JAX's estimator runs in float32 in production; there its
 Gauss-Newton refinement never moves: ``jax.jacfwd`` through so3_exp's
 (1 - cos θ)/θ² at θ = 1e-12 forms θ⁻⁴ = 1e48, inf in float32, and 0 * inf
 makes the whole Jacobian NaN, so every step is rejected
-(``test_jax_f32_gauss_newton_is_a_no_op``). Under x64 it works. The port's
-forward-mode Jacobian is finite in float32 and is JAX's x64 one. So the
-estimator is held to JAX twice: in float32 (x64 off, JAX's production
-arithmetic and draws) with the port's refinement held still, as JAX's is;
-and in float64 (x64 on) with the refinement running in both.
+(``test_jax_f32_gauss_newton_is_a_no_op``). Under x64 it works. The port
+copies this: its float32 refinement returns its input. So the estimator
+is held to JAX twice, each whole: in float32 (x64 off, JAX's production
+arithmetic and draws), where neither refinement moves, and in float64
+(x64 on), where both run.
 
 Bounds:
   epipolar functions, pose_error        1e-5 relative; angles 1e-4°
@@ -155,16 +155,6 @@ def feed(monkeypatch):
             return _t(a)
         monkeypatch.setattr(draws, "gumbel", gumbel)
     return install
-
-
-@pytest.fixture
-def gn_still(monkeypatch):
-    """The port's Gauss-Newton refinement held still, as JAX's float32
-    refinement is (module docstring)."""
-    def hold():
-        monkeypatch.setattr(pr, "refine_pose_sampson",
-                            lambda R, t, *args, **kwargs: (R, t))
-    return hold
 
 
 # ---------------------------------------------------------- epipolar --
@@ -489,9 +479,11 @@ def test_refine_pose_sampson_matches_jax_x64():
 
 
 def test_jax_f32_gauss_newton_is_a_no_op():
-    """The reference's fault, and the port's answer: in float32 JAX's
-    Jacobian of the refinement is NaN (so it never moves), the port's is
-    finite and equals JAX's float64 Jacobian."""
+    """The reference's fault, and the port's copy of it: in float32 JAX's
+    Jacobian of the refinement is NaN, so it never moves, and the port's
+    float32 refinement returns its input likewise. The port's residuals
+    have a finite float32 Jacobian equal to JAX's float64 one, which its
+    float64 refinement takes."""
     x0, x1, R0, t0, valid, _ = _refine_case(np.random.default_rng(14),
                                             np.float32)
     R, t, k0, k1 = R0[0], t0[0], x0[0], x1[0]
@@ -511,6 +503,9 @@ def test_jax_f32_gauss_newton_is_a_no_op():
             *map(jnp.asarray, (R, t, k0, k1)), jnp.float32((1 / 600) ** 2))
     assert np.isnan(J32).all()
     assert np.array_equal(np.asarray(R32), R)           # never moved
+    Rp, tp = pr.refine_pose_sampson(_t(R), _t(t), _t(k0), _t(k1),
+                                    (1 / 600) ** 2)
+    assert np.array_equal(_np(Rp), R) and np.array_equal(_np(tp), t)
     with jax.enable_x64(True):
         J64 = jac(*(jnp.asarray(a, jnp.float64) for a in (R, t, k0, k1, w)),
                   jnp.float64)
@@ -577,7 +572,7 @@ def _assert_same_pose(want, got, valid):
 
 @pytest.mark.parametrize("use_5pt", [False, True])
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
-def test_ransac_essential_matches_jax(use_5pt, dtype, feed, gn_still):
+def test_ransac_essential_matches_jax(use_5pt, dtype, feed):
     d = _general(20 + use_5pt)
     k0 = ((d["kpts0"][0] - 320) / 600).astype(dtype)
     k1 = ((d["kpts1"][0] - 320) / 600).astype(dtype)
@@ -593,8 +588,6 @@ def test_ransac_essential_matches_jax(use_5pt, dtype, feed, gn_still):
              "round2": jax.random.gumbel(rng2, (HYPS // 2, N)),
              "five_point": jax.random.gumbel(rng5, (32, N))}
     feed({k: np.asarray(v) for k, v in g.items()})
-    if dtype == np.float32:
-        gn_still()
     got = pr.ransac_essential(_t(k0), _t(k1), _t(valid), thr, None,
                               num_hypotheses=HYPS, use_5pt=use_5pt)
     got = {k: _np(v) for k, v in got.items()}
@@ -616,29 +609,27 @@ CASES = {
 @pytest.mark.parametrize("use_5pt", [False, True])
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_estimate_pose_matches_jax(case, dtype, use_5pt, feed, gn_still):
+def test_estimate_pose_matches_jax(case, dtype, use_5pt, feed):
     make, seed = CASES[case]
     d = make()
-    if dtype == np.float32:
-        gn_still()
     want, got = _run_both(d, seed, use_5pt, dtype, feed)
     _assert_same_pose(want, got, d["valid"])
     if case == "few_points":
         assert not got["ok"].any()
 
 
-def test_estimate_pose_full_defaults_match_jax(feed, gn_still):
+def test_estimate_pose_full_defaults_match_jax(feed):
     """JAX's defaults: 512 hypotheses, 8 LO candidates, the fallback."""
     d = _general(40, n_true=400, n_slots=512)
-    gn_still()
     want, got = _run_both(d, 40, None, np.float32, feed, hyps=512)
     _assert_same_pose(want, got, d["valid"])
 
 
 @pytest.mark.parametrize("use_5pt", [False, True])
 def test_estimate_pose_recovers_ground_truth(use_5pt):
-    """The port in float32 with its refinement, on its own draws: the JAX
-    tests' bounds at 200 points, 30% outliers (tests/test_ransac.py)."""
+    """The port in float32 (its refinement returns its input, as JAX's
+    does) on its own draws: the JAX tests' bounds at 200 points, 30%
+    outliers (tests/test_ransac.py)."""
     d = pf.general_pose_pairs(4, torch.Generator().manual_seed(50),
                               n_true=200, n_slots=N, hw=640, focal=600.0)
     res = pr.estimate_pose(d["kpts0"], d["kpts1"], d["valid"], d["K"],
@@ -711,11 +702,13 @@ def test_svd3_from_eigh_is_an_svd():
 
 def test_refine_pose_sampson_under_inference_mode():
     """A caller's inference_mode leaves the refinement as it is: the
-    Jacobian is taken outside it (torch 2.11 gives zero tangents inside)."""
+    Jacobian is taken outside it (torch 2.11 gives zero tangents inside).
+    In float64, where the refinement moves."""
     x0, x1, R0, t0, valid, _ = _refine_case(np.random.default_rng(18),
-                                            np.float32)
+                                            np.float64)
     args = (_t(R0), _t(t0), _t(x0), _t(x1),
-            torch.full((4,), (1 / 600) ** 2), _t(valid))
+            torch.full((4,), (1 / 600) ** 2, dtype=torch.float64),
+            _t(valid))
     R, t = pr.refine_pose_sampson(*args)
     with torch.inference_mode():
         Ri, ti = pr.refine_pose_sampson(*args)
@@ -755,3 +748,44 @@ def test_pose_parting_replays_and_reads_the_vote():
         if pr.VOTE_ROUTES[slot] == "E":
             e = log["ransac_essential"][0][1]
             assert torch.equal(want["R"][pair], e["R"][pair])
+
+
+def test_pose_parting_wide_lapack_and_spread(capsys):
+    """``pose_parting.wide_lapack`` gives the estimator the same eigh and
+    svd3 (LAPACK's float64 routines, rounded to float32): within float32's
+    rounding of the plain ones on well-conditioned matrices, and in the
+    input's dtype; ``parting`` is zero for a result against itself; and
+    ``--spread`` runs on the CPU, a line per problem and stage and the
+    count of cases beyond the bound last."""
+    import json
+
+    from oetr_tpu_torch import pose_parting
+    from oetr_tpu_torch.ops import small_eigh
+    rng = np.random.default_rng(18)
+    M = rng.normal(size=(32, 9, 9)).astype(np.float32)
+    A = _t(M @ np.swapaxes(M, -1, -2) + 9.0 * np.eye(9, dtype=np.float32))
+    B = _t(rng.normal(size=(32, 3, 3)).astype(np.float32))
+    with pose_parting.wide_lapack():
+        w, V = pr.eigh(A)
+        U, S, Vh = pr.svd3(B)
+        assert phom.eigh is pr.eigh
+    assert pr.eigh is small_eigh.eigh and pr.svd3 is small_eigh.svd3
+    assert all(x.dtype == torch.float32 for x in (w, V, U, S, Vh))
+    wl, _ = small_eigh.eigh(A)
+    _, Sl, _ = small_eigh.svd3(B)
+    assert _rel(w, wl) < 1e-5 and _rel(S, Sl) < 1e-5
+    assert _rel(A @ V, V * w[:, None, :]) < 1e-5
+    assert _rel(U @ torch.diag_embed(S) @ Vh, B) < 1e-5
+    d = _general(22, b=2)
+    k = {key: _t(v) for key, v in d.items()}
+    res = pr.estimate_pose(k["kpts0"], k["kpts1"], k["valid"], k["K"],
+                           k["K"], torch.Generator().manual_seed(5),
+                           num_hypotheses=HYPS, use_5pt=False)
+    deg, rel = pose_parting.parting(k["T_0to1"], res, res)
+    assert deg.shape == rel.shape == (2,)
+    assert not deg.any() and not rel.any()
+    assert pose_parting.main(["--spread", "--problems", "1", "--pairs", "1",
+                              "--true", "60", "--slots", "64"]) == 0
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    assert [x["use_5pt"] for x in lines[:2]] == [False, True]
+    assert lines[-1]["spread"]["cases"] == 2
