@@ -79,7 +79,19 @@ paths with seeded random weights:
     the kernels on against off (dropout off); a step with every loss
     switch on; ms a step, pairs/s, peak memory, traced K2 and K3 launches
     and device -> host copies (none) a step; and a checkpoint resumed to
-    the same bits.
+    the same bits;
+  * ``api``: the public matching API (``build_model``, ``get_matches``'s
+    helper below the image decode, ``get_pose``) at 832x832 canvases and
+    640x640 OETR passes, one pair a call, f32, seeded weights: SuperPoint +
+    SuperGlue + OETR through ``build_model``; the same models from the
+    registry with K2, K3 and K4 on (launches 16/1/1 a call, counted and
+    traced) against the switches off; D2-Net, R2D2 and ASLFeat with NN,
+    DISK with its brute-force matcher and with SuperGlue (DISK's); LoFTR
+    with OETR; COTR (``cotr_match``, 1024 queries on a 256x256 pair); each
+    with pairs/s, device time, idle share, the identity check (an image
+    against itself: matched keypoints within 1.5 px) and ``get_pose`` on
+    its matches; each extractor and COTR against the CPU at 256x256; and
+    ``get_pose`` against the homography generator's true H.
 K1's lines give its cluster (blocks per batch row and head), its grid and
 its device time at every cluster size.
 One JSON line per phase, each with ``t_s``, seconds since start, and
@@ -246,7 +258,7 @@ def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
 
 
 def trace_calls(torch, fn, reps: int, warmup: int = 1, sessions: int = 6,
-                select=None):
+                select=None, cpu: bool = True):
     """``reps`` calls of ``fn()`` in a torch.profiler trace, after
     ``warmup`` calls: (the profile, its device events (kernels, copies,
     sets; profile_forward.device_events leaves out the pad kernels that
@@ -257,15 +269,18 @@ def trace_calls(torch, fn, reps: int, warmup: int = 1, sessions: int = 6,
     so a trace where the count of events that ``select`` keeps (all by
     default) is 0 or not a multiple of ``reps`` missed some (seen once on
     the H100 in ~100 traces, and once in two traces in a row): it is
-    taken again, up to ``sessions`` traces in all."""
+    taken again, up to ``sessions`` traces in all. With ``cpu=False`` only
+    the device is traced (no CPU op events: a trace of thousands of
+    launches is processed in a fraction of the time)."""
     from oetr_tpu_torch.profile_forward import device_events, pad_trace
 
     select = select or (lambda evts: evts)
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    if cpu:
+        acts.insert(0, torch.profiler.ProfilerActivity.CPU)
     counts = []
     for taken in range(1, sessions + 1):
         with torch.profiler.profile(activities=acts) as prof:
@@ -1419,17 +1434,21 @@ def run_loftr(torch, port, ops):
 
 
 @contextlib.contextmanager
-def recorded_kernel_calls():
-    """Records every call OETR makes to K2's and K3's wrappers, as
+def recorded_kernel_calls(sinkhorn=False):
+    """Records every call OETR makes to K2's and K3's wrappers (and with
+    ``sinkhorn`` every call SuperGlue makes to the transport around K4:
+    K4's own wrapper counts its launches under its module name), as
     {wrapper name: [(args, kwargs, output), ...]}, passing each on. The
     tensors are copies taken at the call: a train step updates the
     parameters among the arguments in place after its forward."""
-    from oetr_tpu_torch.models import resnet, transformer
+    from oetr_tpu_torch.models import resnet, superglue, transformer
 
     calls = {}
-    sites = [(mod, name, getattr(mod, name)) for mod, name in (
-        (transformer, "linear_encoder_attention"),
-        (resnet, "groupnorm_relu_maxpool"))]
+    names = [(transformer, "linear_encoder_attention"),
+             (resnet, "groupnorm_relu_maxpool")]
+    if sinkhorn:
+        names.append((superglue, "log_optimal_transport"))
+    sites = [(mod, name, getattr(mod, name)) for mod, name in names]
 
     def recorder(name, fn):
         def call(*args, **kwargs):
@@ -1452,30 +1471,41 @@ def recorded_kernel_calls():
 
 
 def recorded_kernel_errors(torch, ops, calls, path="dense"):
-    """Each recorded output of K2 and K3 against the plain version on the
-    same inputs, at the kernel checks' tolerances (K2: 2 bf16 ulps or 1e-4,
-    K3: 1 ulp or 1e-5, of max(1, the plain output's largest magnitude)).
-    Returns {name: {"calls", "max_abs_err", "max_err_over_tol"}}; raises
-    where an output is outside its tolerance."""
+    """Each recorded output of K2, K3 and the transport with K4 against
+    the plain version on the same inputs, at the kernel checks' tolerances
+    (K2: 2 bf16 ulps or 1e-4, K3: 1 ulp or 1e-5, of max(1, the plain
+    output's largest magnitude); K4: ``k4_compare``'s). Returns {name:
+    {"calls", "input", "max_abs_err", "max_err_over_tol"}}; raises where
+    an output is outside its tolerance."""
+    plain_transport = lambda *args, **kwargs: ops.log_optimal_transport(
+        *args, **dict(kwargs, use_cuda=False))
     plain = {"linear_encoder_attention":
              (ops.linear_encoder_attention_reference, 2, 1e-4),
              "groupnorm_relu_maxpool":
-             (ops.groupnorm_relu_maxpool_reference, 1, 1e-5)}
+             (ops.groupnorm_relu_maxpool_reference, 1, 1e-5),
+             "log_optimal_transport": (plain_transport, None, None)}
     result = {}
     for name, recorded in calls.items():
         reference, ulps, rel = plain[name]
         errs, ratios = [], []
         for args, kwargs, out in recorded:
             ref = reference(*args, **kwargs).float()
-            err = (out.float() - ref).abs().max().item()
-            dtype_name = str(args[0].dtype).removeprefix("torch.")
-            tol = tolerance(dtype_name, ref.abs().max().item(), ulps, rel)
-            if tuple(out.shape) != tuple(ref.shape) or not err <= tol:
+            if tuple(out.shape) != tuple(ref.shape):
+                raise AssertionError(f"{name} on the {path} path: shape "
+                                     f"{tuple(out.shape)}")
+            if ulps is None:
+                err, ratio = k4_compare(torch, out, ref)
+            else:
+                err = (out.float() - ref).abs().max().item()
+                dtype_name = str(args[0].dtype).removeprefix("torch.")
+                ratio = err / tolerance(dtype_name, ref.abs().max().item(),
+                                        ulps, rel)
+            if not ratio <= 1.0:
                 raise AssertionError(f"{name} on the {path} path, input "
                                      f"{tuple(args[0].shape)}: max_abs_err "
-                                     f"{err} > tol {tol}")
+                                     f"{err}, {ratio:.2f} x its tolerance")
             errs.append(err)
-            ratios.append(err / tol)
+            ratios.append(ratio)
         result[name] = {"calls": len(recorded), "input": list(
             recorded[0][0][0].shape), "max_abs_err": max(errs),
             "max_err_over_tol": max(ratios)}
@@ -1813,15 +1843,15 @@ def eigh_row(torch, ops, A):
             "bound_ms": bnd, "bound_by": bound_by}
 
 
-def traced_stats(torch, fn, reps=3, names=()):
-    """Per call of ``fn()`` in a trace of ``reps`` calls (``trace_calls``):
-    wall ms, device busy ms (and by profile_forward's kernel categories),
-    the idle share, kernel launches (and those of the kernels whose names
-    hold each of ``names``), device -> host copies, and the CPU ops that
-    read a value back."""
+def traced_stats(torch, fn, reps=3, names=(), warmup=1, cpu=True):
+    """Per call of ``fn()`` in a trace of ``reps`` calls (``trace_calls``,
+    after ``warmup`` calls): wall ms, device busy ms (and by
+    profile_forward's kernel categories), the idle share, kernel launches
+    (and those of the kernels whose names hold each of ``names``), device
+    -> host copies, and (``cpu``) the CPU ops that read a value back."""
     from oetr_tpu_torch.profile_forward import PAD_KERNEL, PADS, category
 
-    prof, dev, wall, taken = trace_calls(torch, fn, reps)
+    prof, dev, wall, taken = trace_calls(torch, fn, reps, warmup, cpu=cpu)
     pads = sum(e.device_type == torch.autograd.DeviceType.CUDA
                and PAD_KERNEL in e.name for e in prof.events())
     by_category = collections.Counter()
@@ -2268,6 +2298,612 @@ def run_train(torch, port, ops):
     return fields, launches
 
 
+
+# -------------------------------------------------------------------- api --
+
+API_WARMUP, API_REPS = 2, 5
+API_SMALL_HW = 256           # card against CPU, per extractor and COTR
+API_COTR_HW = 256            # COTR's pair (its paper's input size)
+API_COTR_QUERIES = 1024
+API_PHASE_S = 40.0
+IDENTITY_PX = 1.5            # tests/test_runner_and_utils.py:70-73
+API_CPU_TOL = 1e-4           # dense scores (of the largest), descriptors
+API_KEYPOINTS_MIN = 0.99     # valid keypoints equal as sets, card vs CPU
+# Keypoint slots equal, card vs CPU. Rounding alone trades slots between
+# keypoints of near-equal scores: the phase reads the CPU's own trades on
+# images nudged by one f32 ulp (cpu_ulp_slots_equal) beside the card's.
+API_SLOTS_MIN = 0.98
+API_SG_SLOTS = 512           # SuperGlue card vs CPU: the first K slots
+API_SG_RTOL = 1e-4           # its log assignment, of max(1, |largest|)
+API_MATCH_MIN = 0.99         # NN / disk matches equal, valid keypoints
+API_TIE = 1e-5               # rows whose top two similarities are closer
+POSE_TRANSFER_PX = 1.0
+POSE_OUTLIERS = 0.3
+API_NN_COMBOS = (("d2net-ss", "NN"), ("r2d2-desc", "NN"),
+                 ("aslfeat-desc", "NN"), ("disk-desc", "disk"),
+                 ("disk-desc", "superglue_disk"))
+
+
+def api_images(torch, hw, seed):
+    """One scene pair of hw² from the port's generator, as a decoder gives
+    images: RGB float32 numpy [hw, hw, 3] in [0, 1]."""
+    from oetr_tpu_torch import profile_forward as pf
+
+    raw = pf.scene_pairs(hw, 1, seed, device=DEV)
+    return [raw[k][0].float().cpu().numpy() for k in ("image1", "image2")]
+
+
+def identity_settings(model):
+    """The matcher settings the identity check runs with, as (object,
+    attribute, value). Seeded SuperGlue's assignment is not dominated by
+    each keypoint's own copy (at threshold 0 its mutual argmaxes lie a
+    median 3-4.5 px apart on an identical pair, CPU rehearsal at 128²), so
+    the check matches those pipelines' keypoints with NN; seeded LoFTR
+    keeps no match over 0.2, so the check takes its mutual nearest
+    neighbours (threshold 0) with a 1-pixel fine window (its seeded fine
+    soft-argmax spreads over the 5x5 window, +-4 px)."""
+    from oetr_tpu_torch.models import registry
+
+    pipe = model[0]
+    if hasattr(pipe, "loftr"):
+        return [(pipe.loftr, "match_threshold", 0.0),
+                (pipe.loftr, "fine_window", 1)]
+    if hasattr(pipe.match_fn, "match_threshold"):
+        return [(pipe, "match_fn", registry.build("NN", device=DEV))]
+    return []
+
+
+def api_case(torch, model, img0, img1, names=()):
+    """One combination through ``get_matches``'s helper below the decode:
+    pairs/s (median of API_REPS calls after API_WARMUP), traced device
+    time and idle share, keypoints and matches of the pair, the identity
+    check (img0 against itself, with ``identity_settings``: the matched
+    keypoints' median distance in the original frame), and ``get_pose``
+    on the pair's matches. Returns (fields, the pair's result,
+    failures)."""
+    import numpy as np
+
+    from oetr_tpu_torch.pipelines import api
+
+    t0 = time.perf_counter()
+    call = lambda: api._match_images(model, img0, img1)
+    with torch.inference_mode():
+        for _ in range(API_WARMUP):
+            call()
+        wall = []
+        for _ in range(API_REPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = call()
+            torch.cuda.synchronize()
+            wall.append(time.perf_counter() - t)
+        stats = traced_stats(torch, call, reps=1, names=names, warmup=0,
+                             cpu=False)
+        settings = identity_settings(model)
+        kept = [getattr(obj, attr) for obj, attr, _ in settings]
+        for obj, attr, value in settings:
+            setattr(obj, attr, value)
+        ident = api._match_images(model, img0, img0)
+        for (obj, attr, _), value in zip(settings, kept):
+            setattr(obj, attr, value)
+    m = ident["matches"]
+    dist = np.linalg.norm(ident["kpts0"][m[0]] - ident["kpts1"][m[1]],
+                          axis=-1)
+    ident_px = float(np.median(dist)) if len(dist) else None
+    pose = api.get_pose(res, device=DEV)
+    fields = {
+        "pairs_per_s": 1.0 / statistics.median(wall),
+        "wall_ms": statistics.median(wall) * 1e3,
+        "device_busy_ms": stats["device_busy_ms"],
+        "idle_share": stats["idle_share"],
+        "launches_per_call": stats["launches_per_call"],
+        "dtoh_copies_per_call": stats["dtoh_copies_per_call"],
+        "device_ms_by_category": stats["device_ms_by_category"],
+        **{k: v for k, v in stats.items() if k.endswith("_per_call")
+           and k not in ("launches_per_call", "dtoh_copies_per_call")},
+        "keypoints": [int(res[f"all_valid{s}"].sum()) for s in "01"]
+        if "all_valid0" in res else None,
+        "matches": int(res["matches"].shape[1]),
+        "identity_matches": int(m.shape[1]),
+        "identity_settings": {attr: (value if attr != "match_fn" else "NN")
+                              for _, attr, value in settings},
+        "identity_median_px": ident_px,
+        "pose_H_finite": bool(np.isfinite(pose["H"]).all()),
+        "pose_ok": pose["ok"], "case_s": time.perf_counter() - t0}
+    failed = []
+    if ident_px is None or not ident_px < IDENTITY_PX:
+        failed.append(f"identity: {m.shape[1]} matches, median {ident_px}")
+    if not fields["pose_H_finite"]:
+        failed.append("get_pose: H not finite")
+    return fields, res, failed
+
+
+def api_pose(torch, port, model, seed):
+    """``get_pose`` on matches from the homography pair generator's true H
+    (perspective off for the similarity): 1000 points of the image mapped
+    by H, POSE_OUTLIERS of them moved anywhere. Returns the largest and
+    mean transfer error at the true correspondences against the truth (px),
+    inliers and ok."""
+    import numpy as np
+
+    from oetr_tpu_torch.geometry.homography import apply_homography
+    from oetr_tpu_torch.pipelines import api
+
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    kw = {} if model == "homography" else {"max_persp": 0.0}
+    _, _, H = port.make_homography_pair_generator(CANVAS_HW, 1, device=DEV,
+                                                  **kw)(g)
+    n = 1000
+    rng = np.random.default_rng(seed)
+    p0 = rng.uniform(0, CANVAS_HW, (n, 2)).astype(np.float32)
+    p1 = apply_homography(H[0].cpu(), torch.from_numpy(p0)).numpy()
+    out = rng.random(n) < POSE_OUTLIERS
+    p1[out] = rng.uniform(0, CANVAS_HW, (int(out.sum()), 2))
+    res = api.get_pose({"kpts0": p0, "kpts1": p1,
+                        "matches": np.stack([np.arange(n)] * 2)},
+                       model=model, device=DEV)
+    est = apply_homography(torch.from_numpy(res["H"]).float(),
+                           torch.from_numpy(p0[~out])).numpy()
+    true = apply_homography(H[0].cpu(), torch.from_numpy(p0[~out])).numpy()
+    err = np.linalg.norm(est - true, axis=-1)
+    return {"transfer_max_px": float(err.max()),
+            "transfer_mean_px": float(err.mean()),
+            "inliers": int(res["inliers"].sum()),
+            "true_inliers": int((~out).sum()), "ok": res["ok"]}
+
+
+def keypoint_positions(out, i=0):
+    """{(x, y): slot} of the valid keypoints of image i of an extractor's
+    output."""
+    xy, v = out["keypoints"][i].tolist(), out["valid"][i].tolist()
+    return {tuple(p): k for k, (p, ok) in enumerate(zip(xy, v)) if ok}
+
+
+def keypoint_agreement(a, b):
+    """Two extractor outputs of one image: (the share of the K slots with
+    the same position and validity, the share of the valid keypoints
+    found by both, as sets of positions)."""
+    same = ((a["keypoints"] == b["keypoints"]).all(-1)
+            & (a["valid"] == b["valid"]))
+    pa, pb = keypoint_positions(a), keypoint_positions(b)
+    return (same.float().mean().item(),
+            len(set(pa) & set(pb)) / max(1, len(pa), len(pb)))
+
+
+def match_data(e0, e1, dev, hw):
+    """A matcher's data dict from two extractor outputs, on ``dev``."""
+    data = {f"{key}{i}": e[key].to(dev) for i, e in enumerate((e0, e1))
+            for key in ("keypoints", "scores", "descriptors", "valid")}
+    data.update(image_hw0=(hw, hw), image_hw1=(hw, hw))
+    return data
+
+
+def api_vs_cpu(torch, name, matcher, model, images):
+    """An extractor on the card against its copy on the CPU (same weights,
+    f32) on a grayscale pair of API_SMALL_HW²: dense scores (of the largest
+    entry); the valid keypoints equal as sets of positions; the keypoint
+    slots equal (two keypoints whose scores differ by rounding trade
+    slots), beside the CPU's own spread: the CPU on the images scaled by
+    1 + one f32 ulp times a normal draw a pixel; descriptors on equal
+    slots; and ``matcher``'s matches on each device's outputs, by
+    position: the image-1 keypoint that each valid image-0 keypoint found
+    on both devices matches (or none), over all of them (of the larger
+    valid set) and, reported, over those whose CPU rows are not near-ties
+    (top two similarities within API_TIE, the row's or its best
+    column's)."""
+    from oetr_tpu_torch.models import grayscale, registry
+
+    t0 = time.perf_counter()
+    cpu = registry.build(name, device="cpu")
+    cpu.load_state_dict(model.state_dict())
+    ims = [grayscale(torch.from_numpy(im)[None]) for im in images]
+    g = torch.Generator().manual_seed(55)
+    eps = torch.finfo(torch.float32).eps
+    nudged = [im * (1 + eps * torch.randn(im.shape, generator=g))
+              for im in ims]
+    with torch.inference_mode():
+        card_out = [{k: v.cpu() for k, v in model(im.to(DEV)).items()}
+                    for im in ims]
+        cpu_out = [cpu(im) for im in ims]
+        cpu_nudged = [cpu(im) for im in nudged]
+
+    fields = {"dense_err": 0.0, "slots_equal": 1.0, "keypoints_equal": 1.0,
+              "desc_err": 0.0, "cpu_ulp_slots_equal": 1.0,
+              "cpu_ulp_keypoints_equal": 1.0}
+    for d, c, n in zip(card_out, cpu_out, cpu_nudged):
+        ref = c["dense_scores"]
+        fields["dense_err"] = max(fields["dense_err"], (
+            (d["dense_scores"] - ref).abs().max()
+            / ref.abs().max().clamp(min=1.0)).item())
+        for prefix, other in (("", d), ("cpu_ulp_", n)):
+            slots, sets = keypoint_agreement(other, c)
+            fields[f"{prefix}slots_equal"] = min(
+                fields[f"{prefix}slots_equal"], slots)
+            fields[f"{prefix}keypoints_equal"] = min(
+                fields[f"{prefix}keypoints_equal"], sets)
+        both = ((d["keypoints"] == c["keypoints"]).all(-1)
+                & (d["valid"] == c["valid"]) & c["valid"])
+        fields["desc_err"] = max(fields["desc_err"], (
+            d["descriptors"] - c["descriptors"]).abs()[both].max().item())
+
+    failed = []
+    if matcher in ("NN", "disk"):
+        match = registry.build(matcher, device="cpu")
+        with torch.inference_mode():
+            md = match(match_data(*card_out, DEV, API_SMALL_HW))[
+                "matches0"].cpu()[0]
+            mc = match(match_data(*cpu_out, "cpu", API_SMALL_HW))[
+                "matches0"][0]
+        c0, c1 = cpu_out
+        v0, v1 = c0["valid"], c1["valid"]
+        sim = torch.einsum("bmd,bnd->bmn", c0["descriptors"].double(),
+                           c1["descriptors"].double())
+        sim = sim.masked_fill(~(v0[:, :, None] & v1[:, None, :]),
+                              float("-inf"))
+        top = sim.topk(2, dim=2).values
+        topc = sim.topk(2, dim=1).values
+        col_tie = (topc[:, 0] - topc[:, 1] < API_TIE).gather(
+            1, sim.argmax(2))
+        tie = ((top[..., 0] - top[..., 1] < API_TIE) | col_tie)[0]
+
+        def partner(out, m, slot):
+            j = int(m[slot])
+            return tuple(out[1]["keypoints"][0, j].tolist()) if j > -1 \
+                else None
+
+        pd, pc = keypoint_positions(card_out[0]), keypoint_positions(
+            cpu_out[0])
+        common = set(pd) & set(pc)
+        agree = {p: partner(card_out, md, pd[p]) == partner(cpu_out, mc,
+                                                            pc[p])
+                 for p in common}
+        clear = [p for p in common if not tie[pc[p]]]
+        fields.update(
+            matcher=matcher,
+            matches=[int((md > -1).sum()), int((mc > -1).sum())],
+            valid_keypoints0=[len(pd), len(pc)],
+            matches_agree=sum(agree.values()) / max(1, len(pd), len(pc)),
+            matches_agree_clear=sum(agree[p] for p in clear)
+            / max(1, len(clear)),
+            near_tie_rows=len(common) - len(clear))
+        if not fields["matches_agree"] >= API_MATCH_MIN:
+            failed.append(f"{name}: matches agree {fields['matches_agree']}")
+    fields["s"] = time.perf_counter() - t0
+    if not (fields["dense_err"] <= API_CPU_TOL
+            and fields["desc_err"] <= API_CPU_TOL
+            and fields["keypoints_equal"] >= API_KEYPOINTS_MIN
+            and fields["slots_equal"] >= API_SLOTS_MIN):
+        failed.append(f"{name} card vs CPU: {fields}")
+    return fields, failed
+
+
+def api_matcher_vs_cpu(torch, name, pipe, image):
+    """The pipeline's own matcher on the identity pair (``image`` against
+    itself, grayscale, API_SMALL_HW²) on the card against its copy on the
+    CPU, same weights and inputs, f32; ``name`` is its registry entry.
+    SuperGlue, on the extractor's first API_SG_SLOTS slots: the matches at
+    threshold 0 (the mutual argmaxes; seeded, it keeps none over 0.2)
+    equal by slot on >= MATCH_AGREE_MIN of the valid keypoints, and the
+    log assignment within API_SG_RTOL of max(1, its largest unmasked
+    |entry|). LoFTR: ``coarse_conf`` within LOFTR_CONF_RTOL of the CPU's
+    largest entry, and each row's argmax equal on >= MATCH_AGREE_MIN of
+    the rows, as the loftr phase holds it. Returns (fields, failures)."""
+    from oetr_tpu_torch.models import grayscale, registry
+    from oetr_tpu_torch.ops.sinkhorn import extract_matches
+
+    t0 = time.perf_counter()
+    im = grayscale(torch.from_numpy(image)[None])
+    card = pipe.loftr if hasattr(pipe, "loftr") else pipe.match_fn
+    cpu = registry.build(name, device="cpu")
+    cpu.load_state_dict(card.state_dict())
+    failed = []
+    with torch.inference_mode():
+        if hasattr(pipe, "loftr"):
+            got = card(im.to(DEV), im.to(DEV))["coarse_conf"].cpu()
+            ref = cpu(im, im)["coarse_conf"]
+            tol = LOFTR_CONF_RTOL * ref.max().item()
+            pick = got.argmax(-1)
+            fields = {"coarse_conf_max_abs_err": (got - ref).abs().max()
+                      .item(), "coarse_conf_tol": tol,
+                      "row_argmax_agree": (pick == ref.argmax(-1)).float()
+                      .mean().item(),
+                      "row_argmax_self": (pick == torch.arange(
+                          pick.shape[-1])).float().mean().item()}
+            ok = (fields["coarse_conf_max_abs_err"] <= tol
+                  and fields["row_argmax_agree"] >= MATCH_AGREE_MIN)
+        else:
+            e = {k: v[:, :API_SG_SLOTS]
+                 for k, v in pipe.extractor(im.to(DEV)).items()
+                 if k != "dense_scores"}
+            la = card(match_data(e, e, DEV, API_SMALL_HW))[
+                "log_assignment"].cpu()
+            la_ref = cpu(match_data(e, e, "cpu", API_SMALL_HW))[
+                "log_assignment"]
+            v = e["valid"].cpu()
+            m0 = extract_matches(la, 0.0, v, v)[0]
+            m0_ref = extract_matches(la_ref, 0.0, v, v)[0]
+            unmasked = la_ref > K4_MASKED
+            scale = max(1.0, la_ref[unmasked].abs().max().item())
+            err = (la - la_ref)[unmasked].abs().max().item()
+            fields = {"slots": API_SG_SLOTS, "valid_keypoints": int(v.sum()),
+                      "log_assignment_err": err,
+                      "log_assignment_tol": API_SG_RTOL * scale,
+                      "matches_thr_0.0": int((m0_ref > -1).sum()),
+                      "matches_agree_thr_0.0": match_agreement(m0, m0_ref,
+                                                               v),
+                      "self_matches_thr_0.0": int((m0 == torch.arange(
+                          m0.shape[-1])).sum())}
+            ok = (err <= API_SG_RTOL * scale
+                  and fields["matches_agree_thr_0.0"] >= MATCH_AGREE_MIN)
+    fields["s"] = time.perf_counter() - t0
+    if not ok:
+        failed.append(f"{name} card vs CPU on the identity pair: {fields}")
+    return fields, failed
+
+
+def run_api(torch, port, ops):
+    """The public matching API on the card at the published widths (832²
+    canvas, 640² OETR pass, each registry entry's own max_keypoints,
+    seeded weights, f32, TF32 off), one pair a call through
+    ``get_matches``'s helper below the decode (``api._match_images``):
+      1. superpoint_aachen + superglue_outdoor + the oetr overlaper through
+         ``build_model``;
+      2. the same models from ``registry.build`` with K2, K3
+         (``oetr_r50_kernels_config``) and K4 (``cuda_sinkhorn``) on in a
+         ``SparsePipeline`` (retry off): the main path, its launch counts
+         read around one call (16/1/1) and traced, and its outputs against
+         the same weights with the switches off;
+      3. d2net-ss, r2d2-desc and aslfeat-desc with NN, disk-desc with disk
+         and with superglue_disk; each extractor also on the card against
+         the CPU at API_SMALL_HW²;
+      4. loftr with the oetr overlaper (dense);
+      5. COTR through ``cotr_match`` on a scene pair of API_COTR_HW²,
+         API_COTR_QUERIES queries, against the CPU;
+      6. ``get_pose`` (homography, similarity) on matches from the
+         homography pair generator's true H with 30% outliers;
+      7. the keypoint selection's tie-breaking top-k against torch.topk.
+    Each combination: pairs/s, traced device ms and idle share, keypoints
+    and matches, the identity check and get_pose on its own matches; the
+    SuperGlue and LoFTR combinations also their matcher on the card
+    against the CPU on an identity pair (``api_matcher_vs_cpu``: the
+    identity check runs SuperGlue's keypoints through NN and LoFTR at
+    threshold 0). The main path (2) has every K2, K3 and K4 output held
+    to its plain version on the same inputs, and SuperGlue's log
+    assignment with K4 against K4 off on the same inputs.
+    Returns (fields, the main path's launches)."""
+    from oetr_tpu_torch.models import cotr as cotr_mod
+    from oetr_tpu_torch.models import registry
+    from oetr_tpu_torch.ops.nms import topk_stable
+    from oetr_tpu_torch.ops.sinkhorn import extract_matches
+    from oetr_tpu_torch.pipelines import api
+    from oetr_tpu_torch.pipelines.runner import run_batch
+
+    t0 = time.perf_counter()
+    split = {}
+    mark = lambda name: split.__setitem__(name, time.perf_counter() - t0)
+    seeded = lambda s: torch.Generator().manual_seed(s)
+    img0, img1 = api_images(torch, CANVAS_HW, seed=41)
+    cfg = port.PipelineConfig(canvas_hw=(CANVAS_HW, CANVAS_HW),
+                              oetr_hw=(IMAGE_HW, IMAGE_HW))
+    fields, failed = {"canvas_hw": CANVAS_HW, "oetr_hw": IMAGE_HW,
+                      "dtype": "float32", "pairs_per_call": 1}, []
+    combos = fields["combinations"] = {}
+
+    # 1. The README's quick start through build_model.
+    model = api.build_model("superpoint_aachen", "superglue_outdoor",
+                            "oetr", cfg=cfg, device=DEV)
+    combos["superpoint_aachen+superglue_outdoor+oetr"], _, f = api_case(
+        torch, model, img0, img1)
+    failed += f
+    small = api_images(torch, API_SMALL_HW, seed=42)
+    matchers_vs_cpu = fields["matcher_vs_cpu"] = {}
+    matchers_vs_cpu["superglue_outdoor"], f = api_matcher_vs_cpu(
+        torch, "superglue_outdoor", model[0], small[0])
+    failed += f
+    del model
+    mark("build_model_superglue")
+
+    # 2. The same from the registry with K2, K3, K4 on: the main path.
+    oetr = registry.build("oetr", device=DEV, generator=seeded(50),
+                          cfg=port.oetr_r50_kernels_config("float32"))
+    sp = registry.build("superpoint_aachen", device=DEV,
+                        generator=seeded(51))
+    sg = registry.build("superglue_outdoor", device=DEV,
+                        generator=seeded(52), cuda_sinkhorn=True)
+    cfg0 = port.replace(cfg, fallback_min_matches=0)
+    on = (port.SparsePipeline(sp, sg, oetr, cfg0), {"config": cfg0})
+    prep = [api.prepare_image(im, cfg.canvas_hw, cfg.oetr_hw, 1024)
+            for im in (img0, img1)]
+    batch = api.batch_pairs(prep[:1], prep[1:])
+    sg_off = registry.build("superglue_outdoor", device=DEV)
+    sg_off.load_state_dict(sg.state_dict())
+    cap_on, cap_off = Capture(sg), Capture(sg_off)
+    with torch.inference_mode():
+        # The main path once, its launches counted and every K2, K3 and
+        # K4 call recorded, then the same with only K4 off.
+        with recorded_kernel_calls(sinkhorn=True) as calls:
+            reset_counts(ops)
+            out = run_batch(port.SparsePipeline(sp, cap_on, oetr, cfg0),
+                            batch)
+            torch.cuda.synchronize()
+            launches = launch_counts(ops)
+        k4_off = run_batch(port.SparsePipeline(sp, cap_off, oetr, cfg0),
+                           batch)
+    want = {name: 0 for name in KERNELS}
+    want.update(linear_encoder_attention=16, groupnorm_relu_maxpool=1,
+                log_sinkhorn_cuda=1)
+    if launches != want:
+        raise AssertionError(f"api launches {launches} != {want}")
+    path_kernels = recorded_kernel_errors(torch, ops, calls, path="api")
+    for key in ("bbox0", "bbox1", "keypoints0", "keypoints1", "valid0",
+                "valid1"):
+        if not torch.equal(out[key], k4_off[key]):
+            raise AssertionError(f"api: {key} differs with K4 off")
+    la_on, la_off = cap_on.last["log_assignment"], cap_off.last[
+        "log_assignment"]
+    la_err, la_worst = k4_compare(torch, la_on, la_off)
+    v0, v1 = out["valid0"], out["valid1"]
+    m0_on = extract_matches(la_on, 0.0, v0, v1)[0]
+    m0_off = extract_matches(la_off, 0.0, v0, v1)[0]
+    k4_vs_off = {
+        "log_assignment_err": la_err, "log_assignment_err_over_tol":
+        la_worst, "matches_agree_thr_0.2": match_agreement(
+            out["matches0"], k4_off["matches0"], v0),
+        "matches_agree_thr_0.0": match_agreement(m0_on, m0_off, v0),
+        "matches_thr_0.0": int(((m0_on > -1) & v0).sum()),
+        "valid_keypoints0": int(v0.sum())}
+    del cap_on, cap_off, la_on, la_off, k4_off
+    oetr_off = registry.build("oetr", device=DEV, generator=seeded(50),
+                              cfg=port.oetr_r50_config())
+    oetr_off.load_state_dict(oetr.state_dict())
+    with torch.inference_mode():
+        ref = run_batch(port.SparsePipeline(sp, sg_off, oetr_off, cfg0),
+                        batch)
+    box = max((out[k] - ref[k]).abs().max().item() for k in ("bbox0",
+                                                             "bbox1"))
+    same_kp = ((out["keypoints0"] == ref["keypoints0"]).all(-1)
+               & (out["valid0"] == ref["valid0"]))
+    agree = match_agreement(out["matches0"], ref["matches0"],
+                            out["valid0"] & same_kp)
+    case, _, f = api_case(torch, on, img0, img1,
+                          names=("linear_encoder_kernel",
+                                 "gn_apply_pool_kernel", "sinkhorn_kernel"))
+    failed += f
+    traced = {"linear_encoder_attention": case.pop(
+                  "linear_encoder_kernel_per_call") / 2,
+              "groupnorm_relu_maxpool": case.pop(
+                  "gn_apply_pool_kernel_per_call"),
+              "log_sinkhorn_cuda": case.pop("sinkhorn_kernel_per_call")}
+    case.update(launches_per_call={k: n for k, n in launches.items() if n},
+                traced_launches_per_call=traced,
+                path_kernels_vs_plain=path_kernels, k4_vs_off=k4_vs_off,
+                vs_plain={"box_max_diff_px": box,
+                          "box_tol_px": BOX_TOL_PX["float32"],
+                          "used_overlap_equal": torch.equal(
+                              out["used_overlap"], ref["used_overlap"]),
+                          "keypoints0_equal": same_kp.float().mean().item(),
+                          "matches0_agree": agree,
+                          "agree_min": MATCH_AGREE_MIN})
+    combos["registry:oetr(K2,K3)+superpoint_aachen+superglue_outdoor(K4)"] \
+        = case
+    if traced != {"linear_encoder_attention": 16,
+                  "groupnorm_relu_maxpool": 1, "log_sinkhorn_cuda": 1}:
+        failed.append(f"api: traced launches a call {traced}")
+    if not (la_worst <= 1.0
+            and k4_vs_off["matches_agree_thr_0.2"] >= MATCH_AGREE_MIN
+            and k4_vs_off["matches_agree_thr_0.0"] >= MATCH_AGREE_MIN):
+        failed.append(f"api K4 on vs off: {k4_vs_off}")
+    if not (box <= BOX_TOL_PX["float32"] and agree >= MATCH_AGREE_MIN
+            and case["vs_plain"]["used_overlap_equal"]):
+        failed.append(f"api on vs off: {case['vs_plain']}")
+    del on, oetr, oetr_off, sg, sg_off, sp, out, ref
+    mark("registry_kernels")
+
+    # 3. The other extractors and matchers; each extractor on the card
+    # against the CPU.
+    vs_cpu = fields["card_vs_cpu"] = {}
+    for extractor, matcher in API_NN_COMBOS:
+        model = api.build_model(extractor, matcher, cfg=cfg, device=DEV)
+        key = f"{extractor}+{matcher}"
+        combos[key], _, f = api_case(torch, model, img0, img1)
+        failed += f
+        if extractor not in vs_cpu or matcher in ("NN", "disk"):
+            vs_cpu[extractor], f = api_vs_cpu(torch, extractor, matcher,
+                                              model[0].extractor, small)
+            failed += f
+        if matcher == "superglue_disk":
+            matchers_vs_cpu[matcher], f = api_matcher_vs_cpu(
+                torch, matcher, model[0], small[0])
+            failed += f
+        del model
+        mark(f"{extractor}+{matcher}")
+
+    # 4. Dense: LoFTR with the overlaper.
+    model = api.build_model("superpoint_aachen", "loftr", "oetr", cfg=cfg,
+                            device=DEV)
+    combos["loftr+oetr"], _, f = api_case(torch, model, img0, img1)
+    failed += f
+    matchers_vs_cpu["loftr"], f = api_matcher_vs_cpu(torch, "loftr",
+                                                     model[0], small[0])
+    failed += f
+    del model
+    torch.cuda.empty_cache()
+    mark("loftr")
+
+    # 5. COTR on a scene pair, card against CPU.
+    cotr = registry.build("cotr", device=DEV, generator=seeded(53))
+    pair = [torch.from_numpy(im)[None]
+            for im in api_images(torch, API_COTR_HW, seed=43)]
+    q = torch.rand(1, API_COTR_QUERIES, 2, generator=seeded(54)) * 0.9 + 0.05
+    pair_d, q_d = [p.to(DEV) for p in pair], q.to(DEV)
+    call = lambda: cotr_mod.cotr_match(cotr, pair_d[0], pair_d[1], q_d)
+    with torch.inference_mode():
+        for _ in range(API_WARMUP):
+            call()
+        ms = time_ms(torch, call, reps=API_REPS, warmup=0)
+        stats = traced_stats(torch, call, reps=1, warmup=0, cpu=False)
+        got = {k: v.cpu() for k, v in call().items()}
+    cpu = registry.build("cotr", device="cpu")
+    cpu.load_state_dict(cotr.state_dict())
+    ref = cotr_mod.cotr_match(cpu, pair[0], pair[1], q)
+    errs = {k: (got[k] - ref[k]).abs().max().item()
+            for k in ("mkpts1", "cycle_error")}
+    near = (ref["cycle_error"] - 0.02).abs() < 1e-3
+    valid_agree = ((got["valid"] == ref["valid"]) | near).float().mean()
+    combos["cotr"] = {
+        "hw": API_COTR_HW, "queries": API_COTR_QUERIES,
+        "pairs_per_s": 1e3 / ms, "ms": ms,
+        "device_busy_ms": stats["device_busy_ms"],
+        "idle_share": stats["idle_share"],
+        "launches_per_call": stats["launches_per_call"],
+        "valid": int(got["valid"].sum()), "vs_cpu_max_err": errs,
+        "valid_agree_away_from_threshold": valid_agree.item()}
+    if not (max(errs.values()) <= API_CPU_TOL and valid_agree == 1.0):
+        failed.append(f"cotr card vs CPU: {combos['cotr']}")
+    del cotr, cpu
+    mark("cotr")
+
+    # 6. get_pose against the generator's truth.
+    poses = fields["get_pose"] = {}
+    for pose_model, seed in (("homography", 44), ("similarity", 45)):
+        poses[pose_model] = api_pose(torch, port, pose_model, seed)
+        p = poses[pose_model]
+        if not (p["ok"] and p["transfer_max_px"] <= POSE_TRANSFER_PX):
+            failed.append(f"get_pose {pose_model}: {p}")
+    fields.update(pose_transfer_tol_px=POSE_TRANSFER_PX,
+                  identity_tol_px=IDENTITY_PX, cpu_tol=API_CPU_TOL,
+                  keypoints_min=API_KEYPOINTS_MIN,
+                  slots_min=API_SLOTS_MIN, match_min=API_MATCH_MIN,
+                  sg_slots=API_SG_SLOTS, sg_rtol=API_SG_RTOL,
+                  tie=API_TIE)
+    mark("get_pose")
+
+    # 7. The tie-breaking top-k against torch.topk (no order among ties)
+    # at the keypoint selection's shapes at 832²: SuperPoint's tile maxima
+    # (the sparse phase's 16 images, radius 4: 5² tiles; the quick start's
+    # pair, radius 3: 4² tiles) and every pixel of a dense extractor's
+    # pair.
+    g = torch.Generator(device=DEV).manual_seed(56)
+    topk = fields["topk_stable_vs_topk"] = {}
+    for rows, n in ((16, (-(-CANVAS_HW // 5)) ** 2),
+                    (2, (CANVAS_HW // 4) ** 2), (2, CANVAS_HW ** 2)):
+        x = torch.rand(rows, n, generator=g, device=DEV)
+        topk[f"{rows}x{n}"] = {
+            "k": SPARSE_K,
+            "topk_stable_ms": time_ms(torch, lambda: topk_stable(x,
+                                                                 SPARSE_K)),
+            "torch_topk_ms": time_ms(torch, lambda: torch.topk(x, SPARSE_K,
+                                                               dim=1))}
+    mark("topk")
+    fields["split_s"] = split
+    fields["api_phase_s"] = time.perf_counter() - t0
+    if fields["api_phase_s"] > API_PHASE_S:
+        failed.append(f"api phase took {fields['api_phase_s']:.1f} s > "
+                      f"{API_PHASE_S}")
+    fields["failures"] = failed
+    return fields, launches
+
+
 def main() -> int:
     import torch
 
@@ -2435,6 +3071,14 @@ def main() -> int:
     # and K3 (their backward: autograd of the plain functions).
     fields, train_launches = run_train(torch, port, ops)
     phase("train", **fields)
+    torch.cuda.empty_cache()
+
+    # Path 10, the public matching API: build_model / get_matches / get_pose
+    # over the registry's extractors and matchers, COTR; its registry-built
+    # quick start runs K2, K3 and K4.
+    fields, api_launches = run_api(torch, port, ops)
+    phase("api", **fields)
+    failed += [f"api: {f}" for f in fields["failures"]]
 
     phase("kernels", ported=["linear_attention_cuda<-K1",
                              "linear_encoder_attention<-K2",
@@ -2468,7 +3112,8 @@ def main() -> int:
              "full")):
         by_path = {p: n for p, n in ((path, launches[name]),
                                      ("dense", dense_launches[name]),
-                                     ("train", train_launches[name])) if n}
+                                     ("train", train_launches[name]),
+                                     ("api", api_launches[name])) if n}
         row = {"name": name, "route": "cuda", "source": src,
                "replaces": replaces, "launches": sum(by_path.values()),
                "max_abs_err": res["max_abs_err"],

@@ -1,17 +1,23 @@
 """PyTorch + CUDA port of oetr_tpu: the OETR forward and its trainer
 (``oetr_tpu_torch.training``), the overlap-guided sparse (SuperPoint +
-SuperGlue) and dense (LoFTR) matching pipelines, the on-device synthetic
-scene and homography pair generators, two-view pose estimation and the
-benchmark evaluation.
+SuperGlue) and dense (LoFTR) matching pipelines, the public matching API
+(``build_model``, ``get_matches``, ``get_pose``; the registry of
+extractors and matchers: D2-Net, R2D2, DISK, ASLFeat, SIFT, ContextDesc,
+NN, DISK's matcher, COTR, ICP), the host image service and benchmark
+runner, the on-device synthetic scene and homography pair generators,
+two-view pose estimation and the benchmark evaluation.
 
 The package stands alone: it imports torch and numpy, never JAX or the
 ``oetr_tpu`` package, so it runs where only torch is installed (the
 machine with the CUDA card has neither flax nor orbax, which the JAX
 package's models and checkpoints need).
 Entry points (``build_oetr``, ``build_superpoint``, ``build_superglue``,
-``build_loftr``, the modules and pipelines they feed, and the generators of
+``build_loftr``, ``build_model``, ``models.registry.build``, ``get_pose``,
+the modules and pipelines they feed, and the generators of
 ``make_device_generator`` and ``make_homography_pair_generator``) run on
-the card unless the caller passes ``device="cpu"``. ``estimate_pose`` and
+the card unless the caller passes ``device="cpu"``; reading images and
+drawing need cv2 and matplotlib, the h5 results h5py, each imported where
+it is used. ``estimate_pose`` and
 the other geometry functions run where their tensors lie;
 ``validation_error`` and the benchmark harnesses take numpy and run the
 estimator on the card unless the caller passes ``device="cpu"``.
@@ -26,7 +32,8 @@ from .geometry import (estimate_pose, pose_error, ransac_essential,
 from .models import (OETR, LoFTR, SuperGlue, SuperPoint, build_loftr,
                      build_oetr, build_superglue, build_superpoint,
                      decode_boxes)
-from .pipelines import DensePipeline, PipelineConfig, SparsePipeline
+from .pipelines import (DensePipeline, PipelineConfig, SparsePipeline,
+                        build_model, get_matches, get_pose, run_benchmark)
 
 __all__ = ["BackboneConfig", "LossConfig", "NeckConfig", "OETRConfig",
            "TrainConfig", "oetr_fc_r50_config",
@@ -37,4 +44,5 @@ __all__ = ["BackboneConfig", "LossConfig", "NeckConfig", "OETRConfig",
            "SparsePipeline", "DensePipeline", "make_device_generator",
            "make_homography_pair_generator", "estimate_pose",
            "ransac_essential", "recover_pose", "ransac_homography",
-           "pose_error", "validation_error", "pose_auc"]
+           "pose_error", "validation_error", "pose_auc", "build_model",
+           "get_matches", "get_pose", "run_benchmark"]

@@ -16,8 +16,14 @@ import numpy as np
 import torch
 
 from ..config import OETRConfig
+from ..models.aslfeat import build_aslfeat
+from ..models.cotr import build_cotr
+from ..models.d2net import build_d2net
+from ..models.disk import build_disk
 from ..models.loftr import build_loftr
 from ..models.oetr import build_oetr
+from ..models.r2d2 import build_r2d2
+from ..models.sift_based import build_contextdesc, build_contextdesc_augmenter
 from ..models.superglue import build_superglue
 from ..models.superpoint import build_superpoint
 
@@ -110,3 +116,26 @@ def convert_loftr_params(params: Mapping, **kwargs) -> dict:
     ``LoFTR(**kwargs)`` (``backbone``, ``coarse``, ``fine`` and
     ``fine_proj``). Raises as ``convert_flax_params`` does."""
     return _state_dict(_unwrap(params), build_loftr(device="meta", **kwargs))
+
+
+def _converter(builder, model_name: str):
+    def convert(params: Mapping, **kwargs) -> dict:
+        return _state_dict(_unwrap(params), builder(device="meta", **kwargs))
+
+    convert.__name__ = f"convert_{model_name.lower()}_params"
+    convert.__doc__ = (f"A flax {model_name} tree -> the state_dict of the "
+                       f"port's ``{model_name}(**kwargs)``. Raises as "
+                       "``convert_flax_params`` does.")
+    return convert
+
+
+# The extractors' ``in_channels`` must be the channels the flax tree was
+# initialised on (1 on the pipeline's path, which feeds grayscale crops).
+convert_d2net_params = _converter(build_d2net, "D2Net")
+convert_r2d2_params = _converter(build_r2d2, "R2D2")
+convert_disk_params = _converter(build_disk, "DISK")
+convert_aslfeat_params = _converter(build_aslfeat, "ASLFeat")
+convert_cotr_params = _converter(build_cotr, "COTR")
+convert_contextdesc_params = _converter(build_contextdesc, "ContextDesc")
+convert_contextdesc_augmenter_params = _converter(
+    build_contextdesc_augmenter, "ContextDescAugmenter")

@@ -1,15 +1,33 @@
 """Model modules of the port."""
+from . import registry
+from .aslfeat import ASLFeat, build_aslfeat
+from .cotr import COTR, build_cotr, cotr_match, make_composite
+from .d2net import D2Net, build_d2net
+from .disk import DISK, build_disk
+from .icp import icp_match
 from .loftr import LoFTR, build_loftr
+from .matchers import disk_brute_match, nearest_neighbor_match
 from .oetr import (OETR, PatchMerging, build_oetr, decode_boxes,
                    sine_position_encoding)
+from .r2d2 import R2D2, build_r2d2
 from .resnet import ResNetEncoder, backbone_channels
+from .sift_based import (ContextDesc, ContextDescAugmenter,
+                         build_contextdesc, build_contextdesc_augmenter,
+                         contextdesc_extract, landmark_extract)
 from .superglue import SuperGlue, build_superglue
 from .superpoint import SuperPoint, SuperPointNet, build_superpoint, grayscale
 from .transformer import (DecoderLayer, EncoderLayer, MultiHeadAttention,
                           QueryTransformer)
 
-__all__ = ["LoFTR", "build_loftr", "OETR", "PatchMerging", "build_oetr", "decode_boxes",
-           "sine_position_encoding", "ResNetEncoder", "backbone_channels",
-           "SuperGlue", "build_superglue", "SuperPoint", "SuperPointNet",
+__all__ = ["registry", "ASLFeat", "build_aslfeat", "COTR", "build_cotr",
+           "cotr_match", "make_composite", "D2Net", "build_d2net", "DISK",
+           "build_disk", "icp_match", "LoFTR", "build_loftr",
+           "disk_brute_match", "nearest_neighbor_match", "OETR",
+           "PatchMerging", "build_oetr", "decode_boxes",
+           "sine_position_encoding", "R2D2", "build_r2d2", "ResNetEncoder",
+           "backbone_channels", "ContextDesc", "ContextDescAugmenter",
+           "build_contextdesc", "build_contextdesc_augmenter",
+           "contextdesc_extract", "landmark_extract", "SuperGlue",
+           "build_superglue", "SuperPoint", "SuperPointNet",
            "build_superpoint", "grayscale", "DecoderLayer", "EncoderLayer",
            "MultiHeadAttention", "QueryTransformer"]

@@ -25,22 +25,52 @@ class Dense(nn.Module):
         return F.linear(x.to(self.dtype), self.weight.to(self.dtype), bias)
 
 
+def same_padding(size: int, k: int, stride: int, dilation: int
+                 ) -> tuple[int, int]:
+    """XLA's ``"SAME"`` padding of one axis: (before, after). The output has
+    ceil(size / stride) positions; of the padding that needs, ``total // 2``
+    goes before and the rest after (so a stride-2 conv on an even size pads
+    0 before and 1 after, where a symmetric padding of 1 would shift the
+    map by a pixel)."""
+    k_eff = (k - 1) * dilation + 1
+    out = -(-size // stride)
+    total = max((out - 1) * stride + k_eff - size, 0)
+    return total // 2, total - total // 2
+
+
 class Conv(nn.Module):
-    """2-D convolution on NCHW (channels_last in memory) with symmetric
-    padding, as flax's ``nn.Conv`` with an integer padding."""
+    """2-D convolution on NCHW (channels_last in memory), as flax's
+    ``nn.Conv``: ``padding`` an integer (symmetric) or ``"SAME"`` (XLA's,
+    flax's default, which pads the end more when the total is odd), with
+    ``dilation`` as flax's ``kernel_dilation``."""
 
     def __init__(self, cin: int, cout: int, k: int, stride: int = 1,
-                 padding: int = 0, bias: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 padding: int | str = 0, bias: bool = True,
+                 dtype: torch.dtype = torch.float32, dilation: int = 1):
         super().__init__()
+        if isinstance(padding, str) and padding != "SAME":
+            raise ValueError(f"padding {padding!r}: an integer or 'SAME'")
         self.weight = nn.Parameter(torch.empty(cout, cin, k, k))
         self.bias = nn.Parameter(torch.empty(cout)) if bias else None
         self.stride, self.padding, self.dtype = stride, padding, dtype
+        self.k, self.dilation = k, dilation
 
     def forward(self, x):
         bias = None if self.bias is None else self.bias.to(self.dtype)
-        return F.conv2d(x.to(self.dtype), self.weight.to(self.dtype), bias,
-                        self.stride, self.padding)
+        x = x.to(self.dtype)
+        pad = self.padding
+        if pad == "SAME":
+            top, bottom = same_padding(x.shape[2], self.k, self.stride,
+                                       self.dilation)
+            left, right = same_padding(x.shape[3], self.k, self.stride,
+                                       self.dilation)
+            if (top, left) == (bottom, right):
+                pad = (top, left)
+            else:
+                x = F.pad(x, (left, right, top, bottom))
+                pad = 0
+        return F.conv2d(x, self.weight.to(self.dtype), bias, self.stride,
+                        pad, self.dilation)
 
 
 class LayerNorm(nn.Module):

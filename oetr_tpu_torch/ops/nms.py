@@ -2,7 +2,10 @@
 
 Port of ``oetr_tpu/ops/nms.py``. Score maps stay dense [B, H, W], and the
 selection is a fixed-k top-k with a validity mask, so no shape depends on
-the data.
+the data. The top-k breaks ties toward the lower index, as
+``jax.lax.top_k`` does (``torch.topk`` promises no order among equal
+values, and on the card none holds): flat score regions and saturated
+sigmoids tie.
 """
 from __future__ import annotations
 
@@ -42,15 +45,31 @@ def remove_borders(scores: torch.Tensor, border: int) -> torch.Tensor:
     return torch.where(keep[None], scores, torch.zeros_like(scores))
 
 
+def topk_stable(x: torch.Tensor, k: int):
+    """The k largest entries of the last axis and their indices, in
+    descending order, equal values in index order (``jax.lax.top_k``).
+    k = 2 (the matchers' ratio tests) takes the first index of the maximum
+    twice, the second time with the first one masked out; any other k a
+    stable descending sort."""
+    if k == 2:
+        i0 = torch.argmax(x, dim=-1, keepdim=True)
+        i1 = torch.argmax(x.scatter(-1, i0, float("-inf")), dim=-1,
+                          keepdim=True)
+        idx = torch.cat([i0, i1], dim=-1)
+        return torch.gather(x, -1, idx), idx
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
 def topk_keypoints(scores: torch.Tensor, k: int, threshold: float = 0.0,
                    nms_tile: int = 0):
     """Fixed-k keypoints from a [B, H, W] score map.
 
     With ``nms_tile`` > 1 the map is known to be NMS-suppressed with radius
     >= nms_tile - 1, so a tile of nms_tile² pixels holds at most one
-    positive survivor: the top-k runs on the tiles' maxima (ties break
-    differently from the dense path). It falls back to the dense path when
-    there are fewer tiles than k.
+    positive survivor: the top-k runs on the tiles' maxima (so among equal
+    scores the tile order, not the pixel order, decides, as in JAX). It
+    falls back to the dense path when there are fewer tiles than k.
 
     Returns xy [B, k, 2] float (x, y), scores [B, k] and valid [B, k].
     """
@@ -65,7 +84,7 @@ def topk_keypoints(scores: torch.Tensor, k: int, threshold: float = 0.0,
             s = s.reshape(b, ht * wt, t * t)
             cmax = s.amax(dim=-1)
             carg = s.argmax(dim=-1)
-            vals, cidx = torch.topk(cmax, k, dim=1)
+            vals, cidx = topk_stable(cmax, k)
             within = torch.gather(carg, 1, cidx)
             ys = (cidx // wt * t + within // t).float()
             xs = (cidx % wt * t + within % t).float()
@@ -76,7 +95,7 @@ def topk_keypoints(scores: torch.Tensor, k: int, threshold: float = 0.0,
             vals = torch.clamp(vals, min=0.0)
             xy = torch.where(valid[..., None], xy, torch.zeros_like(xy))
             return xy, vals, valid
-    vals, idx = torch.topk(scores.reshape(b, h * w), k, dim=1)
+    vals, idx = topk_stable(scores.reshape(b, h * w), k)
     xy = torch.stack([(idx % w).float(), (idx // w).float()], dim=-1)
     return xy, vals, vals > threshold
 

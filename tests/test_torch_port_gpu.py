@@ -34,7 +34,11 @@ with a batch of 1, K4 refusing a gradient, inference keeping the launch
 path, and a small OETR backward with the switches on against off; the
 train step with the switches on against off, a bf16 step renewing K2's
 cached bf16 weights, no device -> host copy in a step, and a checkpoint
-resumed to the same bits. For the
+resumed to the same bits. For the public API: D2-Net, R2D2, DISK,
+ASLFeat, COTR and ContextDesc on the card against the CPU, the matchers'
+tie-breaking on CUDA, the ``"SAME"`` convolution at strides 1 and 2 with
+dilations 1, 2 and 4, and ``build_model`` / ``get_matches``'s helper /
+``get_pose`` on the card against the CPU. For the
 pose path: the eigh kernel against LAPACK (8-point normal matrices, 3x3
 Gram matrices, n = 1 and 16, batch dimensions, zero and repeated
 eigenvalues, the lower triangle, NaN and what it refuses), the
@@ -1312,3 +1316,153 @@ def test_refine_f32_returns_its_input_on_card(cuda):
     assert torch.equal(R, R0) and torch.equal(t, args[1])
     args64, R0_64 = _refine_args(cuda, torch.float64)
     assert (ransac.refine_pose_sampson(*args64)[0] - R0_64).abs().max() > 1e-4
+
+
+# ------------------------------------------- extractors, matchers, COTR --
+
+def _gray_pair(hw, seed):
+    """A grayscale pair [1, hw, hw, 1] with structure at 4 px, and its
+    shift by 8 px."""
+    g = torch.Generator().manual_seed(seed)
+    small = torch.rand(1, 1, hw // 4, hw // 4, generator=g)
+    img = torch.nn.functional.interpolate(small, size=(hw, hw),
+                                          mode="nearest")
+    img = (img + 0.05 * torch.randn(img.shape, generator=g)).clamp(0, 1)
+    img = img.permute(0, 2, 3, 1).contiguous()
+    return img, torch.roll(img, (8, -8), dims=(1, 2))
+
+
+@pytest.mark.parametrize("name,hw", [("d2net-ss", 128), ("r2d2-desc", 96),
+                                     ("disk-desc", 128),
+                                     ("aslfeat-desc", 128)])
+def test_extractor_on_card_matches_cpu(cuda, name, hw):
+    """Each new extractor, seeded weights, f32: dense scores within 1e-4
+    of the largest entry, >= 99% of the keypoint slots equal, descriptors
+    within 1e-4 on the equal valid slots."""
+    from oetr_tpu_torch.models import registry
+    gen = lambda: torch.Generator().manual_seed(len(name))
+    card = registry.build(name, device=cuda, generator=gen())
+    cpu = registry.build(name, device="cpu", generator=gen())
+    img, _ = _gray_pair(hw, 3)
+    with torch.inference_mode():
+        d = {k: v.cpu() for k, v in card(img.to(cuda)).items()}
+        c = cpu(img)
+    ref = c["dense_scores"]
+    assert ((d["dense_scores"] - ref).abs().max()
+            <= 1e-4 * max(1.0, ref.abs().max().item()))
+    same = (d["keypoints"] == c["keypoints"]).all(-1) & (d["valid"]
+                                                       == c["valid"])
+    assert same.float().mean() >= 0.99
+    both = same & c["valid"]
+    assert both.sum() > 0
+    assert (d["descriptors"] - c["descriptors"]).abs()[both].max() <= 1e-4
+
+
+def test_cotr_and_contextdesc_on_card_match_cpu(cuda):
+    from oetr_tpu_torch.models import cotr, sift_based
+    kw = dict(d_model=64, nhead=4, enc_layers=1, dec_layers=1,
+              backbone_depth=18)
+    card = cotr.build_cotr(device=cuda, **kw)
+    cpu = cotr.build_cotr(device="cpu", **kw)
+    g = torch.Generator().manual_seed(5)
+    im0 = torch.rand(1, 64, 64, 3, generator=g)
+    im1 = torch.roll(im0, 4, dims=2)
+    q = torch.rand(1, 64, 2, generator=g) * 0.9 + 0.05
+    got = cotr.cotr_match(card, im0.to(cuda), im1.to(cuda), q.to(cuda))
+    want = cotr.cotr_match(cpu, im0, im1, q)
+    for key in ("mkpts1", "cycle_error"):
+        assert (got[key].cpu() - want[key]).abs().max() <= 1e-4, key
+
+    net = sift_based.build_contextdesc(device=cuda)
+    ref = sift_based.build_contextdesc(device="cpu")
+    k = 50
+    desc = torch.rand(1, k, 128, generator=g)
+    desc = desc / desc.norm(dim=-1, keepdim=True)
+    args = (torch.rand(1, 96, 96, 1, generator=g), desc,
+            torch.rand(1, k, 2, generator=g) * 95,
+            torch.rand(1, k, generator=g) * 0.1,
+            torch.rand(1, k, generator=g) > 0.2)
+    with torch.inference_mode():
+        dd, dm = net(*[a.to(cuda) for a in args])
+        cd, cm = ref(*args)
+    assert (dd.cpu() - cd).abs().max() <= 1e-4
+    assert (dm.cpu() - cm).abs().max() <= 1e-4
+
+
+def test_matchers_break_ties_toward_the_lower_index_on_card(cuda):
+    """topk_stable(x, 2) on CUDA: the lower index first among equal values (masked rows
+    all at -1e9 included), as jax.lax.top_k; the NN and DISK matchers on
+    forced ties (repeated descriptors, identity rows, masked columns) give
+    the CPU's matches."""
+    from oetr_tpu_torch.models import matchers
+    from oetr_tpu_torch.ops.nms import topk_stable
+    x = torch.tensor([[1.0, 3.0, 3.0, 0.0, 3.0],
+                      [-1e9, -1e9, -1e9, -1e9, -1e9],
+                      [0.0, 0.0, 5.0, 0.0, 5.0]])
+    x = torch.cat([x, torch.full((1, 5), -1e9)]).repeat(64, 1)
+    _, idx = topk_stable(x.to(cuda), 2)
+    assert idx[:4].tolist() == [[1, 2], [0, 1], [2, 4], [0, 1]]
+    assert torch.equal(idx.cpu(), topk_stable(x, 2)[1])
+
+    g = torch.Generator().manual_seed(9)
+    d0 = torch.randn(2, 300, 64, generator=g)
+    d1 = torch.randn(2, 400, 64, generator=g)
+    d1[:, :40] = d0[:, :40]
+    d1[:, 100:110] = d1[:, 99:100]            # ten copies of one vector
+    d0[:, 50:60] = d1[:, 99:100] + 0.2 * torch.randn(2, 10, 64, generator=g)
+    d0 = d0 / d0.norm(dim=-1, keepdim=True)
+    d1 = d1 / d1.norm(dim=-1, keepdim=True)
+    v0 = torch.rand(2, 300, generator=g) > 0.1
+    v1 = torch.rand(2, 400, generator=g) > 0.1
+    v1[1] = False                             # every column masked
+    for fn in (matchers.nearest_neighbor_match, matchers.disk_brute_match):
+        for masks in ((None, None), (v0, v1)):
+            want = fn(d0, d1, *masks)["matches0"]
+            got = fn(d0.to(cuda), d1.to(cuda),
+                     *[m if m is None else m.to(cuda) for m in masks])
+            assert torch.equal(got["matches0"].cpu(), want), fn.__name__
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("k,dilation", [(2, 1), (3, 1), (3, 2), (3, 4)])
+@pytest.mark.parametrize("size", [15, 16])
+def test_same_conv_on_card_matches_cpu(cuda, stride, k, dilation, size):
+    from oetr_tpu_torch.models import layers
+    with torch.device("meta"):
+        conv = layers.Conv(4, 6, k, stride, "SAME", dilation=dilation)
+    card = layers.materialize(conv, cuda, None)
+    with torch.device("meta"):
+        conv = layers.Conv(4, 6, k, stride, "SAME", dilation=dilation)
+    cpu = layers.materialize(conv, "cpu", None)
+    x = torch.rand(2, 4, size, size + 3, generator=torch.Generator()
+                   .manual_seed(k))
+    with torch.inference_mode():
+        got, want = card(x.to(cuda)).cpu(), cpu(x)
+    assert got.shape == want.shape == (2, 6, -(-size // stride),
+                                       -(-(size + 3) // stride))
+    assert (got - want).abs().max() <= 1e-5
+
+
+def test_public_api_on_card_matches_cpu(cuda):
+    """build_model + get_matches's helper (below the decode) with DISK and
+    its matcher, and get_pose, on the card against the CPU."""
+    from oetr_tpu_torch.pipelines import api
+    cfg = port.PipelineConfig(canvas_hw=(128, 128), oetr_hw=(128, 128))
+    img0, img1 = (t[0].repeat(1, 1, 3).numpy() for t in _gray_pair(160, 4))
+    res = {}
+    for dev in (cuda, "cpu"):
+        model = api.build_model("disk-desc", "disk", cfg=cfg, device=dev)
+        res[str(dev)] = api._match_images(model, img0, img1)
+    got, want = res[str(cuda)], res["cpu"]
+
+    def rows(r):
+        """The matches as (x0, y0, x1, y1), to 0.01 px."""
+        m = r["matches"]
+        return {tuple(np.round(np.concatenate([r["kpts0"][a], r["kpts1"][b]]),
+                               2)) for a, b in m.T}
+
+    sg, sw = rows(got), rows(want)
+    assert len(sw) > 10
+    assert len(sg & sw) >= 0.99 * max(len(sg), len(sw))
+    pose = api.get_pose(got, device=cuda)
+    assert np.isfinite(pose["H"]).all() and pose["ok"]

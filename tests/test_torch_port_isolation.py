@@ -3,10 +3,12 @@
 The port must start where only torch is installed: the machine with the
 CUDA card lacks flax and orbax, which the JAX package's models and
 checkpoints need, and h5py and cv2. A child interpreter refuses jax,
-jaxlib, flax, optax, orbax, oetr_tpu, h5py and cv2, then imports every
-module of the port (the geometry, the evaluation package, the h5 utilities,
-the pair lists, the trainer and the MegaDepth dataset among them) and
-``chip_smoke``, and runs a small forward on the CPU.
+jaxlib, flax, optax, orbax, oetr_tpu, h5py, cv2 and matplotlib, then
+imports every module of the port (the geometry, the evaluation package,
+the h5 utilities, the pair lists, the trainer, the MegaDepth dataset, the
+extractors, matchers and registry, the image service, the public API, the
+runner, the demo and the plots among them) and ``chip_smoke``, runs a
+small forward on the CPU and ``get_matches``'s helper below the decode.
 """
 import os
 import re
@@ -21,7 +23,7 @@ CHILD = r'''
 import importlib, pkgutil, sys
 
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "oetr_tpu", "h5py",
-           "cv2")
+           "cv2", "matplotlib")
 MUST_LIST = ("oetr_tpu_torch.geometry.ransac",
              "oetr_tpu_torch.geometry.fivepoint",
              "oetr_tpu_torch.geometry.homography",
@@ -37,7 +39,16 @@ MUST_LIST = ("oetr_tpu_torch.geometry.ransac",
              "oetr_tpu_torch.training.validation",
              "oetr_tpu_torch.training.cli", "oetr_tpu_torch.data.gt",
              "oetr_tpu_torch.data.megadepth",
-             "oetr_tpu_torch.utils.profiling")
+             "oetr_tpu_torch.utils.profiling",
+             "oetr_tpu_torch.models.matchers", "oetr_tpu_torch.models.d2net",
+             "oetr_tpu_torch.models.r2d2", "oetr_tpu_torch.models.disk",
+             "oetr_tpu_torch.models.aslfeat", "oetr_tpu_torch.models.cotr",
+             "oetr_tpu_torch.models.sift_based", "oetr_tpu_torch.models.icp",
+             "oetr_tpu_torch.models.registry", "oetr_tpu_torch.data.images",
+             "oetr_tpu_torch.data.native", "oetr_tpu_torch.pipelines.api",
+             "oetr_tpu_torch.pipelines.runner",
+             "oetr_tpu_torch.pipelines.demo", "oetr_tpu_torch.utils.viz",
+             "oetr_tpu_torch.utils.timer")
 
 
 class Refuse:
@@ -69,6 +80,18 @@ model = build_oetr(cfg, device="cpu")
 with torch.no_grad():
     out = model(torch.rand(1, 160, 160, 3), torch.rand(1, 160, 160, 3))
 assert torch.isfinite(out["pred_bbox1"]).all()
+from oetr_tpu_torch.pipelines import PipelineConfig, api
+model = api.build_model("disk-desc", "disk", cfg=PipelineConfig(
+    canvas_hw=(64, 64), oetr_hw=(64, 64)), device="cpu")
+img = torch.rand(70, 90, 3).numpy()
+res = api._match_images(model, img, img)
+assert res["matches"].shape[0] == 2 and len(res["kpts0"]) == 2048
+try:
+    api.get_matches(model, "a.png", "b.png")
+except ImportError:
+    pass
+else:
+    raise AssertionError("get_matches read a file without cv2")
 leaked = sorted(m for m in sys.modules
                 if any(m == b or m.startswith(b + ".") for b in BLOCKED))
 assert not leaked, leaked
