@@ -7,7 +7,8 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc:
 
 It builds the port's CUDA kernels from ``oetr_tpu_torch/csrc`` with nvcc
 (reporting ptxas's registers and spills for the bf16 kernels on mma.sync:
-K2, K5, K6), holds each kernel against its plain torch version at the main
+K2, K5, K6; and for the eigh kernel's sixteen instantiations with their
+stack frames, none allowed for the pose path's n = 3 and n = 9), holds each kernel against its plain torch version at the main
 paths' shapes (K2 at the flagship's and the fc config's widths, K3, K1, K5
 and K6 in float32 and bfloat16, K5 and K6 also at [2, 4096, 8, 32] and in
 bf16 at SuperGlue's [8, 2048, 4, 64], K4 in float32; for every kernel its
@@ -66,7 +67,10 @@ paths with seeded random weights:
     card's eigh and svd3 results, on the same inputs and draws, and read
     beside the plain CPU and the CPU's own spread; the eigh kernel
     (``csrc/small_eigh.cu``, the estimator's null vectors and 3x3 SVDs) on
-    every call of the path against LAPACK; the scenes phase's sparse matches scored (pose AUC);
+    every call of the path against LAPACK, its device ms at each distinct
+    shape of the path beside torch.linalg.eigh's and the bound, and its
+    total in the traced pose call; the scenes phase's sparse matches scored
+    (pose AUC);
     ms a call, device busy ms, idle share, launches and device -> host
     copies a call (none with the 5-point stage off), and the host 5-point
     stage alone. In float32 the refinement returns its input, as JAX's
@@ -776,6 +780,30 @@ def k1_resources(resources):
         raise AssertionError(f"ptxas reported {len(rows)} of the 8 K1 "
                              "kernels")
     return sorted(rows, key=lambda r: r["kernel"])
+
+
+def eigh_resources(record):
+    """ptxas's registers, spill bytes and stack frame of the eigh kernel's
+    sixteen instantiations (one thread a matrix for n <= 3, a lane group
+    from n = 4); raises if one is missing, or if the pose path's (n = 3 and
+    n = 9) has a stack frame or spills."""
+    frames = record.get("stack_frames", {})
+    rows = []
+    for mangled, res in sorted(record["resources"].items()):
+        m = re.search(r"sym_eigh_kernel_(thread|lanes)ILi(\d+)E", mangled)
+        if m:
+            rows.append({"kernel": f"eigh {m.group(1)} n={m.group(2)}",
+                         "n": int(m.group(2)), **res,
+                         "stack_frame": frames.get(mangled)})
+    if len(rows) != 16:
+        raise AssertionError(f"ptxas reported {len(rows)} of the 16 eigh "
+                             "kernels")
+    for r in rows:
+        if r["n"] in (3, 9) and (r["stack_frame"] != 0
+                                 or r.get("spill_stores", 1)
+                                 or r.get("spill_loads", 1)):
+            raise AssertionError(f"eigh n={r['n']}: stack or spills: {r}")
+    return sorted(rows, key=lambda r: r["n"])
 
 
 def k3_k4_resources(resources):
@@ -1816,31 +1844,56 @@ def eigh_errors(torch, ops, calls):
             "max_rel_err": worst, "max_abs_err": abs_err}
 
 
-def eigh_row(torch, ops, A):
-    """The eigh kernel's row of the kernels line on the path's largest
-    call, A [8, 512, 9, 9] (round 1's normal matrices). Its bound is the
-    function's, not the Jacobi kernel's: each matrix read once and w, V
+def eigh_by_shape(torch, eigh, calls):
+    """Per distinct shape of the recorded ``calls``, largest first: the
+    calls of that shape, the device ms of ``eigh`` and of torch.linalg.eigh
+    on its first input, and the bound: each matrix read once and w, V
     written once, and ~9 n³ flops a matrix, what a symmetric
     eigendecomposition with vectors needs (Householder tridiagonalization
-    and implicit QL, Golub & Van Loan §8.3)."""
-    batch, n = A.numel() // (A.shape[-1] ** 2), A.shape[-1]
-    w, V = ops.eigh(A)
-    bnd, bound_by = bound(nbytes(A, w, V), batch * 9 * n ** 3, "float32")
-    host = A.cpu()
+    and implicit QL, Golub & Van Loan §8.3), not the Jacobi sweeps'."""
+    first, count = {}, collections.Counter()
+    for a in calls:
+        first.setdefault(tuple(a.shape), a)
+        count[tuple(a.shape)] += 1
+    rows = []
+    for shape, a in sorted(first.items(), key=lambda kv: -kv[1].numel()):
+        batch, n = a.numel() // (shape[-1] ** 2), shape[-1]
+        w, V = eigh(a)
+        bnd, bound_by = bound(nbytes(a, w, V), batch * 9 * n ** 3, "float32")
+        rows.append({"shape": list(shape), "calls": count[shape],
+                     "device_ms": device_ms(torch, lambda: eigh(a)),
+                     "library_device_ms": device_ms(
+                         torch, lambda: torch.linalg.eigh(a)),
+                     "bound_ms": bnd, "bound_by": bound_by})
+    return rows
+
+
+def eigh_row(torch, ops, calls):
+    """The eigh kernel's row of the kernels line: ``eigh_by_shape`` of the
+    path's calls and their sum over the path; and on the largest call,
+    A [8, 512, 9, 9] (round 1's normal matrices), the wrapper's ms, LAPACK
+    on the host (the plain version) and torch.linalg.eigh's ms."""
+    by_shape = eigh_by_shape(torch, ops.eigh, calls)
+    top = by_shape[0]
+    a = next(a for a in calls if list(a.shape) == top["shape"])
+    host = a.cpu()
     t = []
     for _ in range(3):
         t0 = time.perf_counter()
         ops.eigh_reference(host)
         t.append((time.perf_counter() - t0) * 1e3)
-    return {"shape": list(A.shape), "matrices": batch,
-            "kernel_ms": time_ms(torch, lambda: ops.eigh(A)),
-            "device_ms": device_ms(torch, lambda: ops.eigh(A)),
+    return {"shape": top["shape"], "matrices": host.numel() // (
+                host.shape[-1] ** 2),
+            "kernel_ms": time_ms(torch, lambda: ops.eigh(a)),
+            "device_ms": top["device_ms"],
             "plain_ms": statistics.median(t),
             "plain": "LAPACK syevd on the host (scipy), the CPU path",
-            "library_ms": time_ms(torch, lambda: torch.linalg.eigh(A)),
-            "library_device_ms": device_ms(torch,
-                                           lambda: torch.linalg.eigh(A)),
-            "bound_ms": bnd, "bound_by": bound_by}
+            "library_ms": time_ms(torch, lambda: torch.linalg.eigh(a)),
+            "library_device_ms": top["library_device_ms"],
+            "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+            "by_shape": by_shape,
+            "path_device_ms": sum(r["calls"] * r["device_ms"]
+                                  for r in by_shape)}
 
 
 def traced_stats(torch, fn, reps=3, names=(), warmup=1, cpu=True):
@@ -1952,7 +2005,7 @@ def run_pose(torch, port, ops, scenes):
             raise AssertionError(f"pose launches {launches}")
         fields["launches"] = {k: n for k, n in launches.items() if n}
         fields["eigh"] = eigh_errors(torch, ops, eigh_calls)
-        row = eigh_row(torch, ops, max(eigh_calls, key=lambda a: a.numel()))
+        row = eigh_row(torch, ops, eigh_calls)
         row.update(launches=launches["eigh"],
                    max_abs_err=fields["eigh"]["max_abs_err"])
         fields["eigh_kernel"] = row
@@ -2089,6 +2142,10 @@ def run_pose(torch, port, ops, scenes):
             torch.cuda.synchronize()
             host.append((time.perf_counter() - t0) * 1e3)
         timing["five_point_host_ms"] = statistics.median(host)
+        traced = timing["use_5pt=False"]
+        row.update(traced_pose_device_ms=traced["device_ms_by_category"].get(
+                       "small eigh (Jacobi)", 0.0),
+                   traced_pose_busy_ms=traced["device_busy_ms"])
         timing["five_point_samples"] = pf.POSE_PAIRS * 128
         fields["timing"] = timing
         lap("timing")
@@ -2945,6 +3002,7 @@ def main() -> int:
           tensor_core_kernels=tensor_core_resources(record["resources"]),
           k3_k4_kernels=k3_k4_resources(record["resources"]),
           k1_kernels=k1_resources(record["resources"]),
+          eigh_kernels=eigh_resources(record),
           ptxas=record["ptxas"])
 
     k2, k3 = {}, {}
@@ -3138,6 +3196,8 @@ def main() -> int:
                   "library_ms": eigh_row["library_ms"],
                   "device_ms": eigh_row["device_ms"],
                   "library_device_ms": eigh_row["library_device_ms"],
+                  "device_ms_by_shape": eigh_row["by_shape"],
+                  "traced_pose_device_ms": eigh_row["traced_pose_device_ms"],
                   "launches_by_path": {"pose": eigh_row["launches"]}})
     if elapsed() > BUDGET_S:
         raise RuntimeError(f"over the {BUDGET_S:.0f} s budget")

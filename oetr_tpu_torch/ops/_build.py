@@ -131,6 +131,25 @@ def ptxas_resources(logs: list[str]) -> dict:
     return res
 
 
+def ptxas_stack_frames(logs: list[str]) -> dict:
+    """Stack frame bytes per kernel (mangled name) from the ``ptxas -v``
+    reports: each stack line belongs to the function of the "Function
+    properties for" line before it, and is left out where that is not a
+    kernel (a subroutine such as IEEE division's slow path)."""
+    kernels, frames, props = set(), {}, None
+    for line in (ln for log in logs for ln in log.splitlines()):
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            kernels.add(m.group(1))
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            props = m.group(1)
+        m = re.search(r"(\d+) bytes stack frame", line)
+        if m and props in kernels:
+            frames[props] = int(m.group(1))
+    return frames
+
+
 def _run_parallel(cmds: list[list[str]]) -> tuple[list[str], list[float]]:
     """Run the commands at once. Returns each one's output and the seconds
     until it was seen to end; raises if any failed."""
@@ -157,8 +176,9 @@ def load_library():
     Returns ``(lib, record)``: the ``ctypes.CDLL`` with argtypes set, and a
     dict with the library path, whether it was built in this call, the
     seconds of each build step, the compiler's resource report and, parsed
-    from it, each kernel's registers and spill bytes. The report is kept
-    beside the library, so a reused library carries the one of its build.
+    from it, each kernel's registers, spill bytes and stack frame. The
+    report is kept beside the library, so a reused library carries the one
+    of its build.
     """
     srcs = sources()
     key = build_key(srcs)
@@ -178,7 +198,8 @@ def load_library():
         report = {"ptxas": [line.strip() for log in logs
                             for line in log.splitlines()
                             if "registers" in line or "spill" in line],
-                  "resources": ptxas_resources(logs)}
+                  "resources": ptxas_resources(logs),
+                  "stack_frames": ptxas_stack_frames(logs)}
         tmp_report = work / report_path.name
         tmp_report.write_text(json.dumps(report))
         # The report lands first: a library is never seen without its own.

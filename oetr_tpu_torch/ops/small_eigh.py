@@ -7,8 +7,11 @@ decomposes 3x3 matrices with ``jnp.linalg.svd``. On a CUDA tensor
 ``torch.linalg.eigh`` and ``torch.linalg.svd`` check their status codes
 with a device-to-host copy on every call (they have no ``_ex`` form), so
 the estimator would wait on the card some twenty times a call. Here
-``eigh`` launches ``csrc/small_eigh.cu`` instead: one thread a matrix,
-cyclic Jacobi in float32, no status to read back.
+``eigh`` launches ``csrc/small_eigh.cu`` instead, and reads nothing back:
+parallel Jacobi in float32 with n fixed at compile time, a group of
+n + n % 2 lanes a matrix for n >= 4 (one thread for n <= 3), the pairs in
+a round-robin order (``jacobi_rounds``). ``eigh_jacobi_reference`` is
+that algorithm in plain torch, for the tests.
 
 On a CPU tensor both run their plain version: LAPACK's ``syevd`` and
 ``gesdd``, the routines JAX calls on the CPU, from the LAPACK that jaxlib
@@ -27,6 +30,8 @@ import torch
 from ._build import check_launch, load_library
 
 MAX_N = 16
+# The kernel's sweep cap (``kMaxSweeps``): a NaN or an overflow ends there.
+MAX_SWEEPS = 50
 
 
 def _lapack(A: torch.Tensor, name: str):
@@ -64,13 +69,99 @@ def eigh_reference(A: torch.Tensor):
     return _lapack(A, "syevd")
 
 
+def jacobi_rounds(n: int) -> list[list[tuple[int, int]]]:
+    """The kernel's order of pairs for n x n: the circle method on m = n +
+    n % 2 indices, m - 1 rounds of m / 2 disjoint pairs (slot 0 of round r
+    pairs m - 1 with r, slot k pairs (r + k) and (r - k) mod (m - 1)), each
+    pair as (p, q) with p < q; pairs of the padding index n are left out."""
+    m = n + n % 2
+    rounds = []
+    for r in range(m - 1):
+        pairs = []
+        for k in range(m // 2):
+            a, b = ((m - 1, r) if k == 0 else
+                    ((r + k) % (m - 1), (r - k) % (m - 1)))
+            if max(a, b) < n:
+                pairs.append((min(a, b), max(a, b)))
+        rounds.append(pairs)
+    return rounds
+
+
+def _rotation(app, aqq, apq):
+    """The kernel's ``rotation``: (c, s, t, rotates) of each pair: the
+    identity where a_pq is negligible beside both diagonal entries; t =
+    a_pq / h, c = 1 where |h| = |a_qq - a_pp| dwarfs a_pq; else, with θ =
+    h / (2 a_pq) and d = |θ| + sqrt(θ² + 1), t = sgn θ / d, c = d e, s =
+    sgn θ e for e = 1 / sqrt(d² + 1)."""
+    g = 100 * apq.abs()
+    negligible = (app.abs() + g == app.abs()) & (aqq.abs() + g == aqq.abs())
+    h = aqq - app
+    small = h.abs() + g == h.abs()
+    t_small = apq / h
+    theta = 0.5 * h / apq
+    r2 = theta * theta + 1
+    d = theta.abs() + r2 * torch.rsqrt(r2)
+    x = d * d + 1
+    e = torch.rsqrt(x)
+    e = 0.5 * e * (1 - x * e * e) + e
+    sgn = torch.where(theta < 0, -1.0, 1.0)
+    one, zero = torch.ones_like(h), torch.zeros_like(h)
+    c = torch.where(negligible | small, one, d * e)
+    s = torch.where(negligible, zero, torch.where(small, t_small, sgn * e))
+    t = torch.where(negligible, zero, torch.where(small, t_small, sgn / d))
+    return c, s, t, ~negligible
+
+
+def eigh_jacobi_reference(A: torch.Tensor):
+    """The kernel's algorithm in plain torch, float32, for the tests: the
+    lower triangle mirrored; sweeps of ``jacobi_rounds(n)``, each round's
+    rotations taken from the matrix as the round found it, applied to the
+    rows (Jᵀ A), then to the columns (A J and V J); a_pq set to 0 and the
+    diagonal to a_pp - t a_pq, a_qq + t a_pq; until a sweep rotates no pair
+    of any matrix with finite entries (a finished matrix meets identity
+    rotations only), at most MAX_SWEEPS. Eigenvalues ascending (ties by
+    index), NaN in w and V for a matrix with a non-finite entry. Returns
+    (w [..., n], V [..., n, n]) as ``eigh``."""
+    n, shape = A.shape[-1], A.shape[:-2]
+    low = torch.tril(A.detach().float().cpu())
+    a = (low + torch.tril(low, -1).transpose(-1, -2)).reshape(-1, n, n)
+    v = torch.eye(n).expand(a.shape[0], n, n).clone()
+    bad = ~torch.isfinite(a).all(-1).all(-1)
+    rounds = [(torch.tensor([p for p, _ in pairs]),
+               torch.tensor([q for _, q in pairs]))
+              for pairs in jacobi_rounds(n) if pairs]
+    for _ in range(MAX_SWEEPS):
+        rotated = torch.zeros_like(bad)
+        for P, Q in rounds:
+            app, aqq, apq = a[:, P, P], a[:, Q, Q], a[:, P, Q]
+            c, s, t, rot = _rotation(app, aqq, apq)
+            rotated |= rot.any(-1)
+            cr, sr = c[..., None], s[..., None]
+            ap, aq = a[:, P, :], a[:, Q, :]
+            a[:, P, :], a[:, Q, :] = cr * ap - sr * aq, sr * ap + cr * aq
+            cc, sc = c[:, None, :], s[:, None, :]
+            for m in (a, v):
+                mp, mq = m[:, :, P], m[:, :, Q]
+                m[:, :, P], m[:, :, Q] = cc * mp - sc * mq, sc * mp + cc * mq
+            a[:, P, Q] = 0.0
+            a[:, Q, P] = 0.0
+            a[:, P, P], a[:, Q, Q] = app - t * apq, aqq + t * apq
+        if not bool((rotated & ~bad).any()):
+            break
+    w = torch.diagonal(a, dim1=-2, dim2=-1) + 0.0
+    w, order = torch.sort(w, dim=-1, stable=True)
+    V = torch.gather(v, -1, order[:, None, :].expand_as(v))
+    w[bad], V[bad] = float("nan"), float("nan")
+    return w.reshape(shape + (n,)), V.reshape(shape + (n, n))
+
+
 def eigh(A: torch.Tensor):
     """(w [..., n], V [..., n, n]) of symmetric A [..., n, n], as
     ``torch.linalg.eigh``: eigenvalues ascending, eigenvectors as columns
     (each up to sign), the lower triangle read.
 
-    A CPU tensor runs the plain version. A CUDA tensor (float32, n <= 16)
-    launches the Jacobi kernel or raises.
+    A CPU tensor runs the plain version (LAPACK). A CUDA tensor (float32,
+    n <= 16) launches the Jacobi kernel, one launch a call, or raises.
     """
     if A.device.type == "cpu":
         return eigh_reference(A)

@@ -41,7 +41,9 @@ dilations 1, 2 and 4, and ``build_model`` / ``get_matches``'s helper /
 ``get_pose`` on the card against the CPU. For the
 pose path: the eigh kernel against LAPACK (8-point normal matrices, 3x3
 Gram matrices, n = 1 and 16, batch dimensions, zero and repeated
-eigenvalues, the lower triangle, NaN and what it refuses), the
+eigenvalues, the lower triangle, NaN and what it refuses), each n from 1
+to 16 at batches 1, 7, 65 and 4096 and the path's own shapes against
+LAPACK and its plain twin (``eigh_jacobi_reference``), the
 3x3 SVD built on it, estimate_pose and validation_error on the card
 against the CPU on the card's draws, the host syncs of a call (none with
 the 5-point stage off), float64 refused on the card, and the float32
@@ -1081,6 +1083,79 @@ def test_eigh_kernel_edges(cuda):
                 torch.zeros(2, 3, 4, device=cuda)):
         with pytest.raises(ValueError):
             ops.eigh(bad)
+
+
+def _same_vectors(w_ref, V, V_twin):
+    """Each column of V against the twin's where its eigenvalue is apart
+    from its neighbours by over 1e-3 of the largest |eigenvalue|: |dot| >
+    1 - 1e-4 (a column of a repeated eigenvalue is one of many)."""
+    w_ref = w_ref.double()
+    scale = w_ref.abs().amax(-1, keepdim=True).clamp(min=1e-30)
+    gaps = (w_ref[..., 1:] - w_ref[..., :-1]) / scale
+    inf = torch.full_like(w_ref[..., :1], float("inf"))
+    apart = torch.minimum(torch.cat([inf, gaps], -1),
+                          torch.cat([gaps, inf], -1)) > 1e-3
+    dot = (V.cpu().double() * V_twin.double()).sum(-2).abs()
+    assert (dot[apart] > 1 - 1e-4).all()
+
+
+@pytest.mark.parametrize("batch", [1, 7, 65, 4096])
+@pytest.mark.parametrize("n", range(1, 17))
+def test_eigh_kernel_every_n(cuda, n, batch):
+    """Each n from 1 to 16 (one thread a matrix to n = 3, a group of
+    n + n % 2 lanes from n = 4) at batches that leave a ragged last group,
+    warp and block: one launch; against LAPACK (EIGH_TOL) and against its
+    plain twin (eigenvalues within EIGH_TOL, eigenvectors where apart)."""
+    from oetr_tpu_torch.ops.small_eigh import eigh_jacobi_reference
+    g = torch.Generator(device=cuda).manual_seed(100 + n)
+    M = torch.randn(batch, n, n + 3, generator=g, device=cuda)
+    A = M @ M.transpose(-1, -2)
+    before = ops.eigh.launches
+    w, V = ops.eigh(A)
+    assert ops.eigh.launches == before + 1
+    _check_eigh(A, w, V)
+    w_twin, V_twin = eigh_jacobi_reference(A.cpu())
+    scale = w_twin.abs().amax(-1, keepdim=True)
+    assert ((w.cpu() - w_twin).abs() / scale).max() < EIGH_TOL
+    _same_vectors(ops.eigh_reference(A.cpu())[0], V, V_twin)
+
+
+# estimate_pose's 18 eigh calls at chip_smoke.py's pose size (8 pairs, 512
+# hypotheses): the 9x9 normal matrices of round 1, the homography round, the
+# LO refits and the final refits; the 3x3 Gram matrices of the SVDs.
+POSE_EIGH_SHAPES = [(8, 512, 9, 9), (8, 256, 9, 9), (8, 8, 9, 9), (8, 9, 9),
+                    (8, 512, 3, 3), (8, 256, 3, 3), (8, 16, 3, 3),
+                    (8, 8, 3, 3), (8, 3, 3)]
+
+
+@pytest.mark.parametrize("shape", POSE_EIGH_SHAPES)
+def test_eigh_kernel_pose_shapes_match_twin(cuda, shape):
+    """The pose path's shapes (8-point normal matrices, minimal where the
+    path samples 8 rows, 60 rows for its refits; 3x3 Gram matrices): the
+    kernel against LAPACK and against its twin on the card's inputs, the
+    null vectors as ``test_eigh_kernel_matches_lapack`` holds them."""
+    from oetr_tpu_torch.ops.small_eigh import eigh_jacobi_reference
+    g = torch.Generator(device=cuda).manual_seed(len(shape) * 1000
+                                                 + shape[-3])
+    b = int(np.prod(shape[:-2]))
+    if shape[-1] == 9:
+        A = _normal_matrices(g, b, 8 if b >= 2048 else 60, cuda)
+    else:
+        M = torch.randn(b, 3, 3, generator=g, device=cuda)
+        A = M.transpose(-1, -2) @ M
+    A = A.reshape(shape)
+    w, V = ops.eigh(A)
+    _check_eigh(A, w, V)
+    w_twin, V_twin = eigh_jacobi_reference(A.cpu())
+    scale = w_twin.abs().amax(-1, keepdim=True)
+    assert ((w.cpu() - w_twin).abs() / scale).max() < EIGH_TOL
+    w_ref, V_ref = ops.eigh_reference(A.cpu())
+    _same_vectors(w_ref, V, V_twin)
+    if shape[-1] == 9:
+        gap = (w_ref[..., 1] - w_ref[..., 0]) / w_ref[..., -1]
+        for ref in (V_ref, V_twin):
+            dot = (V[..., :, 0].cpu() * ref[..., :, 0]).sum(-1).abs()
+            assert dot[gap > 1e-3].min() > 1 - 1e-4
 
 
 def test_svd3_on_card_is_an_svd(cuda):
