@@ -95,7 +95,24 @@ paths with seeded random weights:
     with pairs/s, device time, idle share, the identity check (an image
     against itself: matched keypoints within 1.5 px) and ``get_pose`` on
     its matches; each extractor and COTR against the CPU at 256x256; and
-    ``get_pose`` against the homography generator's true H.
+    ``get_pose`` against the homography generator's true H;
+  * ``sfm``: reconstruction, in two parts. (a) The SfM demo's rig
+    (``oetr_tpu_torch.sfm.demo`` at scripts/sfm_demo.py's defaults: 12
+    views of 320², a 45° arc, 30 view pairs), its correspondences from
+    the rendered depths (no cv2 and no trained matcher weights here):
+    ``estimate_pose`` per pair, the chain, both ``reconstruct`` rows
+    (triangulation on the eigh kernel at n = 4, BA), the ATE before and
+    after, the COLMAP model and database read back; every eigh call of the
+    path against LAPACK, the 4x4 shapes' device ms beside
+    torch.linalg.eigh's, and the card's points against the CPU's by their
+    reprojection errors. The chain row's BA is a no-op (camera 0 at zero
+    rotation: JAX's float32 NaN Jacobian, copied); the odometry row's ATE
+    must fall below half its start's. (b) ``bundle_adjust`` at the counts
+    of BAL's Dubrovnik-16 (16 cameras, 22,106 points, 83,718
+    observations; 15 steps of 40 CG iterations, Huber 4 px, f32): ms a
+    call and a step, busy ms, idle share, launches, device -> host copies
+    (none allowed), peak memory, and the card against the port on the CPU
+    (run in a child process meanwhile): final cost, cameras, ATE.
 K1's lines give its cluster (blocks per batch row and head), its grid and
 its device time at every cluster size.
 One JSON line per phase, each with ``t_s``, seconds since start, and
@@ -1797,6 +1814,7 @@ def recorded_eigh_inputs():
     """Records the input of every eigh call, passing each on."""
     from oetr_tpu_torch.geometry import homography, ransac
     from oetr_tpu_torch.ops import small_eigh
+    from oetr_tpu_torch.sfm import ba
 
     calls, real = [], small_eigh.eigh
 
@@ -1804,7 +1822,7 @@ def recorded_eigh_inputs():
         calls.append(A)
         return real(A)
 
-    sites = (small_eigh, homography, ransac)
+    sites = (small_eigh, homography, ransac, ba)
     try:
         for mod in sites:
             mod.eigh = recorder
@@ -1844,7 +1862,7 @@ def eigh_errors(torch, ops, calls):
             "max_rel_err": worst, "max_abs_err": abs_err}
 
 
-def eigh_by_shape(torch, eigh, calls):
+def eigh_by_shape(torch, eigh, calls, reps=20):
     """Per distinct shape of the recorded ``calls``, largest first: the
     calls of that shape, the device ms of ``eigh`` and of torch.linalg.eigh
     on its first input, and the bound: each matrix read once and w, V
@@ -1861,9 +1879,9 @@ def eigh_by_shape(torch, eigh, calls):
         w, V = eigh(a)
         bnd, bound_by = bound(nbytes(a, w, V), batch * 9 * n ** 3, "float32")
         rows.append({"shape": list(shape), "calls": count[shape],
-                     "device_ms": device_ms(torch, lambda: eigh(a)),
+                     "device_ms": device_ms(torch, lambda: eigh(a), reps),
                      "library_device_ms": device_ms(
-                         torch, lambda: torch.linalg.eigh(a)),
+                         torch, lambda: torch.linalg.eigh(a), reps),
                      "bound_ms": bnd, "bound_by": bound_by})
     return rows
 
@@ -2961,6 +2979,400 @@ def run_api(torch, port, ops):
     return fields, launches
 
 
+# -------------------------------------------------------------------- sfm --
+
+# Part (a): the SfM demo's rig at scripts/sfm_demo.py's defaults (12 views
+# of 320², a 45° arc, pixel noise 6, seed 3, pairs within 3 views: 30
+# edges, BA 20 steps), its correspondences from the rendered depths (no
+# cv2 for SIFT and no trained matcher weights on the card's machine): a
+# grid every 8 px, 0.5 px noise, 20% outliers.
+SFM_VIEWS, SFM_HW, SFM_ARC_DEG, SFM_NOISE = 12, 320, 45.0, 6.0
+SFM_SEED, SFM_SPAN, SFM_BA_ITERS = 3, 3, 20
+# The card's triangulated points against the CPU's from the same cameras:
+# each valid track's largest reprojection error, in px (AᵀA is badly
+# scaled, so a narrow-baseline track's raw coordinates follow the
+# eigensolver's last bits; its reprojection error much less). The phase
+# reads beside it the CPU against itself with the cameras nudged by one
+# ulp (``cpu_spread_px_valid``: 0.0048-0.0083 px on the H100 runs).
+SFM_REPROJ_PX = 0.05
+# Part (b): bundle adjustment at the counts of BAL's Dubrovnik-16 (Agarwal
+# et al., "Bundle Adjustment in the Large", 2010): 16 cameras, 22,106
+# points, 83,718 observations, with reconstruct's settings (15 steps, 40
+# CG iterations, Huber 4 px); seeded points seen by a ring of pinhole
+# cameras, in float32. Only the counts are BAL's, not its camera model.
+BAL_CAMS, BAL_POINTS, BAL_OBS = 16, 22106, 83718
+BAL_ITERS, BAL_CG_ITERS, BAL_HUBER = 15, 40, 4.0
+SFM_REPS = 5
+# The CPU's BA runs in a child process beside part (a), on 4 of the
+# machine's 8 cores (its index_add_s slow down with more threads).
+CPU_BA_THREADS = 4
+# BA on the card against the port on the CPU, same inputs: the final cost
+# within BAL_COST_RTOL of cost0, the cameras within BAL_CAMS_TOL and the ATE
+# against the truth within BAL_ATE of the CPU's. The CPU against itself
+# with obs_uv nudged by one ulp moved them by 3.7e-9 of cost0, 2.0e-5 and
+# 2.7e-8 (points 1.5e-5; the cost history by up to 1.9e-6 of cost0;
+# ``python3 sfm_spread.py``); the card sums in other orders (atomic adds),
+# so each bound leaves ~50x over that spread.
+BAL_COST_RTOL = 2e-7
+BAL_CAMS_TOL = 1e-3
+BAL_ATE = 1.5e-6
+BAL_SEED = 21
+
+
+def bal_problem(full_ring=False):
+    """A BA problem of Dubrovnik-16's counts: cameras on a half ring of
+    radius 10 around the origin (yaw -90° to 90°, none at zero rotation),
+    each looking at it, f = 500 on 640x480; points in a ball of radius 2;
+    each point seen by 3 or 4 cameras in a row (17,400 of them by 4),
+    pixels with 0.5 px noise. Half a ring, not a whole one: JAX's BA takes
+    its Jacobian in the so3 log but applies the step on the right of the
+    rotation, which agree near zero rotation only, and with cameras near
+    180° it stalls after one step (JAX and the port alike; ``full_ring``
+    puts the 16 cameras all around, at yaws off the axes by half a step,
+    to show it: sfm_spread.py). Returns (the
+    arguments of bundle_adjust as CPU tensors: initial cameras 0.01 rad /
+    0.05 off, points 0.05 off, camera 0 exact; the true cameras [C, 6]
+    float64)."""
+    import numpy as np
+    import torch
+
+    from oetr_tpu_torch.evalx.trajectory import so3_exp_np
+    from oetr_tpu_torch.sfm.demo import _log_so3
+
+    rng = np.random.default_rng(BAL_SEED)
+    cams = []
+    yaws = ((np.arange(BAL_CAMS) + 0.5) / BAL_CAMS * 2 * np.pi if full_ring
+            else np.deg2rad(np.linspace(-90.0, 90.0, BAL_CAMS)))
+    for a in yaws:
+        c = np.array([10 * np.sin(a), 0.5 * np.sin(3 * a), -10 * np.cos(a)])
+        z = -c / np.linalg.norm(c)
+        x = np.cross([0.0, 1.0, 0.0], z)
+        x /= np.linalg.norm(x)
+        R = np.stack([x, np.cross(z, x), z])
+        cams.append(np.concatenate([_log_so3(R), -R @ c]))
+    cams = np.stack(cams)
+    pts = rng.normal(size=(BAL_POINTS, 3))
+    pts *= 2 * rng.random((BAL_POINTS, 1)) ** (1 / 3) / np.linalg.norm(
+        pts, axis=1, keepdims=True)
+    per = np.full(BAL_POINTS, 3)
+    per[rng.permutation(BAL_POINTS)[:BAL_OBS - 3 * BAL_POINTS]] = 4
+    op = np.repeat(np.arange(BAL_POINTS), per)
+    start = np.repeat(rng.integers(0, BAL_CAMS, BAL_POINTS), per)
+    rank = np.arange(len(op)) - np.repeat(np.cumsum(per) - per, per)
+    oc = (start + rank) % BAL_CAMS
+    K = np.tile(np.array([[500.0, 0, 320], [0, 500.0, 240], [0, 0, 1]]),
+                (BAL_CAMS, 1, 1))
+    R = np.stack([so3_exp_np(c[:3]) for c in cams])
+    x = np.einsum("oij,oj->oi", R[oc], pts[op]) + cams[oc, 3:]
+    uv = np.einsum("oij,oj->oi", K[oc], x / x[:, 2:])[:, :2]
+    uv += rng.normal(0, 0.5, uv.shape)
+    init = cams + np.concatenate([rng.normal(0, 0.01, (BAL_CAMS, 3)),
+                                  rng.normal(0, 0.05, (BAL_CAMS, 3))], 1)
+    init[0] = cams[0]
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32)
+    return [f32(init), f32(pts + rng.normal(0, 0.05, pts.shape)), f32(K),
+            torch.as_tensor(oc), torch.as_tensor(op), f32(uv),
+            torch.ones(len(op), dtype=torch.bool)], cams
+
+
+def triangulation_vs_cpu(torch, recon, K):
+    """The tracks of ``recon`` triangulated on the card and on the CPU from
+    its cameras (float32), and on the CPU from the cameras nudged by one
+    ulp: each track's largest reprojection error from each. Returns the
+    fields: the largest gap card vs CPU over the valid tracks (bounded by
+    SFM_REPROJ_PX) and over all, beside the CPU's own under the nudge."""
+    import numpy as np
+
+    from oetr_tpu_torch.sfm import ba
+    from oetr_tpu_torch.sfm.reconstruct import _tracks_to_view_arrays
+
+    tracks = recon["tracks"]
+    cam_tbl, uv_tbl, valid_tbl = _tracks_to_view_arrays(tracks, SFM_SPAN + 1)
+    n = len(recon["cams"])
+    nudged = np.nextafter(recon["cams"], np.float32(np.inf))
+    err = {}
+    for name, dev, cams in ((str(DEV), DEV, recon["cams"]),
+                            ("cpu", "cpu", recon["cams"]),
+                            ("cpu_nudged", "cpu", nudged)):
+        to = lambda a: torch.as_tensor(a, device=dev)
+        cams = to(cams)
+        Kt = to(np.tile(K[None], (n, 1, 1)).astype(np.float32))
+        tbl = to(cam_tbl).long()
+        pts = ba.triangulate_points(cams[tbl], Kt[tbl], to(uv_tbl),
+                                    to(valid_tbl))
+        r = ba.residuals(cams, pts, Kt, to(tracks.obs_cam).long(),
+                         to(tracks.obs_pt).long(), to(tracks.obs_uv),
+                         torch.ones(len(tracks.obs_cam), device=dev))
+        e = np.zeros(tracks.num_tracks)
+        np.maximum.at(e, tracks.obs_pt, r.norm(dim=-1).cpu().numpy())
+        err[name] = e
+    pv = recon["point_valid"]
+    gap = np.abs(err[str(DEV)] - err["cpu"])
+    spread = np.abs(err["cpu_nudged"] - err["cpu"])
+    return {"tracks": tracks.num_tracks, "valid_tracks": int(pv.sum()),
+            "max_gap_px_valid": float(gap[pv].max()),
+            "max_gap_px_all": float(gap.max()),
+            "cpu_spread_px_valid": float(spread[pv].max()),
+            "cpu_spread_px_all": float(spread.max()),
+            "median_reproj_px_valid": float(np.median(err[str(DEV)][pv])),
+            "bound_px_valid": SFM_REPROJ_PX,
+            "within": bool(gap[pv].max() <= SFM_REPROJ_PX)}
+
+
+def run_sfm_rig(torch, port, ops):
+    """Part (a): the demo's rig on the card (``oetr_tpu_torch.sfm.demo``'s
+    steps: ``two_view`` per edge, ``chain_init``, both ``reconstruct_rows``,
+    the exports read back with ``read_model``), every eigh call of the
+    path recorded and held to LAPACK. Returns (fields, the eigh inputs of
+    the path, the eigh launches of the path)."""
+    import os
+    import tempfile
+
+    from oetr_tpu_torch.sfm import demo, read_model
+
+    seconds, t0 = {}, time.perf_counter()
+
+    def lap(part):
+        seconds[part] = time.perf_counter() - t0 - sum(seconds.values())
+
+    images, K, gt, depths = demo.render_rig(SFM_VIEWS, SFM_HW, SFM_SEED,
+                                            arc_deg=SFM_ARC_DEG,
+                                            noise=SFM_NOISE)
+    edges = demo.edges_within(SFM_VIEWS, SFM_SPAN)
+    kps, cands = demo.depth_candidates(depths, K, gt, edges, seed=SFM_SEED)
+    lap("render_and_correspondences")
+    reset_counts(ops)
+    with recorded_eigh_inputs() as calls:
+        matches, rel = demo.two_view(cands, K, DEV)
+        lap("two_view")
+        init = demo.chain_init(kps, matches, rel, K, SFM_VIEWS, DEV)
+        lap("chain_init")
+        recon, rec2, ate = demo.reconstruct_rows(
+            kps, matches, K, gt, init, demo.odometry_init(gt, SFM_SEED),
+            SFM_SPAN, SFM_BA_ITERS, DEV)
+        torch.cuda.synchronize()
+    launches = launch_counts(ops)
+    lap("reconstruct_rows")
+    if launches["eigh"] == 0 or any(n for k, n in launches.items()
+                                    if k != "eigh"):
+        raise AssertionError(f"sfm launches {launches}")
+    with tempfile.TemporaryDirectory() as tmp:
+        exported = demo.export(tmp, kps, matches, K, recon)
+        cams_r, images_r, points_r = read_model(tmp)
+        db_bytes = os.path.getsize(os.path.join(tmp, "database.db"))
+    if not (exported and len(cams_r) == len(images_r) == SFM_VIEWS
+            and len(points_r) == int(recon["point_valid"].sum())):
+        raise AssertionError("sfm export: the model read back differs")
+    lap("export")
+    summary = demo.summary(recon, ate)
+    chain_h, odo_h = recon["cost_history"], rec2["cost_history"]
+    fields = {
+        "views": SFM_VIEWS, "hw": SFM_HW, "arc_deg": SFM_ARC_DEG,
+        "noise": SFM_NOISE, "seed": SFM_SEED, "max_span": SFM_SPAN,
+        "ba_iters": SFM_BA_ITERS, "correspondences": "rendered depths",
+        "keypoints_per_view": [len(k) for k in kps],
+        "edges": len(edges), "edges_kept": len(matches),
+        "inliers_per_edge": [int(m.shape[1]) for m in matches.values()],
+        **summary,
+        "chain_cost": [float(chain_h[0]), float(chain_h[-1])],
+        "odometry_cost": [float(odo_h[0]), float(odo_h[-1])],
+        "chain_ba_noop": bool((chain_h == chain_h[0]).all()),
+        "chain_ba_noop_expected": "camera 0 at exactly zero rotation: "
+                                  "JAX's f32 NaN Jacobian, every step "
+                                  "rejected",
+        "odometry_gate": summary["ate_rmse_odometry_ba"]
+        < 0.5 * summary["ate_rmse_odometry_init"],
+        "export": {"points3D": len(points_r), "images": len(images_r),
+                   "database_bytes": db_bytes},
+        "launches": {k: n for k, n in launches.items() if n}}
+    fields["triangulation_vs_cpu"] = triangulation_vs_cpu(torch, rec2, K)
+    lap("triangulation_vs_cpu")
+    fields["seconds"] = seconds
+    return fields, calls, launches["eigh"]
+
+
+CPU_BA_CHILD = """
+import sys, time
+import numpy as np
+import torch
+import torch._dynamo  # forward-mode AD imports it on first use
+import chip_smoke as cs
+from oetr_tpu_torch.sfm import bundle_adjust
+torch.set_num_threads(cs.CPU_BA_THREADS)
+args, _ = cs.bal_problem()
+path = sys.stdin.readline().strip()
+if not path:  # the parent ended without the sfm phase
+    sys.exit(0)
+with torch.inference_mode():
+    t0 = time.perf_counter()
+    r = bundle_adjust(*args, iters=cs.BAL_ITERS, cg_iters=cs.BAL_CG_ITERS,
+                      huber_delta=cs.BAL_HUBER)
+np.savez(path, cams=r["cams"].numpy(), pts=r["pts"].numpy(),
+         cost_history=r["cost_history"].numpy(),
+         seconds=time.perf_counter() - t0)
+"""
+
+
+def start_cpu_ba():
+    """A child process for the port's BA of ``bal_problem()`` on the CPU
+    (not a thread: torch's forward-AD levels are global to a process). It
+    imports torch, the port and torch._dynamo and builds the problem at
+    once (started while nvcc builds), then waits for an npz path on its
+    stdin before it computes; the sfm phase sends the path and runs the
+    card meanwhile. Stopped at exit if it is still running."""
+    import atexit
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    child = subprocess.Popen([sys.executable, "-c", CPU_BA_CHILD], cwd=root,
+                             env=env, stdin=subprocess.PIPE,
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                             text=True)
+
+    def stop():
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+
+    atexit.register(stop)
+    return child
+
+
+def cpu_ba_result(torch, child, path):
+    """Waits for ``start_cpu_ba``'s child; raises if it failed."""
+    import numpy as np
+
+    out, _ = child.communicate(timeout=300)
+    if child.returncode != 0:
+        raise RuntimeError(f"the CPU's bundle_adjust failed:\n{out[-4000:]}")
+    with np.load(path) as f:
+        return {k: torch.as_tensor(f[k]) for k in f.files}
+
+
+def run_sfm_bal(torch):
+    """Part (b) on the card: ``bundle_adjust`` at Dubrovnik-16's counts:
+    ms a call and a step, traced busy ms, idle share, launches and device
+    -> host copies (none allowed) a call, peak memory, a second run against
+    the first. Returns (fields, the first run's result, the problem's true
+    cameras and initial ones)."""
+    from oetr_tpu_torch.sfm import bundle_adjust
+
+    args, truth = bal_problem()
+    on_card = [a.to(DEV) for a in args]
+    kw = dict(iters=BAL_ITERS, cg_iters=BAL_CG_ITERS, huber_delta=BAL_HUBER)
+    call = lambda: bundle_adjust(*on_card, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    card = call()                       # the first of the warm-up calls
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    again = call()                      # the second
+    ms = time_ms(torch, call, reps=SFM_REPS, warmup=0)
+    stats = traced_stats(torch, call, reps=1, warmup=0, cpu=False)
+    if stats["dtoh_copies_per_call"] != 0:
+        raise AssertionError(f"bundle_adjust: device -> host copies {stats}")
+    fields = {
+        "cameras": BAL_CAMS, "points": BAL_POINTS, "observations": BAL_OBS,
+        "source": "BAL Dubrovnik-16's counts (Agarwal et al. 2010)",
+        "iters": BAL_ITERS, "cg_iters": BAL_CG_ITERS,
+        "huber_delta": BAL_HUBER, "dtype": "float32",
+        "ms_per_call": ms, "ms_per_lm_step": ms / BAL_ITERS,
+        "timing": f"median of {SFM_REPS} CUDA-event calls after 2 "
+                  f"warm-ups",
+        **{k: stats[k] for k in ("wall_ms", "device_busy_ms", "idle_share",
+                                 "launches_per_call", "dtoh_copies_per_call",
+                                 "device_ms_by_category")},
+        "launches_per_lm_step": stats["launches_per_call"] / BAL_ITERS,
+        "peak_memory_bytes": peak,
+        "card_vs_card_cams_max_abs": float(
+            (card["cams"] - again["cams"]).abs().max())}
+    return fields, card, truth, args[0]
+
+
+def bal_vs_cpu(card, cpu, truth, init):
+    """The card's BA result against the CPU's (``cpu_ba_result``): final
+    cost, cameras, points, ATE against the truth. Returns (fields,
+    failures)."""
+    from oetr_tpu_torch.evalx.trajectory import absolute_trajectory_error
+
+    h_card, h_cpu = card["cost_history"].cpu(), cpu["cost_history"]
+    ate = {name: absolute_trajectory_error(c.cpu().numpy(), truth)
+           for name, c in (("card", card["cams"]), ("cpu", cpu["cams"]),
+                           ("init", init))}
+    cost_rel = abs(float(h_card[-1] - h_cpu[-1])) / float(h_cpu[0])
+    ate_gap = abs(ate["card"]["ate_rmse"] - ate["cpu"]["ate_rmse"])
+    gaps = {"final_cost_rel": cost_rel, "ate_rmse_gap": ate_gap,
+            "cams_max_abs": float((card["cams"].cpu() - cpu["cams"])
+                                  .abs().max()),
+            "pts_max_abs": float((card["pts"].cpu() - cpu["pts"])
+                                 .abs().max())}
+    fields = {"cost": [float(h_card[0]), float(h_card[-1])],
+              "cpu_cost": [float(h_cpu[0]), float(h_cpu[-1])],
+              "ate_rmse": {k: v["ate_rmse"] for k, v in ate.items()},
+              "card_vs_cpu": gaps, "cpu_s": float(cpu["seconds"]),
+              "cpu_threads": CPU_BA_THREADS,
+              "bounds": {"final_cost_rel": BAL_COST_RTOL,
+                         "cams": BAL_CAMS_TOL, "ate_rmse": BAL_ATE}}
+    failures = []
+    if not cost_rel <= BAL_COST_RTOL:
+        failures.append(f"BA final cost card vs CPU {cost_rel}")
+    if not gaps["cams_max_abs"] <= BAL_CAMS_TOL:
+        failures.append(f"BA cameras card vs CPU {gaps}")
+    if not ate_gap <= BAL_ATE:
+        failures.append(f"BA ATE card vs CPU {ate_gap}")
+    if not (float(h_card[-1]) < 0.05 * float(h_card[0])
+            and ate["card"]["ate_rmse"] < 0.5 * ate["init"]["ate_rmse"]):
+        failures.append(f"BA cost {h_card[0]} -> {h_card[-1]}, ATE {ate}")
+    return fields, failures
+
+
+def run_sfm(torch, port, ops, child):
+    """Reconstruction on the card: part (b), BA at Dubrovnik-16's size,
+    timed first, with nothing else on the host; then the CPU's run of the
+    same BA starts (``child``, from ``start_cpu_ba``) and part (a), the
+    demo's rig, runs on the card meanwhile; last, the card's BA against the
+    CPU's. Returns (fields; ``failures`` lists what is out of bounds, the
+    odometry row's gate among them; the eigh row's additions: launches and
+    the 4x4 shapes)."""
+    import tempfile
+
+    with torch.inference_mode():
+        bal, card, truth, init = run_sfm_bal(torch)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/cpu_ba.npz"
+        child.stdin.write(path + "\n")
+        child.stdin.flush()
+        try:
+            with torch.inference_mode():
+                rig, calls, eigh_launches = run_sfm_rig(torch, port, ops)
+                t0 = time.perf_counter()
+                rig["eigh"] = eigh_errors(torch, ops, calls)
+                quads = [a for a in calls if a.shape[-1] == 4]
+                by_shape = eigh_by_shape(torch, ops.eigh, quads, reps=5)
+                rig["seconds"]["eigh_checks"] = time.perf_counter() - t0
+                del calls
+            t0 = time.perf_counter()
+            cpu = cpu_ba_result(torch, child, path)
+            rig["seconds"]["waiting_for_the_cpu_ba"] = (time.perf_counter()
+                                                        - t0)
+        finally:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+    fields, failures = bal_vs_cpu(card, cpu, truth, init)
+    bal.update(fields)
+    if not rig["odometry_gate"]:
+        failures.append("the odometry row's ATE after BA is not below half "
+                        "its start's")
+    if not rig["triangulation_vs_cpu"]["within"]:
+        failures.append(f"triangulation card vs CPU "
+                        f"{rig['triangulation_vs_cpu']}")
+    return {"bal": bal, "rig": rig, "failures": failures}, {
+        "launches": eigh_launches,
+        "launches_4x4": len(quads), "by_shape": by_shape}
+
+
 def main() -> int:
     import torch
 
@@ -2996,7 +3408,15 @@ def main() -> int:
           count=torch.cuda.device_count(), torch=torch.__version__,
           cuda=torch.version.cuda, sms=sms, max_sm_mhz=sm_mhz)
 
+    # The sfm phase's CPU run starts while nvcc builds, and so does the
+    # import of torch._dynamo, which forward-mode AD (the sfm phase's
+    # Jacobians) makes on first use: ~8 s on the card's machine.
+    cpu_ba = start_cpu_ba()
+    import threading
+    dynamo = threading.Thread(target=__import__, args=("torch._dynamo",))
+    dynamo.start()
     _, record = load_library()
+    dynamo.join()
     phase("build", so=record["so"], built=record["built"],
           steps_s=record["steps_s"],
           tensor_core_kernels=tensor_core_resources(record["resources"]),
@@ -3137,6 +3557,14 @@ def main() -> int:
     fields, api_launches = run_api(torch, port, ops)
     phase("api", **fields)
     failed += [f"api: {f}" for f in fields["failures"]]
+    torch.cuda.empty_cache()
+
+    # Path 11, reconstruction: the SfM demo's rig (per-edge pose, the chain,
+    # triangulation on the eigh kernel at n = 4, BA, the exports), then BA
+    # at the counts of BAL's Dubrovnik-16.
+    fields, sfm_eigh = run_sfm(torch, port, ops, cpu_ba)
+    phase("sfm", **fields)
+    failed += [f"sfm: {f}" for f in fields["failures"]]
 
     phase("kernels", ported=["linear_attention_cuda<-K1",
                              "linear_encoder_attention<-K2",
@@ -3145,7 +3573,7 @@ def main() -> int:
                              "full_attention_cuda<-K5",
                              "flash_attention_cuda<-K6"],
           also=["eigh<-jnp.linalg.eigh (no pallas_call), "
-                "oetr_tpu/geometry/ransac.py:52"])
+                "oetr_tpu/geometry/ransac.py:52 and oetr_tpu/sfm/ba.py:247"])
     main_dtype = "bfloat16"
     pallas = "oetr_tpu/ops/pallas_attention.py"
     table = []
@@ -3187,7 +3615,7 @@ def main() -> int:
     table.append({"name": "eigh", "route": "cuda",
                   "source": "oetr_tpu_torch/csrc/small_eigh.cu",
                   "replaces": "oetr_tpu/geometry/ransac.py:52",
-                  "launches": eigh_row["launches"],
+                  "launches": eigh_row["launches"] + sfm_eigh["launches"],
                   "max_abs_err": eigh_row["max_abs_err"],
                   "ms": eigh_row["kernel_ms"],
                   "plain_ms": eigh_row["plain_ms"],
@@ -3196,9 +3624,14 @@ def main() -> int:
                   "library_ms": eigh_row["library_ms"],
                   "device_ms": eigh_row["device_ms"],
                   "library_device_ms": eigh_row["library_device_ms"],
-                  "device_ms_by_shape": eigh_row["by_shape"],
+                  "device_ms_by_shape": eigh_row["by_shape"]
+                  + sfm_eigh["by_shape"],
                   "traced_pose_device_ms": eigh_row["traced_pose_device_ms"],
-                  "launches_by_path": {"pose": eigh_row["launches"]}})
+                  "launches_by_path": {"pose": eigh_row["launches"],
+                                       "sfm": sfm_eigh["launches"]},
+                  "sfm_launches_4x4": sfm_eigh["launches_4x4"],
+                  "also_replaces": "oetr_tpu/sfm/ba.py:247 (triangulation, "
+                                   "n = 4)"})
     if elapsed() > BUDGET_S:
         raise RuntimeError(f"over the {BUDGET_S:.0f} s budget")
     print(json.dumps({"kernels": table}), flush=True)

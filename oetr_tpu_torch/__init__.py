@@ -5,7 +5,9 @@ SuperGlue) and dense (LoFTR) matching pipelines, the public matching API
 extractors and matchers: D2-Net, R2D2, DISK, ASLFeat, SIFT, ContextDesc,
 NN, DISK's matcher, COTR, ICP), the host image service and benchmark
 runner, the on-device synthetic scene and homography pair generators,
-two-view pose estimation and the benchmark evaluation.
+two-view pose estimation, the benchmark evaluation, and reconstruction
+(``oetr_tpu_torch.sfm``: tracks, DLT triangulation, bundle adjustment,
+COLMAP model and database export; ``python -m oetr_tpu_torch.sfm.demo``).
 
 The package stands alone: it imports torch and numpy, never JAX or the
 ``oetr_tpu`` package, so it runs where only torch is installed (the
@@ -17,8 +19,10 @@ the modules and pipelines they feed, and the generators of
 ``make_device_generator`` and ``make_homography_pair_generator``) run on
 the card unless the caller passes ``device="cpu"``; reading images and
 drawing need cv2 and matplotlib, the h5 results h5py, each imported where
-it is used. ``estimate_pose`` and
-the other geometry functions run where their tensors lie;
+it is used. ``reconstruct`` runs on the card unless the caller passes
+``device="cpu"``; ``estimate_pose``, ``bundle_adjust``,
+``triangulate_points`` and the other geometry functions run where their
+tensors lie;
 ``validation_error`` and the benchmark harnesses take numpy and run the
 estimator on the card unless the caller passes ``device="cpu"``.
 """
@@ -34,6 +38,8 @@ from .models import (OETR, LoFTR, SuperGlue, SuperPoint, build_loftr,
                      decode_boxes)
 from .pipelines import (DensePipeline, PipelineConfig, SparsePipeline,
                         build_model, get_matches, get_pose, run_benchmark)
+from .sfm import (bundle_adjust, export_colmap, export_database, reconstruct,
+                  triangulate_points)
 
 __all__ = ["BackboneConfig", "LossConfig", "NeckConfig", "OETRConfig",
            "TrainConfig", "oetr_fc_r50_config",
@@ -45,4 +51,6 @@ __all__ = ["BackboneConfig", "LossConfig", "NeckConfig", "OETRConfig",
            "make_homography_pair_generator", "estimate_pose",
            "ransac_essential", "recover_pose", "ransac_homography",
            "pose_error", "validation_error", "pose_auc", "build_model",
-           "get_matches", "get_pose", "run_benchmark"]
+           "get_matches", "get_pose", "run_benchmark", "bundle_adjust",
+           "export_colmap", "export_database", "reconstruct",
+           "triangulate_points"]

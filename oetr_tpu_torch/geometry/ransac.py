@@ -84,14 +84,47 @@ def essential_8pt(kpts0: torch.Tensor, kpts1: torch.Tensor,
     return (U * _s110(E)) @ Vh
 
 
+class _Div(torch.autograd.Function):
+    """a / b, differentiated by JAX's rule for division (``lax.div``): the
+    JVP g_a / b + (-g_b · a) · b⁻², and for the VJP its transpose. Torch's
+    own rule, (g_a - g_b · (a / b)) / b, never forms b⁻²; JAX's does, and
+    where b² overflows its tangent is 0 · inf = NaN, not a number."""
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(a, b):
+        return a / b
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
+        ctx.save_for_forward(*inputs)
+
+    @staticmethod
+    def jvp(ctx, a_t, b_t):
+        a, b = ctx.saved_tensors
+        return a_t / b + (-b_t * a) * b ** -2
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        return g / b, (-g * a) * b ** -2
+
+
 def so3_exp(w: torch.Tensor) -> torch.Tensor:
     """Rodrigues' exponential [..., 3] -> [..., 3, 3], safe at ||w|| -> 0
-    under differentiation (no norm of an exactly zero vector)."""
+    under differentiation (no norm of an exactly zero vector).
+
+    Its two divisions are differentiated as ``jax.jacfwd`` differentiates
+    JAX's (``_Div``), so forward-mode AD gives JAX's Jacobian: at w = 0 in
+    float32, (1 - cos θ)/θ² with θ = 1e-12 forms θ⁻⁴ = inf, and every
+    entry of the Jacobian, the translation's columns of a camera's too, is
+    NaN (``sfm/ba.py`` copies what that does to bundle adjustment)."""
     th2 = torch.sum(w * w, dim=-1)
     th = torch.sqrt(th2 + 1e-24)
     K = skew(w)
-    A = (torch.sin(th) / th)[..., None, None]
-    B = ((1.0 - torch.cos(th)) / (th * th))[..., None, None]
+    A = _Div.apply(torch.sin(th), th)[..., None, None]
+    B = _Div.apply(1.0 - torch.cos(th), th * th)[..., None, None]
     eye = torch.eye(3, dtype=w.dtype, device=w.device)
     return eye + A * K + B * (K @ K)
 
@@ -153,8 +186,9 @@ def refine_pose_sampson(R: torch.Tensor, t: torch.Tensor,
     refinement returns: its ``jax.jacfwd`` Jacobian through ``so3_exp``
     (``oetr_tpu/geometry/ransac.py:137``, ``:75``) forms (1 - cos θ)/θ² at
     θ = 1e-12, whose θ⁻⁴ overflows float32, so the whole Jacobian is NaN
-    and every step is rejected. Float64 takes the Gauss-Newton steps, as
-    JAX's does under x64.
+    and every step is rejected. The port's Jacobian is that NaN too
+    (``so3_exp``), so the early return only skips the 15 rejected steps.
+    Float64 takes the Gauss-Newton steps, as JAX's does under x64.
     """
     if R.dtype == torch.float32:
         return R, t

@@ -7,8 +7,10 @@ jaxlib, flax, optax, orbax, oetr_tpu, h5py, cv2 and matplotlib, then
 imports every module of the port (the geometry, the evaluation package,
 the h5 utilities, the pair lists, the trainer, the MegaDepth dataset, the
 extractors, matchers and registry, the image service, the public API, the
-runner, the demo and the plots among them) and ``chip_smoke``, runs a
-small forward on the CPU and ``get_matches``'s helper below the decode.
+runner, the demo, the plots, SfM and its demo, the scene generator and the
+pair-list generation among them) and ``chip_smoke``, runs a small forward
+on the CPU and ``get_matches``'s helper below the decode, and renders a
+scene with the generator's renderers and bundle-adjusts a small problem.
 """
 import os
 import re
@@ -48,7 +50,12 @@ MUST_LIST = ("oetr_tpu_torch.geometry.ransac",
              "oetr_tpu_torch.data.native", "oetr_tpu_torch.pipelines.api",
              "oetr_tpu_torch.pipelines.runner",
              "oetr_tpu_torch.pipelines.demo", "oetr_tpu_torch.utils.viz",
-             "oetr_tpu_torch.utils.timer")
+             "oetr_tpu_torch.utils.timer", "oetr_tpu_torch.sfm",
+             "oetr_tpu_torch.sfm.ba", "oetr_tpu_torch.sfm.reconstruct",
+             "oetr_tpu_torch.sfm.colmap_model",
+             "oetr_tpu_torch.sfm.database", "oetr_tpu_torch.sfm.demo",
+             "oetr_tpu_torch.data.synthetic",
+             "oetr_tpu_torch.data.preprocess")
 
 
 class Refuse:
@@ -92,6 +99,22 @@ except ImportError:
     pass
 else:
     raise AssertionError("get_matches read a file without cv2")
+from oetr_tpu_torch.sfm import demo as sfm_demo
+imgs, Kr, gt, depths = sfm_demo.render_rig(3, 64, 0, arc_deg=10.0)
+assert imgs.shape == (3, 64, 64, 3) and (depths[0] > 0).all()
+from oetr_tpu_torch.sfm import bundle_adjust
+g = torch.Generator().manual_seed(0)
+pts = torch.rand(20, 3, generator=g) + torch.tensor([0.0, 0.0, 5.0])
+cams = torch.zeros(2, 6)
+cams[1, 3] = 0.5
+Ks = torch.tensor([[100.0, 0, 32], [0, 100.0, 32], [0, 0, 1]]).expand(2, 3, 3)
+oc = torch.arange(2).repeat_interleave(20)
+op = torch.arange(20).repeat(2)
+from oetr_tpu_torch.sfm.ba import project_residual
+uv = project_residual(cams[oc], Ks[oc], pts[op], torch.zeros(40, 2))
+res = bundle_adjust(cams, pts + 0.01, Ks, oc, op, uv, torch.ones(40, dtype=torch.bool),
+                    iters=2, cg_iters=5)
+assert torch.isfinite(res["cost_history"]).all()
 leaked = sorted(m for m in sys.modules
                 if any(m == b or m.startswith(b + ".") for b in BLOCKED))
 assert not leaked, leaked
@@ -105,7 +128,7 @@ def test_port_runs_with_jax_refused():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     n_modules = int(proc.stdout.split("modules")[-1])
-    assert n_modules >= 49
+    assert n_modules >= 57
 
 
 def test_port_sources_name_no_jax_import():
@@ -116,7 +139,8 @@ def test_port_sources_name_no_jax_import():
     # the port's sources, not what a build may have put under _build/
     files = sorted(f for f in PORT.rglob("*.py")
                    if "_build" not in f.relative_to(PORT).parts)
-    files += [ROOT / "chip_smoke.py", ROOT / "pose_timing.py"]
+    files += [ROOT / "chip_smoke.py", ROOT / "pose_timing.py",
+              ROOT / "sfm_spread.py"]
     assert len(files) >= 13
     offenders = [str(f.relative_to(ROOT)) for f in files
                  if pattern.search(f.read_text())]

@@ -482,7 +482,8 @@ def test_jax_f32_gauss_newton_is_a_no_op():
     """The reference's fault, and the port's copy of it: in float32 JAX's
     Jacobian of the refinement is NaN, so it never moves, and the port's
     float32 refinement returns its input likewise. The port's residuals
-    have a finite float32 Jacobian equal to JAX's float64 one, which its
+    differentiate as JAX's (``so3_exp`` divides with JAX's rule): NaN in
+    float32, and in float64 equal to JAX's float64 Jacobian, which its
     float64 refinement takes."""
     x0, x1, R0, t0, valid, _ = _refine_case(np.random.default_rng(14),
                                             np.float32)
@@ -509,14 +510,18 @@ def test_jax_f32_gauss_newton_is_a_no_op():
     with jax.enable_x64(True):
         J64 = jac(*(jnp.asarray(a, jnp.float64) for a in (R, t, k0, k1, w)),
                   jnp.float64)
-    basis = pr._tangent_basis(_t(t))
-    p0 = torch.zeros(5, 5)
-    _, dr = torch.func.jvp(
-        lambda p: pr._residuals(p, _t(R), _t(t), basis, _t(w), _t(k0),
-                                _t(k1)), (p0,), (torch.eye(5),))
-    J = _np(dr).T
-    assert np.isfinite(J).all()
-    assert np.abs(J - J64).max() < 1e-3 * np.abs(J64).max()
+    for dt in (torch.float32, torch.float64):
+        args = [_t(a).to(dt) for a in (R, t, w, k0, k1)]
+        basis = pr._tangent_basis(args[1])
+        _, dr = torch.func.jvp(
+            lambda p: pr._residuals(p, args[0], args[1], basis, *args[2:]),
+            (torch.zeros(5, 5, dtype=dt),), (torch.eye(5, dtype=dt),))
+        J = _np(dr).T
+        if dt == torch.float32:
+            assert np.isnan(J).all()
+        else:
+            assert np.isfinite(J).all()
+            assert np.abs(J - J64).max() < 1e-3 * np.abs(J64).max()
 
 
 def _general(seed, b=1, n_true=200, n_slots=N, outlier_frac=0.3):
