@@ -112,7 +112,19 @@ paths with seeded random weights:
     observations; 15 steps of 40 CG iterations, Huber 4 px, f32): ms a
     call and a step, busy ms, idle share, launches, device -> host copies
     (none allowed), peak memory, and the card against the port on the CPU
-    (run in a child process meanwhile): final cost, cameras, ATE.
+    (run in a child process meanwhile): final cost, cameras, ATE;
+  * ``match_train``: the matching trainers and the FCOS head, one line
+    each, f32, seeded weights, the JAX demos' sizes at full width:
+    SuperPoint's joint step with homographic-adaptation labels (32 x 128²,
+    6 views; the labeler also against the CPU on the same draws),
+    SuperGlue (8 pairs, 512 keypoints of the port's SuperPoint, GT by depth
+    and pose; the plain Sinkhorn), LoFTR (the ``loftr`` phase's model, 4
+    pairs of 256², the fine loss), ContextDesc (8 pairs of 128², 128
+    host-drawn keypoints, GT from the exact homography) and the FCOS head
+    on [8, 40, 40, 256] through ``fcos_losses``: ms a step, peak memory,
+    CUDA launches and device -> host copies (none) in a traced step, busy
+    ms, idle share, and one step against the CPU on the same weights and
+    inputs (none of the port's kernels is on these paths).
 K1's lines give its cluster (blocks per batch row and head), its grid and
 its device time at every cluster size.
 One JSON line per phase, each with ``t_s``, seconds since start, and
@@ -1914,20 +1926,24 @@ def eigh_row(torch, ops, calls):
                                   for r in by_shape)}
 
 
-def traced_stats(torch, fn, reps=3, names=(), warmup=1, cpu=True):
+def traced_stats(torch, fn, reps=3, names=(), warmup=1, cpu=True,
+                 top_kernels=0):
     """Per call of ``fn()`` in a trace of ``reps`` calls (``trace_calls``,
     after ``warmup`` calls): wall ms, device busy ms (and by
-    profile_forward's kernel categories), the idle share, kernel launches
-    (and those of the kernels whose names hold each of ``names``), device
-    -> host copies, and (``cpu``) the CPU ops that read a value back."""
+    profile_forward's kernel categories, with the ``top_kernels`` kernels
+    by device time when asked), the idle share, kernel launches (and those of
+    the kernels whose names hold each of ``names``), device -> host
+    copies, and (``cpu``) the CPU ops that read a value back."""
     from oetr_tpu_torch.profile_forward import PAD_KERNEL, PADS, category
 
     prof, dev, wall, taken = trace_calls(torch, fn, reps, warmup, cpu=cpu)
     pads = sum(e.device_type == torch.autograd.DeviceType.CUDA
                and PAD_KERNEL in e.name for e in prof.events())
-    by_category = collections.Counter()
+    by_category, by_name = collections.Counter(), collections.Counter()
     for e in dev:
-        by_category[category(e.name)] += e.time_range.elapsed_us() / 1e3 / reps
+        ms = e.time_range.elapsed_us() / 1e3 / reps
+        by_category[category(e.name)] += ms
+        by_name[e.name[:90]] += ms
     copies = [e for e in dev if e.name.startswith(("Memcpy", "Memset"))]
     dtoh = [e for e in copies if "DtoH" in e.name]
     busy = sum(e.time_range.elapsed_us() for e in dev) / 1e3 / reps
@@ -1946,6 +1962,8 @@ def traced_stats(torch, fn, reps=3, names=(), warmup=1, cpu=True):
             "device_reads": dict(readers), "traces_taken": taken,
             "pad_events_missed": 2 * PADS - pads,
             "device_ms_by_category": dict(by_category.most_common()),
+            **({"top_kernels_ms": dict(by_name.most_common(top_kernels))}
+               if top_kernels else {}),
             **{f"{name}_per_call": sum(name in e.name for e in dev) / reps
                for name in names}}
 
@@ -3373,6 +3391,507 @@ def run_sfm(torch, port, ops, child):
         "launches_4x4": len(quads), "by_shape": by_shape}
 
 
+# ------------------------------------------------------------ match_train --
+
+# The matching trainers and the FCOS head at the JAX package's demo sizes
+# and each model's full width (scripts/train_matching_demo.py,
+# train_loftr_demo.py; tests/test_extractors_extra.py's ContextDesc step;
+# the flagship neck's 40 x 40 map for FCOS), f32, TF32 off, seeded weights.
+MT_SP_BATCH, MT_SP_HW, MT_SP_HOMO = 32, 128, 6
+MT_SG_BATCH, MT_SG_HW, MT_SG_KEYPOINTS = 8, 256, 512
+MT_LOFTR_BATCH = 4                  # at LOFTR_HW, profile_forward.LOFTR_KW
+MT_CD_BATCH, MT_CD_HW, MT_CD_KEYPOINTS = 8, 128, 128
+MT_FCOS_SHAPE = (8, 40, 40, 256)    # stride 16 at 640²
+# One step on the card against one on the CPU from the same weights and
+# inputs, on the first MT_CPU_ITEMS of the step's batch (the widths are the
+# model's; a smaller batch keeps the CPU's step within the run's budget):
+# the loss within TRAIN_LOSS_RTOL, the global gradient norm (before the
+# clip) within TRAIN_NORM_RTOL, every parameter within 2·lr (+1e-6 of |p|
+# for the update's rounding) of the CPU's after the update (Adam's first
+# update, lr·g/(|g| + eps), moves no entry by more than lr), and within
+# MT_FIRM_LR·lr where the CPU's gradient is above MT_FIRM_G of the
+# parameter's largest, above 1e-6 and above MT_FIRM_AGREE times the card's
+# difference from it: there the two gradients share their sign, so Adam
+# takes the same step on both. (A gradient that is 0 but for rounding,
+# such as a bias before ContextDesc's context normalisation, is left out
+# by the last condition.)
+MT_CPU_ITEMS = {"superpoint": 8, "superglue": 2, "loftr": 1,
+                "contextdesc": 8, "fcos": 8}
+MT_FIRM_LR = 0.1
+MT_FIRM_G = 0.1
+MT_FIRM_AGREE = 10.0
+MT_HA_CELLS = 96            # make_ha_labeler's default label budget
+MT_HA_AGREE_MIN = 0.99      # HA labels, card vs CPU on the same draws
+MT_TIE = 1e-5               # a near-tie: within this of the map's largest
+MT_WARMUP, MT_REPS = 2, 5
+
+
+def host_shapes(rng, b, hw):
+    """Synthetic-shape images without cv2: 2-4 filled rectangles an image,
+    each of one grey, later ones over earlier ones; its corners' pixels
+    (the corners a later rectangle covers or shares included, as cv2's
+    batch keeps hidden polygon vertices). Returns (images [b, hw, hw, 1]
+    float32, corners [b, 16, 2], counts [b])."""
+    import numpy as np
+
+    images = np.zeros((b, hw, hw, 1), np.float32)
+    corners = np.full((b, 16, 2), -1.0, np.float32)
+    counts = np.zeros(b, np.int32)
+    for i in range(b):
+        img = np.full((hw, hw), rng.uniform(0.0, 0.3), np.float32)
+        pts = []
+        for _ in range(int(rng.integers(2, 5))):
+            x0, y0 = rng.integers(8, hw // 2, 2)
+            x1 = int(rng.integers(x0 + 8, hw - 8))
+            y1 = int(rng.integers(y0 + 8, hw - 8))
+            img[y0:y1 + 1, x0:x1 + 1] = rng.uniform(0.5, 1.0)
+            pts += [(x0, y0), (x1, y0), (x0, y1), (x1, y1)]
+        counts[i] = len(pts)
+        corners[i, :len(pts)] = pts
+        images[i, :, :, 0] = img
+    return images, corners, counts
+
+
+@contextlib.contextmanager
+def pre_clip_norms():
+    """The global gradient norms that ``training.optim.apply_update`` clips
+    (before the clip), one tensor a step, while the context is open."""
+    from oetr_tpu_torch.training import optim
+
+    seen, clip = [], optim.clip_by_global_norm_
+
+    def record(grads, max_norm):
+        norm = clip(grads, max_norm)
+        seen.append(norm)
+        return norm
+
+    optim.clip_by_global_norm_ = record
+    try:
+        yield seen
+    finally:
+        optim.clip_by_global_norm_ = clip
+
+
+def mt_optimizer(torch, model, lr, steps, clip):
+    """Adam at ``lr`` over ``model``; with ``steps`` the demos' schedule
+    (x0.1 from 70% of ``steps``, optax's piecewise-constant) and their
+    clip; returns (optimizer, scheduler or None, clip or None)."""
+    from oetr_tpu_torch.training import (StepScheduler,
+                                         piecewise_constant_schedule)
+
+    opt = torch.optim.Adam(model.parameters(), lr=lr, betas=(0.9, 0.999),
+                           eps=1e-8)
+    if not steps:
+        return opt, None, None
+    sched = StepScheduler(opt, piecewise_constant_schedule(
+        lr, {int(steps * 0.7): 0.1}))
+    return opt, sched, clip
+
+
+def to_cpu(torch, value, n):
+    """``value`` (a tensor, a dict of them, or anything else) on the CPU,
+    tensors cut to their first ``n`` items."""
+    if isinstance(value, dict):
+        return {k: to_cpu(torch, v, n) for k, v in value.items()}
+    if isinstance(value, torch.Tensor):
+        return value[:n].cpu() if value.dim() else value.cpu()
+    return value
+
+
+def to_device(torch, value, dev):
+    """``value`` (a tensor, a dict of them, or anything else) on ``dev``."""
+    if isinstance(value, dict):
+        return {k: to_device(torch, v, dev) for k, v in value.items()}
+    if isinstance(value, torch.Tensor):
+        return value.to(dev)
+    return value
+
+
+def card_vs_cpu(torch, name, build, make_step, model, args, lr, steps,
+                clip, n):
+    """One step on the card and one on the CPU from ``model``'s weights on
+    the first ``n`` items of ``args``: the bounds of MT_CPU_ITEMS'
+    comment. The card's model is left as it was."""
+    from oetr_tpu_torch.training import global_grad_norm
+
+    t0 = time.perf_counter()
+    start = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    results = {}
+    for dev in (DEV, "cpu"):
+        net = build(dev)
+        net.load_state_dict({k: v.to(dev) for k, v in start.items()})
+        opt, sched, cl = mt_optimizer(torch, net, lr, steps, clip)
+        step = make_step(net, opt, sched, cl)
+        dev_args = [to_cpu(torch, a, n) for a in args]
+        if dev != "cpu":
+            dev_args = [to_device(torch, a, dev) for a in dev_args]
+        with pre_clip_norms() as norms:
+            metrics = step(*dev_args)
+        norm = (norms[0] if norms else global_grad_norm(net)).item()
+        results[dev] = ({k: v.item() for k, v in metrics.items()}, norm,
+                        {k: p.detach().cpu()
+                         for k, p in net.named_parameters()},
+                        {k: p.grad.detach().cpu()
+                         for k, p in net.named_parameters()})
+        del net, opt, step
+    (m_c, n_c, p_c, g_c), (m_h, n_h, p_h, g_h) = results[DEV], results["cpu"]
+    loss_rel = abs(m_c["loss"] - m_h["loss"]) / max(abs(m_h["loss"]), 1e-12)
+    norm_rel = abs(n_c - n_h) / max(n_h, 1e-12)
+    worst_p = worst_firm = worst_g = over_p = 0.0
+    for k in p_h:
+        diff = (p_c[k] - p_h[k]).abs()
+        worst_p = max(worst_p, diff.max().item())
+        over_p = max(over_p, (diff - 1e-6 * p_h[k].abs()).max().item())
+        g = g_h[k].abs()
+        firm = ((g > max(MT_FIRM_G * g.max().item(), 1e-6))
+                & (g > MT_FIRM_AGREE * (g_c[k] - g_h[k]).abs()))
+        if firm.any():
+            worst_firm = max(worst_firm, diff[firm].max().item())
+        worst_g = max(worst_g, (g_c[k] - g_h[k]).abs().max().item()
+                      / max(1.0, g.max().item()))
+    fields = {"items": n, "loss_card": m_c["loss"], "loss_cpu": m_h["loss"],
+              "loss_rel_diff": loss_rel, "loss_rtol": TRAIN_LOSS_RTOL,
+              "metrics_cpu": m_h, "grad_norm_card": n_c,
+              "grad_norm_cpu": n_h, "grad_norm_rel_diff": norm_rel,
+              "grad_norm_rtol": TRAIN_NORM_RTOL,
+              "max_rel_grad_diff": worst_g,
+              "params_max_abs_diff": worst_p,
+              "params_tol": "2·lr + 1e-6·|p|", "lr": lr,
+              "firm_params_max_abs_diff": worst_firm,
+              "firm_params_tol": MT_FIRM_LR * lr,
+              "seconds": time.perf_counter() - t0}
+    if not (loss_rel <= TRAIN_LOSS_RTOL and norm_rel <= TRAIN_NORM_RTOL
+            and over_p <= 2 * lr and worst_firm <= MT_FIRM_LR * lr
+            and math.isfinite(m_c["loss"])):
+        raise AssertionError(f"match_train {name}, card vs CPU: {fields}")
+    return fields
+
+
+def mt_row(torch, ops, name, model, build, make_step, args, lr, steps=0,
+           clip=None, widths=None):
+    """One trainer: (1) the main path, one step with the kernels' counts
+    read around it (none of the port's kernels is on these paths), every
+    parameter requiring grad and given a nonzero gradient; (2) card vs CPU
+    (``card_vs_cpu``); (3) MT_REPS CUDA-event steps after MT_WARMUP and the
+    peak memory; (4) one traced step: CUDA launches, device -> host copies
+    (none allowed), busy ms, idle share."""
+    t0 = time.perf_counter()
+    opt, sched, cl = mt_optimizer(torch, model, lr, steps, clip)
+    step = make_step(model, opt, sched, cl)
+    if not all(p.requires_grad for p in model.parameters()):
+        raise AssertionError(f"match_train {name}: a parameter without grad")
+    reset_counts(ops)
+    metrics = step(*args)
+    torch.cuda.synchronize()
+    launches = launch_counts(ops)
+    dead = [k for k, p in model.named_parameters()
+            if not p.grad.abs().max().item() > 0]
+    losses = {k: v.item() for k, v in metrics.items()}
+    if any(launches.values()) or dead or not all(
+            math.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"match_train {name}: kernel launches "
+                             f"{launches}, parameters with a zero gradient "
+                             f"{dead[:5]}, metrics {losses}")
+    cmp = card_vs_cpu(torch, name, build, make_step, model, args, lr, steps,
+                      clip, MT_CPU_ITEMS[name])
+    seen = []
+    call = lambda: seen.append(step(*args))
+    torch.cuda.reset_peak_memory_stats()
+    ms = time_ms(torch, call, reps=MT_REPS, warmup=MT_WARMUP)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    stats = traced_stats(torch, call, reps=1, warmup=0, top_kernels=6)
+    if stats["dtoh_copies_per_call"] != 0 or not all(
+            all(math.isfinite(v.item()) for v in m.values()) for m in seen):
+        raise AssertionError(f"match_train {name}: traced step {stats}, or "
+                             "a timed step's loss not finite")
+    return {"trainer": name, "widths": widths or {}, "lr": lr,
+            "schedule_steps": steps, "clip": clip, "metrics_step1": losses,
+            "kernel_launches": {k: n for k, n in launches.items() if n},
+            "ms_per_step": ms, "steps_timed": MT_REPS,
+            "peak_mem_gb": peak_gb,
+            "launches_per_step": stats["launches_per_call"],
+            "dtoh_copies_per_step": stats["dtoh_copies_per_call"],
+            "device_busy_ms": stats["device_busy_ms"],
+            "idle_share": stats["idle_share"],
+            "traced_wall_ms": stats["wall_ms"],
+            "device_reads": stats["device_reads"],
+            "busy_ms_by_category": stats["device_ms_by_category"],
+            "top_kernels_ms": stats["top_kernels_ms"],
+            "card_vs_cpu": cmp,
+            "row_s": time.perf_counter() - t0}
+
+
+def ha_vs_cpu(torch, tr, net, build, images, Hs, n):
+    """The HA labels of the first ``n`` images on the card against the
+    CPU's on the same draws ``Hs`` and weights: the share of equal cells,
+    the differing cells that are near-ties in the CPU's own score map (its
+    best two scores in the cell, or its maximum and the image's threshold,
+    within MT_TIE of the map's largest) read apart."""
+    cpu = build("cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in net.state_dict().items()})
+    im, H = images[:n], Hs[:, :n]
+    card = tr.ha_labels(net, im, H, max_cells=MT_HA_CELLS).cpu()
+    ref = tr.ha_labels(cpu, im.cpu(), H.cpu(), max_cells=MT_HA_CELLS)
+    nmsed = tr.ha_scores(cpu, im.cpu(), H.cpu())
+    b, hw = nmsed.shape[:2]
+    hc = hw // 8
+    cells = nmsed.reshape(b, hc, 8, hc, 8).permute(0, 1, 3, 2, 4)
+    cells = cells.reshape(b, hc, hc, 64).sort(dim=-1).values
+    cmax = cells[..., -1]
+    kth = cmax.reshape(b, -1).sort(dim=-1, descending=True).values[
+        :, MT_HA_CELLS - 1]
+    thr = torch.clamp(kth, min=1e-3)[:, None, None]   # ha_labels' floor
+    scale = MT_TIE * nmsed.abs().max().item()
+    tie = ((cells[..., -1] - cells[..., -2] <= scale)
+           | ((cmax - thr).abs() <= scale))
+    diff = card != ref
+    agree = 1.0 - diff.float().mean().item()
+    fields = {"images": n, "n_homo": Hs.shape[0], "cells": diff.numel(),
+              "agree": agree, "agree_min": MT_HA_AGREE_MIN,
+              "differing_near_ties": int((diff & tie).sum()),
+              "differing_other": int((diff & ~tie).sum()),
+              "labelled_cells_card": int((card != 64).sum()),
+              "labelled_cells_cpu": int((ref != 64).sum())}
+    if agree < MT_HA_AGREE_MIN:
+        raise AssertionError(f"match_train HA labels card vs CPU: {fields}")
+    return fields
+
+
+def run_match_train(torch, port, ops):
+    """The matching trainers and the FCOS head on the card (``mt_row``
+    each), at the demos' sizes and full widths, f32, seeded weights:
+    SuperPoint's joint step with homographic adaptation (its labeler also
+    held to the CPU on the same draws), SuperGlue on the port's SuperPoint
+    keypoints with GT from depth and pose, LoFTR with the fine loss,
+    ContextDesc on host-drawn keypoints with the exact homography's GT, and
+    FCOS through ``fcos_losses``. Yields one field dict a trainer."""
+    import numpy as np
+
+    from oetr_tpu_torch import profile_forward as pf
+    from oetr_tpu_torch import training as tr
+    from oetr_tpu_torch.geometry.boxes import compute_locations
+    from oetr_tpu_torch.models import fcos
+    from oetr_tpu_torch.models.sift_based import build_contextdesc
+    from oetr_tpu_torch.training.optim import apply_update
+
+    gen = lambda seed: torch.Generator(device=DEV).manual_seed(seed)
+    seeded = lambda seed: torch.Generator().manual_seed(seed)
+    lum = torch.tensor([0.299, 0.587, 0.114], device=DEV)
+
+    # SuperPoint: the joint step with HA labels (scripts/train_matching_
+    # demo.py --teacher ha, past its warm-up: ha_w 1).
+    t0 = time.perf_counter()
+    build_sp = lambda dev: port.build_superpoint_net(device=dev,
+                                                     generator=seeded(101))
+    net = build_sp(DEV)
+    rng = np.random.default_rng(102)
+    shapes, corners, counts = host_shapes(rng, MT_SP_BATCH, MT_SP_HW)
+    labels = tr.corners_to_cell_labels(corners, (MT_SP_HW,) * 2, counts)
+    im0, im1, H = port.make_homography_pair_generator(
+        MT_SP_HW, MT_SP_BATCH, scale_range=(0.55, 1.8), device=DEV)(gen(103))
+    Hs = tr.draw_ha_homographies(gen(104), MT_SP_HOMO, MT_SP_BATCH, MT_SP_HW)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    ha = tr.ha_labels(net, im0, Hs, max_cells=MT_HA_CELLS)
+    torch.cuda.synchronize()
+    label_ms = (time.perf_counter() - t1) * 1e3
+    t2 = time.perf_counter()
+    ha_check = ha_vs_cpu(torch, tr, net, build_sp, im0, Hs,
+                         MT_CPU_ITEMS["superpoint"])
+    ha_check["seconds"] = time.perf_counter() - t2
+    args = (torch.from_numpy(shapes).to(DEV),
+            torch.from_numpy(labels).to(DEV), im0, im1, H, ha,
+            torch.tensor(1.0, device=DEV))
+    make = lambda m, o, s, c: tr.make_superpoint_joint_ha_train_step(
+        m, o, scheduler=s, clip_norm=c)
+    row = mt_row(torch, ops, "superpoint", net, build_sp, make, args, 5e-4,
+                 2000, 1.0, {"descriptor_dim": 256, "batch": MT_SP_BATCH,
+                             "hw": MT_SP_HW, "n_homo": MT_SP_HOMO})
+    row.update(ha_labeler={"ms_first_call": label_ms,
+                           "labelled_cells_per_image":
+                               (ha != 64).sum().item() / MT_SP_BATCH,
+                           "card_vs_cpu": ha_check},
+               data_s=t1 - t0)
+    yield row
+    del net, args, ha, im0, im1, H, Hs
+    torch.cuda.empty_cache()
+
+    # SuperGlue on the port's SuperPoint (512 keypoints, threshold 0),
+    # GT by depth and pose with the occlusion check (the demo's sg_prep).
+    t0 = time.perf_counter()
+    raw = port.make_device_generator(MT_SG_HW, MT_SG_BATCH,
+                                     scale_range=(1.0, 2.0), p_translate=0.5,
+                                     device=DEV)(gen(110))
+    sp = port.build_superpoint(device=DEV, generator=seeded(111),
+                               max_keypoints=MT_SG_KEYPOINTS,
+                               keypoint_threshold=0.0)
+    with torch.no_grad():
+        e0 = sp((raw["image1"] @ lum)[..., None])
+        e1 = sp((raw["image2"] @ lum)[..., None])
+        T = raw["pose2"] @ torch.linalg.inv_ex(raw["pose1"])[0]
+        gt = tr.gt_matches_batch(e0["keypoints"], e0["valid"],
+                                 e1["keypoints"], e1["valid"], raw["depth1"],
+                                 raw["K1"], T, raw["K2"],
+                                 depth1=raw["depth2"])
+    batch = {"keypoints0": e0["keypoints"], "keypoints1": e1["keypoints"],
+             "scores0": e0["scores"], "scores1": e1["scores"],
+             "descriptors0": e0["descriptors"],
+             "descriptors1": e1["descriptors"], "valid0": e0["valid"],
+             "valid1": e1["valid"], "gt_matches0": gt,
+             "image_hw0": (MT_SG_HW,) * 2, "image_hw1": (MT_SG_HW,) * 2}
+    del sp, raw, e0, e1
+    build_sg = lambda dev: port.build_superglue(device=dev,
+                                                generator=seeded(112))
+    model = build_sg(DEV)
+    make = lambda m, o, s, c: tr.make_superglue_train_step(
+        m, o, scheduler=s, clip_norm=c)
+    data_s = time.perf_counter() - t0
+    row = mt_row(torch, ops, "superglue", model, build_sg, make, (batch,),
+                 1e-4, 1500, 1.0, {"descriptor_dim": 256, "gnn_layers": 9,
+                                   "batch": MT_SG_BATCH, "hw": MT_SG_HW,
+                                   "keypoints": MT_SG_KEYPOINTS,
+                                   "sinkhorn": "plain, 30 iterations"})
+    row.update(gt_per_pair=(gt >= 0).sum(-1).tolist(), data_s=data_s)
+    yield row
+    del model, batch
+    torch.cuda.empty_cache()
+
+    # LoFTR (the loftr phase's model) with the fine loss, GT by depth and
+    # pose from the cell centres (train_loftr_demo.py's prep).
+    t0 = time.perf_counter()
+    raw = port.make_device_generator(LOFTR_HW, MT_LOFTR_BATCH,
+                                     scale_range=(1.0, 2.0), p_translate=0.5,
+                                     device=DEV)(gen(120))
+    hc = LOFTR_HW // 8
+    u = torch.arange(hc, dtype=torch.float32, device=DEV) * 8 + 3.5
+    gy, gx = torch.meshgrid(u, u, indexing="ij")
+    ctr = torch.stack([gx.reshape(-1), gy.reshape(-1)], -1).expand(
+        MT_LOFTR_BATCH, -1, -1).contiguous()
+    ones = torch.ones(ctr.shape[:2], dtype=torch.bool, device=DEV)
+    T = raw["pose2"] @ torch.linalg.inv_ex(raw["pose1"])[0]
+    with torch.no_grad():
+        lgt = tr.gt_matches_batch(ctr, ones, ctr, ones, raw["depth1"],
+                                  raw["K1"], T, raw["K2"],
+                                  depth1=raw["depth2"], radius=6.0)
+        gt_xy1, gt_ok1 = tr.warp_cell_centers_batch(
+            ctr, raw["depth1"], raw["K1"], T, raw["K2"],
+            depth1=raw["depth2"])
+    args = ((raw["image1"] @ lum)[..., None], (raw["image2"] @ lum)[..., None],
+            lgt, gt_xy1, gt_ok1)
+    del raw
+    def build_lt(dev):
+        # Seeded, no proposal passes 0.2, and the fine loss would then
+        # supervise nothing: threshold 0, as the api phase's identity check.
+        m = pf.loftr_model(dev)
+        m.match_threshold = 0.0
+        return m
+
+    model = build_lt(DEV)
+    make = lambda m, o, s, c: tr.make_loftr_train_step(
+        m, o, fine_weight=1.0, scheduler=s, clip_norm=c)
+    data_s = time.perf_counter() - t0
+    row = mt_row(torch, ops, "loftr", model, build_lt, make, args, 2e-4,
+                 6000, 1.0, dict(pf.LOFTR_KW, match_threshold=0.0,
+                                 batch=MT_LOFTR_BATCH, hw=LOFTR_HW,
+                                 fine_weight=1.0))
+    row.update(gt_per_pair=(lgt >= 0).sum(-1).tolist(), data_s=data_s)
+    yield row
+    del model, args
+    torch.cuda.empty_cache()
+
+    # ContextDesc: keypoints, scores and RootSIFT-like descriptors drawn on
+    # the host (no cv2 for SIFT here) on homography pairs from the device
+    # generator, GT from the exact H (contextdesc_pairs_batch's rule).
+    t0 = time.perf_counter()
+    b, k, hw = MT_CD_BATCH, MT_CD_KEYPOINTS, MT_CD_HW
+    g0, g1, Hc = port.make_homography_pair_generator(
+        hw, b, scale_range=(0.7, 1.4), device=DEV)(gen(130))
+    Hn = Hc.double().cpu().numpy()
+    rng = np.random.default_rng(131)
+    cd = {key: [] for key in ("desc0", "desc1", "xy0", "xy1", "scores0",
+                              "scores1", "valid0", "valid1", "gt_matches0")}
+    for i in range(b):
+        xy0 = rng.uniform(4, hw - 4, (k, 2)).astype(np.float32)
+        p = np.concatenate([xy0, np.ones((k, 1), np.float32)], -1) @ Hn[i].T
+        xy1 = (p[:, :2] / p[:, 2:]).astype(np.float32)
+        keep = ((xy1 >= 0) & (xy1 <= hw - 1)).all(-1) & (rng.random(k) < 0.7)
+        xy1 = np.where(keep[:, None], xy1 + rng.normal(0, 0.5, (k, 2)),
+                       rng.uniform(4, hw - 4, (k, 2))).astype(np.float32)
+        perm = rng.permutation(k)
+        d0 = rng.random((k, 128)) ** 4
+        d1 = np.where(keep[:, None], d0 * rng.uniform(0.8, 1.2, (k, 128)),
+                      rng.random((k, 128)) ** 4)
+        root = lambda d: np.sqrt(d / d.sum(-1, keepdims=True)).astype(
+            np.float32)
+        valid = np.arange(k) < k - 8           # SIFT's padded slots
+        v0, v1 = valid, valid[perm]
+        x1, dd1 = xy1[perm], root(d1)[perm]
+        cd["desc0"].append(root(d0) * v0[:, None])
+        cd["desc1"].append(dd1 * v1[:, None])
+        cd["xy0"].append(xy0 * v0[:, None])
+        cd["xy1"].append(x1 * v1[:, None])
+        cd["scores0"].append(rng.uniform(0.01, 0.1, k).astype(np.float32)
+                             * v0)
+        cd["scores1"].append(rng.uniform(0.01, 0.1, k).astype(np.float32)
+                             * v1)
+        cd["valid0"].append(v0)
+        cd["valid1"].append(v1)
+        cd["gt_matches0"].append(tr.homography_gt_matches(
+            xy0 * v0[:, None], v0, x1 * v1[:, None], v1, Hn[i]))
+    batch = {key: torch.from_numpy(np.stack(v)).to(DEV)
+             for key, v in cd.items()}
+    batch.update(image0=g0, image1=g1)
+    build_cd = lambda dev: build_contextdesc(device=dev,
+                                             generator=seeded(132))
+    model = build_cd(DEV)
+    make = lambda m, o, s, c: tr.make_contextdesc_train_step(
+        m, o, scheduler=s, clip_norm=c)
+    data_s = time.perf_counter() - t0
+    row = mt_row(torch, ops, "contextdesc", model, build_cd, make, (batch,),
+                 1e-3, 0, None, {"out_dim": 128, "regional_dim": 64,
+                                 "hidden": 128, "batch": b, "hw": hw,
+                                 "keypoints": k})
+    row.update(gt_per_pair=(batch["gt_matches0"] >= 0).sum(-1).tolist(),
+               data_s=data_s)
+    yield row
+    del model, batch
+    torch.cuda.empty_cache()
+
+    # FCOS: the head on the flagship neck's map, forward and backward
+    # through fcos_losses, one box an image.
+    bsz, h, w, c = MT_FCOS_SHAPE
+    x = torch.randn(MT_FCOS_SHAPE, generator=gen(140), device=DEV)
+    side = w * 16.0                      # 640 px
+    lo = torch.rand((bsz, 2), generator=gen(141), device=DEV) * side / 2
+    size = side * (0.1 + 0.4 * torch.rand((bsz, 2), generator=gen(142),
+                                          device=DEV))
+    boxes = torch.cat([lo, torch.clamp(lo + size, max=side)], dim=-1)
+    build_fc = lambda dev: fcos.build_fcos_head(device=dev, in_channels=c,
+                                                generator=seeded(143))
+    model = build_fc(DEV)
+
+    def make(m, o, s, cl):
+        def step(feat, targets):
+            o.zero_grad(set_to_none=True)
+            cls, reg, cent = m(feat)
+            locs = compute_locations(h, w, 16, device=feat.device)
+            losses = fcos.fcos_losses(locs, cls, reg, cent, targets)
+            loss = (losses["cls_loss"] + losses["reg_loss"]
+                    + losses["centerness_loss"])
+            loss.backward()
+            apply_update(m.parameters(), o, s, cl)
+            return {"loss": loss.detach(),
+                    **{k: v.detach() for k, v in losses.items()}}
+        return step
+
+    row = mt_row(torch, ops, "fcos", model, build_fc, make, (x, boxes), 1e-4,
+                 0, None, {"in_channels": c, "shape": list(MT_FCOS_SHAPE),
+                           "stride": 16})
+    yield row
+    del model, x
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -3565,6 +4084,13 @@ def main() -> int:
     fields, sfm_eigh = run_sfm(torch, port, ops, cpu_ba)
     phase("sfm", **fields)
     failed += [f"sfm: {f}" for f in fields["failures"]]
+    torch.cuda.empty_cache()
+
+    # Path 12, the matching trainers (SuperPoint with homographic
+    # adaptation, SuperGlue, LoFTR, ContextDesc) and the FCOS head: one
+    # line each. None of the port's kernels is on these paths.
+    for fields in run_match_train(torch, port, ops):
+        phase("match_train", **fields)
 
     phase("kernels", ported=["linear_attention_cuda<-K1",
                              "linear_encoder_attention<-K2",

@@ -3,13 +3,16 @@ from .from_flax import (convert_aslfeat_params,
                         convert_contextdesc_augmenter_params,
                         convert_contextdesc_params, convert_cotr_params,
                         convert_d2net_params, convert_disk_params,
-                        convert_flax_params, convert_loftr_params,
-                        convert_r2d2_params, convert_superglue_params,
+                        convert_fcos_params, convert_flax_params,
+                        convert_loftr_params, convert_r2d2_params,
+                        convert_superglue_params,
+                        convert_superpoint_net_params,
                         convert_superpoint_params)
 
 __all__ = ["convert_aslfeat_params", "convert_contextdesc_augmenter_params",
            "convert_contextdesc_params", "convert_cotr_params",
            "convert_d2net_params", "convert_disk_params",
-           "convert_flax_params", "convert_loftr_params",
-           "convert_r2d2_params", "convert_superglue_params",
+           "convert_fcos_params", "convert_flax_params",
+           "convert_loftr_params", "convert_r2d2_params",
+           "convert_superglue_params", "convert_superpoint_net_params",
            "convert_superpoint_params"]

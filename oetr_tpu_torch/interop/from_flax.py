@@ -20,12 +20,13 @@ from ..models.aslfeat import build_aslfeat
 from ..models.cotr import build_cotr
 from ..models.d2net import build_d2net
 from ..models.disk import build_disk
+from ..models.fcos import build_fcos_head
 from ..models.loftr import build_loftr
 from ..models.oetr import build_oetr
 from ..models.r2d2 import build_r2d2
 from ..models.sift_based import build_contextdesc, build_contextdesc_augmenter
 from ..models.superglue import build_superglue
-from ..models.superpoint import build_superpoint
+from ..models.superpoint import build_superpoint, build_superpoint_net
 
 _AS_IS = {("query_embed1",), ("query_embed2",), ("bin_score",)}
 
@@ -103,6 +104,17 @@ def convert_superpoint_params(params: Mapping, **kwargs) -> dict:
     return {f"net.{k}": v for k, v in _state_dict(tree, model.net).items()}
 
 
+def convert_superpoint_net_params(params: Mapping, **kwargs) -> dict:
+    """A flax SuperPoint tree (the bare ``SuperPointNet``'s, or the
+    extractor's with its layers under ``net``) -> the state_dict of the
+    port's raw ``SuperPointNet(**kwargs)``, the network the trainers
+    train. Raises as ``convert_flax_params`` does."""
+    tree = _unwrap(params)
+    if "net" in tree:
+        tree = tree["net"]
+    return _state_dict(tree, build_superpoint_net(device="meta", **kwargs))
+
+
 def convert_superglue_params(params: Mapping, **kwargs) -> dict:
     """A flax SuperGlue tree -> the state_dict of the port's
     ``SuperGlue(**kwargs)``, ``bin_score`` included. Raises as
@@ -139,3 +151,5 @@ convert_cotr_params = _converter(build_cotr, "COTR")
 convert_contextdesc_params = _converter(build_contextdesc, "ContextDesc")
 convert_contextdesc_augmenter_params = _converter(
     build_contextdesc_augmenter, "ContextDescAugmenter")
+# ``in_channels`` must be the channels the flax tree was initialised on.
+convert_fcos_params = _converter(build_fcos_head, "FCOSHead")

@@ -4,6 +4,9 @@ from .aslfeat import ASLFeat, build_aslfeat
 from .cotr import COTR, build_cotr, cotr_match, make_composite
 from .d2net import D2Net, build_d2net
 from .disk import DISK, build_disk
+from .fcos import (DynamicConv, FCOSHead, Scale, build_fcos_head,
+                   compute_centerness_targets, fcos_losses, fcos_targets,
+                   sigmoid_focal_loss, softmax_focal_loss)
 from .icp import icp_match
 from .loftr import LoFTR, build_loftr
 from .matchers import disk_brute_match, nearest_neighbor_match
@@ -15,13 +18,17 @@ from .sift_based import (ContextDesc, ContextDescAugmenter,
                          build_contextdesc, build_contextdesc_augmenter,
                          contextdesc_extract, landmark_extract)
 from .superglue import SuperGlue, build_superglue
-from .superpoint import SuperPoint, SuperPointNet, build_superpoint, grayscale
+from .superpoint import (SuperPoint, SuperPointNet, build_superpoint,
+                         build_superpoint_net, grayscale)
 from .transformer import (DecoderLayer, EncoderLayer, MultiHeadAttention,
                           QueryTransformer)
 
 __all__ = ["registry", "ASLFeat", "build_aslfeat", "COTR", "build_cotr",
            "cotr_match", "make_composite", "D2Net", "build_d2net", "DISK",
-           "build_disk", "icp_match", "LoFTR", "build_loftr",
+           "build_disk", "DynamicConv", "FCOSHead", "Scale",
+           "build_fcos_head", "compute_centerness_targets", "fcos_losses",
+           "fcos_targets", "sigmoid_focal_loss", "softmax_focal_loss",
+           "icp_match", "LoFTR", "build_loftr",
            "disk_brute_match", "nearest_neighbor_match", "OETR",
            "PatchMerging", "build_oetr", "decode_boxes",
            "sine_position_encoding", "R2D2", "build_r2d2", "ResNetEncoder",
@@ -29,5 +36,5 @@ __all__ = ["registry", "ASLFeat", "build_aslfeat", "COTR", "build_cotr",
            "build_contextdesc", "build_contextdesc_augmenter",
            "contextdesc_extract", "landmark_extract", "SuperGlue",
            "build_superglue", "SuperPoint", "SuperPointNet",
-           "build_superpoint", "grayscale", "DecoderLayer", "EncoderLayer",
+           "build_superpoint", "build_superpoint_net", "grayscale", "DecoderLayer", "EncoderLayer",
            "MultiHeadAttention", "QueryTransformer"]

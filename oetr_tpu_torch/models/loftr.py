@@ -238,7 +238,11 @@ class LoFTR(nn.Module):
         if m0 is not None:
             sim = sim.masked_fill(~(m0[:, :, None] & m1[:, None, :]), -1e9)
         conf = torch.softmax(sim, dim=1)
-        conf.mul_(torch.softmax(sim, dim=2))
+        if sim.requires_grad:
+            # Training: the backward reads both softmaxes as they are.
+            conf = conf * torch.softmax(sim, dim=2)
+        else:
+            conf.mul_(torch.softmax(sim, dim=2))
         del sim
 
         # Mutual nearest + threshold, from the one ``conf`` tensor. Every

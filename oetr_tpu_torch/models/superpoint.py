@@ -38,17 +38,20 @@ class SuperPointNet(nn.Module):
         self.convDa = Conv(128, 256, 3, 1, 1, dtype=dtype)
         self.convDb = Conv(256, descriptor_dim, 1, dtype=dtype)
 
-    def forward(self, image: torch.Tensor):
+    def forward(self, image: torch.Tensor, with_logits: bool = False):
         """image [B, H, W, 1], H and W divisible by 8. Returns scores
-        [B, H, W] (float32) and desc [B, H/8, W/8, D] (float32, unit norm).
+        [B, H, W] (float32) and desc [B, H/8, W/8, D] (float32, unit norm);
+        with ``with_logits`` also the raw 65-way cell logits [B, H/8, W/8,
+        65] in float32 (the detector loss's input,
+        ``training/superpoint.py``).
         """
         x = image.to(self.dtype).permute(0, 3, 1, 2)
         for i, (name, _, _) in enumerate(_VGG):
             x = F.relu(getattr(self, name)(x))
             if i in (1, 3, 5):
                 x = F.max_pool2d(x, 2, 2)
-        logits = self.convPb(F.relu(self.convPa(x)))
-        probs = torch.softmax(logits.permute(0, 2, 3, 1).float(), dim=-1)
+        logits = self.convPb(F.relu(self.convPa(x))).permute(0, 2, 3, 1)
+        probs = torch.softmax(logits.float(), dim=-1)
         probs = probs[..., :-1]
         b, hc, wc, _ = probs.shape
         scores = probs.reshape(b, hc, wc, 8, 8).permute(0, 1, 3, 2, 4)
@@ -58,6 +61,8 @@ class SuperPointNet(nn.Module):
         desc = desc.permute(0, 2, 3, 1).float()
         # x * rsqrt(|x|² + eps), as the JAX model (bounded gradient near 0).
         desc = desc * torch.rsqrt((desc * desc).sum(-1, keepdim=True) + 1e-8)
+        if with_logits:
+            return scores, desc, logits.float()
         return scores, desc
 
 
@@ -96,6 +101,17 @@ class SuperPoint(nn.Module):
             descriptors = sample_descriptors(desc_map, xy, stride=8)
         return {"keypoints": xy, "scores": kp_scores, "valid": valid,
                 "descriptors": descriptors, "dense_scores": scores}
+
+
+def build_superpoint_net(device="cuda",
+                         generator: torch.Generator | None = None,
+                         **kwargs) -> SuperPointNet:
+    """``SuperPointNet(**kwargs)``, the raw network the trainers train, on
+    ``device`` in eval mode, with weights drawn from ``generator`` (a CPU
+    generator; seed 0 when None)."""
+    with torch.device("meta"):
+        model = SuperPointNet(**kwargs)
+    return materialize(model, device, generator)
 
 
 def build_superpoint(device="cuda", generator: torch.Generator | None = None,

@@ -24,6 +24,9 @@ from ._build import check_launch, load_library
 from .autograd import needs_grad
 
 NEG_INF = -1e9
+NO_BACKWARD = ("log_sinkhorn_cuda: the kernel has no backward (nor has "
+               "JAX's Pallas Sinkhorn); call log_sinkhorn for gradients, or "
+               "run under torch.no_grad()")
 # csrc/log_sinkhorn.cu's kStaticSmem: its merge step's (m, s) of 32 slices
 # x 16 columns (rows padded to 17), f32.
 _STATIC_SMEM = 2 * 32 * 17 * 4
@@ -130,10 +133,7 @@ def log_sinkhorn_cuda(log_cost: torch.Tensor, log_mu: torch.Tensor,
     if all(t.device.type == "cpu" for t in tensors):
         return log_sinkhorn(log_cost, log_mu, log_nu, iters)
     if needs_grad(*tensors):
-        raise RuntimeError("log_sinkhorn_cuda: the kernel has no backward "
-                           "(nor has JAX's Pallas Sinkhorn); call "
-                           "log_sinkhorn for gradients, or run under "
-                           "torch.no_grad()")
+        raise RuntimeError(NO_BACKWARD)
     if any(t.device != log_cost.device or t.device.type != "cuda"
            for t in tensors):
         raise ValueError("log_sinkhorn_cuda: inputs on "

@@ -17,13 +17,13 @@ from __future__ import annotations
 import os
 from dataclasses import dataclass
 
-import numpy as np
 import torch
 
 from ..config import OETRConfig, TrainConfig
 from ..models.oetr import OETR, build_oetr
 from .losses import (aux_match_loss, cycle_overlap_loss, difficulty_weights,
                      heatmap_ce_loss, oetr_losses, size_loss, total_loss)
+from .optim import apply_update, piecewise_constant_schedule
 
 
 def multistep_schedule(cfg: TrainConfig, steps_per_epoch: int):
@@ -31,16 +31,9 @@ def multistep_schedule(cfg: TrainConfig, steps_per_epoch: int):
     {m · steps_per_epoch: gamma})``: ``schedule(count)`` is lr times gamma
     for every boundary that count has reached, in float32 as optax
     computes it."""
-    boundaries = sorted({m * steps_per_epoch for m in cfg.lr_milestones})
-
-    def schedule(count: int) -> float:
-        v = np.float32(cfg.lr)
-        for boundary in boundaries:
-            if count >= boundary:
-                v = np.float32(cfg.lr_gamma) * v
-        return float(v)
-
-    return schedule
+    return piecewise_constant_schedule(
+        cfg.lr, {m * steps_per_epoch: cfg.lr_gamma
+                 for m in cfg.lr_milestones})
 
 
 class StepScheduler:
@@ -170,13 +163,8 @@ def make_train_step(cycle: bool = False, oiou: bool = False,
                                 aux_match_stride, heatmap_weight,
                                 size_weight, reweight_power)
         loss.backward()
-        # optax updates every leaf (a zero gradient still decays it);
-        # torch's AdamW skips a parameter without a gradient.
-        for p in model.parameters():
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        state.optimizer.step()
-        state.scheduler.step()
+        # optax updates every leaf (a zero gradient still decays it).
+        apply_update(model.parameters(), state.optimizer, state.scheduler)
         state.step += 1
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["loss"] = loss.detach()

@@ -47,7 +47,11 @@ LAPACK and its plain twin (``eigh_jacobi_reference``), the
 3x3 SVD built on it, estimate_pose and validation_error on the card
 against the CPU on the card's draws, the host syncs of a call (none with
 the 5-point stage off), float64 refused on the card, and the float32
-refinement returning its input.
+refinement returning its input. For the matching trainers (SuperPoint's
+joint step with HA labels, SuperGlue, LoFTR with the fine loss,
+ContextDesc, the FCOS head): one step on the card against the CPU, no
+device -> host copy in a step, and the HA labeler on the card against the
+CPU on the same draws.
 """
 import numpy as np
 import pytest
@@ -1730,3 +1734,215 @@ def test_reconstruct_on_card_matches_cpu(cuda):
            for r in (card, cpu)]
     ate0 = absolute_trajectory_error(init, cams_gt)["ate_rmse"]
     assert abs(ate[0] - ate[1]) < 1e-3 and max(ate) < 0.5 * ate0
+
+
+# ------------------------------------------------------ matching trainers --
+
+MATCH_TRAINERS = ("superpoint", "superglue", "loftr", "contextdesc", "fcos")
+
+
+def _match_case(name):
+    """(build(device) -> model with seeded weights, make_step(model,
+    optimizer), the step's arguments on the CPU, lr) of a matching trainer
+    at small widths."""
+    from oetr_tpu_torch import training as tr
+    from oetr_tpu_torch.data.device_synth import warp_gray
+    from oetr_tpu_torch.geometry.boxes import compute_locations
+    from oetr_tpu_torch.models import fcos
+    from oetr_tpu_torch.models.sift_based import build_contextdesc
+    from oetr_tpu_torch.training.optim import apply_update
+
+    rng = np.random.default_rng(7)
+    seeded = lambda: torch.Generator().manual_seed(3)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    if name == "superpoint":
+        hw = 64
+        H = torch.from_numpy(np.stack([tr.random_homography(rng, (hw, hw))
+                                       for _ in range(2)]).astype(np.float32))
+        im0 = torch.rand(2, hw, hw, 1, generator=seeded())
+        im1, _ = warp_gray(im0, H, hw)
+        ha = tr.make_corner_labeler(hw, max_cells=16, device="cpu")(im0)
+        args = (torch.rand(2, hw, hw, 1, generator=seeded()),
+                t(rng.integers(0, 65, (2, 8, 8)).astype(np.int32)), im0,
+                im1, H, ha, torch.tensor(1.0))
+        return (lambda dev: port.build_superpoint_net(
+                    device=dev, generator=seeded(), descriptor_dim=32),
+                lambda m, o: tr.make_superpoint_joint_ha_train_step(
+                    m, o, clip_norm=1.0), args, 5e-4)
+    if name == "superglue":
+        b, k, d = 2, 24, 32
+        desc = rng.normal(size=(2, b, k, d)).astype(np.float32)
+        desc /= np.linalg.norm(desc, axis=-1, keepdims=True)
+        v0, v1 = rng.random((b, k)) > 0.1, rng.random((b, k)) > 0.1
+        gt = np.stack([rng.permutation(k) for _ in range(b)])
+        gt = np.where((rng.random((b, k)) < 0.6) & v0
+                      & np.take_along_axis(v1, gt, 1), gt, -1)
+        batch = {"keypoints0": t(rng.uniform(0, 100, (b, k, 2))).float(),
+                 "keypoints1": t(rng.uniform(0, 100, (b, k, 2))).float(),
+                 "descriptors0": t(desc[0]), "descriptors1": t(desc[1]),
+                 "scores0": t(rng.uniform(0, 1, (b, k))).float(),
+                 "scores1": t(rng.uniform(0, 1, (b, k))).float(),
+                 "valid0": t(v0), "valid1": t(v1),
+                 "gt_matches0": t(gt.astype(np.int32)),
+                 "image_hw0": (128, 128), "image_hw1": (128, 128)}
+        return (lambda dev: port.build_superglue(
+                    device=dev, generator=seeded(), descriptor_dim=d,
+                    keypoint_encoder_layers=(16, 32), gnn_layers=2),
+                lambda m, o: tr.make_superglue_train_step(m, o,
+                                                          clip_norm=1.0),
+                (batch,), 1e-4)
+    if name == "loftr":
+        hw = 64
+        im0 = torch.rand(2, hw, hw, 1, generator=seeded())
+        im1 = torch.zeros_like(im0)
+        im1[:, :, 8:] = im0[:, :, :-8]
+        gt = tr.shift_pair_gt((hw, hw), (8, 0)).expand(2, -1).contiguous()
+        u = torch.arange(8, dtype=torch.float32) * 8 + 4.0
+        gy, gx = torch.meshgrid(u, u, indexing="ij")
+        xy = torch.stack([gx.reshape(-1) + 8, gy.reshape(-1)], -1)
+        return (lambda dev: port.build_loftr(
+                    device=dev, generator=seeded(), d_coarse=32, d_fine=16,
+                    coarse_layers=1, nhead=4, match_threshold=0.0,
+                    max_matches=32),
+                lambda m, o: tr.make_loftr_train_step(m, o, 1.0,
+                                                      clip_norm=1.0),
+                (im0, im1, gt, xy.expand(2, -1, -1).contiguous(),
+                 (xy[:, 0] < hw).expand(2, -1).contiguous()), 2e-4)
+    if name == "contextdesc":
+        b, k, hw = 2, 32, 64
+        d = rng.random((2, b, k, 128)) ** 4
+        d = np.sqrt(d / d.sum(-1, keepdims=True)).astype(np.float32)
+        v0, v1 = rng.random((b, k)) > 0.1, rng.random((b, k)) > 0.1
+        gt = np.stack([rng.permutation(k) for _ in range(b)])
+        gt = np.where((rng.random((b, k)) < 0.5) & v0
+                      & np.take_along_axis(v1, gt, 1), gt, -1)
+        batch = {"image0": torch.rand(b, hw, hw, 1, generator=seeded()),
+                 "image1": torch.rand(b, hw, hw, 1, generator=seeded()),
+                 "desc0": t(d[0]), "desc1": t(d[1]),
+                 "xy0": t(rng.uniform(0, hw - 1, (b, k, 2))).float(),
+                 "xy1": t(rng.uniform(0, hw - 1, (b, k, 2))).float(),
+                 "scores0": t(rng.uniform(0, 0.1, (b, k))).float(),
+                 "scores1": t(rng.uniform(0, 0.1, (b, k))).float(),
+                 "valid0": t(v0), "valid1": t(v1),
+                 "gt_matches0": t(gt.astype(np.int32))}
+        return (lambda dev: build_contextdesc(
+                    device=dev, generator=seeded(), regional_dim=16,
+                    hidden=32),
+                lambda m, o: tr.make_contextdesc_train_step(m, o),
+                (batch,), 1e-3)
+
+    def make_fcos(m, o):
+        def step(x, boxes):
+            o.zero_grad(set_to_none=True)
+            out = fcos.fcos_losses(compute_locations(8, 8, 16,
+                                                     device=x.device),
+                                   *m(x), boxes)
+            loss = (out["cls_loss"] + out["reg_loss"]
+                    + out["centerness_loss"])
+            loss.backward()
+            apply_update(m.parameters(), o)
+            return {"loss": loss.detach()}
+        return step
+
+    boxes = torch.tensor([[8.0, 8.0, 100.0, 90.0], [30.0, 0.0, 128.0, 70.0]])
+    return (lambda dev: fcos.build_fcos_head(device=dev, generator=seeded(),
+                                             in_channels=64),
+            make_fcos, (torch.randn(2, 8, 8, 64, generator=seeded()), boxes),
+            1e-4)
+
+
+def _to(value, dev):
+    if isinstance(value, dict):
+        return {k: _to(v, dev) for k, v in value.items()}
+    return value.to(dev) if isinstance(value, torch.Tensor) else value
+
+
+def _match_step(name, dev):
+    """One step of trainer ``name`` on ``dev``: (metrics, the global
+    gradient norm before the clip, parameters after, the model)."""
+    from oetr_tpu_torch.training import optim
+
+    build, make_step, args, lr = _match_case(name)
+    model = build(dev)
+    opt = torch.optim.Adam(model.parameters(), lr=lr)
+    norms, clip = [], optim.clip_by_global_norm_
+
+    def record(grads, max_norm):
+        norms.append(clip(grads, max_norm))
+        return norms[-1]
+
+    optim.clip_by_global_norm_ = record
+    try:
+        metrics = make_step(model, opt)(*[_to(a, dev) for a in args])
+    finally:
+        optim.clip_by_global_norm_ = clip
+    norm = norms[0] if norms else torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(p.grad) for p in model.parameters()]))
+    return ({k: v.item() for k, v in metrics.items()}, norm.item(),
+            {k: p.detach().cpu() for k, p in model.named_parameters()},
+            model, lr)
+
+
+@pytest.mark.parametrize("name", MATCH_TRAINERS)
+def test_match_train_step_card_vs_cpu(cuda, name):
+    """One step on the card against the CPU from the same seeded weights
+    and inputs (f32, TF32 off): the loss within 1e-4 relative, the global
+    gradient norm before the clip within 1e-3, every parameter within
+    2·lr (+1e-6 of |p|) of the CPU's after the update, and within 0.1·lr
+    where the CPU's gradient is above 0.1 of the parameter's largest, above
+    1e-6 and above 10 times the card's difference from it (there both
+    gradients share their sign, so both steps do)."""
+    mc, nc, pc, card, lr = _match_step(name, cuda)
+    mh, nh, ph, model, _ = _match_step(name, "cpu")
+    card_g = {k: p.grad.cpu() for k, p in card.named_parameters()}
+    assert abs(mc["loss"] - mh["loss"]) <= 1e-4 * abs(mh["loss"]), (mc, mh)
+    assert abs(nc - nh) <= 1e-3 * nh, (nc, nh)
+    for k, p in model.named_parameters():
+        diff = (pc[k] - ph[k]).abs()
+        assert (diff <= 2 * lr + 1e-6 * ph[k].abs()).all(), k
+        g = p.grad.abs()
+        firm = ((g > max(0.1 * g.max().item(), 1e-6))
+                & (g > 10 * (card_g[k] - p.grad).abs()))
+        assert (diff[firm] <= 0.1 * lr).all(), k
+
+
+@pytest.mark.parametrize("name", MATCH_TRAINERS)
+def test_match_train_step_reads_nothing_back(cuda, name):
+    """No device -> host copy in a traced step (after a warm-up)."""
+    build, make_step, args, lr = _match_case(name)
+    model = build(cuda)
+    step = make_step(model, torch.optim.Adam(model.parameters(), lr=lr))
+    args = [_to(a, cuda) for a in args]
+    step(*args)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        step(*args)
+        torch.cuda.synchronize()
+    dtoh = [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and "DtoH" in e.name]
+    assert not dtoh, dtoh
+
+
+def test_ha_labeler_card_vs_cpu(cuda):
+    """The homographic-adaptation labels on the card equal the CPU's on the
+    same draws and weights on >= 99% of the cells; the labeler's draws come
+    from a generator on the images' device."""
+    from oetr_tpu_torch import training as tr
+
+    hw, b = 64, 4
+    net = port.build_superpoint_net(device=cuda, descriptor_dim=32)
+    cpu = port.build_superpoint_net(device="cpu", descriptor_dim=32)
+    im0, _, _ = port.make_homography_pair_generator(hw, b, device=cuda)(
+        torch.Generator(device=cuda).manual_seed(1))
+    Hs = tr.draw_ha_homographies(torch.Generator(device=cuda).manual_seed(2),
+                                 3, b, hw)
+    assert Hs.device.type == "cuda"
+    card = tr.ha_labels(net, im0, Hs, max_cells=24).cpu()
+    ref = tr.ha_labels(cpu, im0.cpu(), Hs.cpu(), max_cells=24)
+    assert (card == ref).float().mean().item() >= 0.99
+    labels = tr.make_ha_labeler(net, hw, n_homo=3, max_cells=24)(
+        im0, torch.Generator(device=cuda).manual_seed(2))
+    assert torch.equal(labels.cpu(), card)

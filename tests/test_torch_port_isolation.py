@@ -8,9 +8,11 @@ imports every module of the port (the geometry, the evaluation package,
 the h5 utilities, the pair lists, the trainer, the MegaDepth dataset, the
 extractors, matchers and registry, the image service, the public API, the
 runner, the demo, the plots, SfM and its demo, the scene generator and the
-pair-list generation among them) and ``chip_smoke``, runs a small forward
-on the CPU and ``get_matches``'s helper below the decode, and renders a
-scene with the generator's renderers and bundle-adjusts a small problem.
+pair-list generation, the matching trainers and the FCOS head among them)
+and ``chip_smoke``, runs a small forward on the CPU and ``get_matches``'s
+helper below the decode, renders a scene with the generator's renderers,
+bundle-adjusts a small problem, takes a SuperPoint train step, and finds
+that the trainers' cv2 batch builders raise ImportError.
 """
 import os
 import re
@@ -55,7 +57,12 @@ MUST_LIST = ("oetr_tpu_torch.geometry.ransac",
              "oetr_tpu_torch.sfm.colmap_model",
              "oetr_tpu_torch.sfm.database", "oetr_tpu_torch.sfm.demo",
              "oetr_tpu_torch.data.synthetic",
-             "oetr_tpu_torch.data.preprocess")
+             "oetr_tpu_torch.data.preprocess",
+             "oetr_tpu_torch.training.superpoint",
+             "oetr_tpu_torch.training.superglue",
+             "oetr_tpu_torch.training.loftr",
+             "oetr_tpu_torch.training.contextdesc",
+             "oetr_tpu_torch.training.optim", "oetr_tpu_torch.models.fcos")
 
 
 class Refuse:
@@ -66,6 +73,7 @@ class Refuse:
 
 
 sys.meta_path.insert(0, Refuse())
+import numpy as np
 import torch
 import oetr_tpu_torch
 
@@ -115,6 +123,22 @@ uv = project_residual(cams[oc], Ks[oc], pts[op], torch.zeros(40, 2))
 res = bundle_adjust(cams, pts + 0.01, Ks, oc, op, uv, torch.ones(40, dtype=torch.bool),
                     iters=2, cg_iters=5)
 assert torch.isfinite(res["cost_history"]).all()
+from oetr_tpu_torch import training as tr
+net = oetr_tpu_torch.build_superpoint_net(device="cpu", descriptor_dim=16)
+opt = torch.optim.Adam(net.parameters(), lr=1e-3)
+labels = torch.full((2, 4, 4), 64, dtype=torch.int32)
+labels[:, 1, 2] = 9
+m = tr.make_superpoint_train_step(net, opt, clip_norm=1.0)(
+    torch.rand(2, 32, 32, 1), labels)
+assert torch.isfinite(m["loss"])
+for builder, args in ((tr.synthetic_shapes_batch, (2, 32)),
+                      (tr.homography_pairs_batch, (2, 32)),
+                      (tr.contextdesc_pairs_batch, (2, 32))):
+    try:
+        builder(np.random.default_rng(0), *args)
+    except ImportError:
+        continue
+    raise AssertionError(f"{builder.__name__} ran without cv2")
 leaked = sorted(m for m in sys.modules
                 if any(m == b or m.startswith(b + ".") for b in BLOCKED))
 assert not leaked, leaked
@@ -128,7 +152,7 @@ def test_port_runs_with_jax_refused():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     n_modules = int(proc.stdout.split("modules")[-1])
-    assert n_modules >= 57
+    assert n_modules >= 63
 
 
 def test_port_sources_name_no_jax_import():
