@@ -124,7 +124,19 @@ paths with seeded random weights:
     on [8, 40, 40, 256] through ``fcos_losses``: ms a step, peak memory,
     CUDA launches and device -> host copies (none) in a traced step, busy
     ms, idle share, and one step against the CPU on the same weights and
-    inputs (none of the port's kernels is on these paths).
+    inputs (none of the port's kernels is on these paths);
+  * ``variants``: the OETR variants at the flagship's widths, bf16, 8
+    pairs of 640², K2 on and the fused-stem switch on: (a) the frozen
+    BatchNorm backbone from a reference-layout checkpoint file (written
+    from a seed with the reference's aliases and unused keys, read through
+    ``load_reference_checkpoint``), K2 16 calls and K3 none, traced beside
+    the GroupNorm flagship in the same run, and in f32 on one pair against
+    the CPU; (b) the space-to-depth stem with GroupNorm and K3 on the 4x4
+    conv's output (K2 16, K3 1), its backbone in f32 against the 7x7 one
+    with the kernel mapped; (c) the LayerNorm backbone (K2 16, K3 none);
+    every K2 and K3 call of each path against its plain version, boxes on
+    against off, pairs/s; then ``device_memory_stats`` and K2's
+    ``speed_of_light`` against ``bound()``.
 K1's lines give its cluster (blocks per batch row and head), its grid and
 its device time at every cluster size.
 One JSON line per phase, each with ``t_s``, seconds since start, and
@@ -148,8 +160,6 @@ import time
 T0 = time.perf_counter()
 BUDGET_S = 300.0
 DEV = "cuda"
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
-PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}   # dense, no TF32
 BATCH_PAIRS = 8
 IMAGE_HW = 640
 # Boxes of the kernel path against the switches-off path, in pixels at
@@ -294,7 +304,7 @@ def trace_calls(torch, fn, reps: int, warmup: int = 1, sessions: int = 6,
                 select=None, cpu: bool = True):
     """``reps`` calls of ``fn()`` in a torch.profiler trace, after
     ``warmup`` calls: (the profile, its device events (kernels, copies,
-    sets; profile_forward.device_events leaves out the pad kernels that
+    sets; utils.profiling.device_events leaves out the pad kernels that
     open and close the trace and absorb the device events it can miss at
     its ends, and the device-side spans of record_function ranges), the
     wall ms per
@@ -305,7 +315,7 @@ def trace_calls(torch, fn, reps: int, warmup: int = 1, sessions: int = 6,
     taken again, up to ``sessions`` traces in all. With ``cpu=False`` only
     the device is traced (no CPU op events: a trace of thousands of
     launches is processed in a fraction of the time)."""
-    from oetr_tpu_torch.profile_forward import device_events, pad_trace
+    from oetr_tpu_torch.utils.profiling import device_events, pad_trace
 
     select = select or (lambda evts: evts)
     for _ in range(warmup):
@@ -369,7 +379,10 @@ def bound(byte_count: int, ops: int, dtype: str, transcendentals: int = 0,
     """Least time on the card (ms) and the term that sets it: the largest of
     bytes over the memory rate, operations over the peak rate for the
     dtype, and transcendentals (exponentials) over the special-function
-    units' rate ``sfu_per_s``."""
+    units' rate ``sfu_per_s``. The card's peaks are
+    ``oetr_tpu_torch.utils.profiling``'s."""
+    from oetr_tpu_torch.utils.profiling import HBM_BYTES_PER_S, PEAK_OPS_PER_S
+
     terms = {"bytes": byte_count / HBM_BYTES_PER_S * 1e3,
              "operations": ops / PEAK_OPS_PER_S[dtype] * 1e3}
     if transcendentals:
@@ -450,7 +463,8 @@ def check_linear_encoder(torch, F, ops, dtype_name, b, l, s, seed,
             "device_ms": dev_ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "library_device_ms": lib_dev_ms,
             "device_over_library": dev_ms / lib_dev_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bytes": nbytes(*args, out), "flops": flops}
 
 
 def check_gn_pool(torch, F, ops, load_library, dtype_name, b, h, w, c,
@@ -1934,7 +1948,8 @@ def traced_stats(torch, fn, reps=3, names=(), warmup=1, cpu=True,
     by device time when asked), the idle share, kernel launches (and those of
     the kernels whose names hold each of ``names``), device -> host
     copies, and (``cpu``) the CPU ops that read a value back."""
-    from oetr_tpu_torch.profile_forward import PAD_KERNEL, PADS, category
+    from oetr_tpu_torch.profile_forward import category
+    from oetr_tpu_torch.utils.profiling import PAD_KERNEL, PADS
 
     prof, dev, wall, taken = trace_calls(torch, fn, reps, warmup, cpu=cpu)
     pads = sum(e.device_type == torch.autograd.DeviceType.CUDA
@@ -3892,6 +3907,319 @@ def run_match_train(torch, port, ops):
     torch.cuda.empty_cache()
 
 
+# -------------------------------------------------------------- variants --
+
+# The OETR variants at the flagship's widths (ResNet50 to layer3, d 256, 8
+# heads, 4 x (self + cross), 2 decoder layers, 640², 'linear:cuda'): the
+# frozen BatchNorm backbone loaded from a reference-layout checkpoint file,
+# the space-to-depth stem with GroupNorm and the fused stem, the LayerNorm
+# backbone. f32 card against the CPU (BN, one pair, TF32 off): tlbr within
+# VARIANT_TLBR_TOL, the heat map's probabilities within VARIANT_PROB_RTOL of
+# the CPU's largest; the two sum convolutions in other orders, which the
+# CPU's own spread under a one-ulp nudge of the input shows beside them
+# (H100, 700 W: card 1.8e-7..3.6e-7 and 3.7e-6..4.1e-6, the CPU's own
+# spread 1.8e-7..3.6e-7 and 2.8e-6..3.6e-6; the bounds ~25x those).
+# The s2d backbone against the 7x7 one with the kernel mapped (f32, 2
+# pairs): VARIANT_S2D_RTOL of max(1, the features' largest |entry|); only
+# the stem's convolution differs, in summation order.
+VARIANT_TLBR_TOL = 1e-5
+VARIANT_PROB_RTOL = 1e-4
+VARIANT_S2D_RTOL = 1e-4
+VARIANT_REPS, VARIANT_WARMUP = 5, 2
+VARIANT_TRACE_NAMES = ("linear_encoder_kernel", "gn_apply_pool_kernel")
+
+
+def variant_config(port, dtype_name, **backbone):
+    """The flagship with K2 and the fused-stem switch on (K3 is taken with
+    norm 'gn' only, JAX's rule) and the backbone fields ``backbone``."""
+    base = port.oetr_r50_kernels_config(dtype_name)
+    return port.replace(base, backbone=port.replace(base.backbone,
+                                                    **backbone))
+
+
+def switches_off(port, cfg):
+    return port.replace(cfg, backbone=port.replace(cfg.backbone,
+                                                   fused_stem=False),
+                        neck=port.replace(cfg.neck, attention="linear"))
+
+
+def reference_checkpoint(torch, port, cfg, path, seed):
+    """Write a reference-layout checkpoint of ``OETR(cfg)`` (norm 'bn')
+    from ``seed`` as the reference's trainer writes one: torch key names
+    under a ``state_dict`` wrapper with DataParallel's ``module.`` prefix,
+    with the keys no converter reads (the ``backbone.layer0..3`` aliases,
+    the classifier, ``num_batches_tracked``, the decoder layers' unused
+    projections) and running variances in [0.5, 1.5]. Returns the port's
+    state it holds and (keys read, keys skipped)."""
+    from oetr_tpu_torch.interop import reference_state_dict
+    from oetr_tpu_torch.models.resnet import FrozenBatchNorm
+
+    g = torch.Generator().manual_seed(seed)
+    model = port.build_oetr(cfg, device="cpu", generator=g)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, FrozenBatchNorm):
+                c = m.weight.shape[0]
+                m.weight.copy_(1 + 0.1 * torch.randn(c, generator=g))
+                m.bias.copy_(0.1 * torch.randn(c, generator=g))
+                m.mean.copy_(0.1 * torch.randn(c, generator=g))
+                m.var.copy_(0.5 + torch.rand(c, generator=g))
+    state = model.state_dict()
+    sd = reference_state_dict(state, cfg)
+    extra = {}
+    for key, val in sd.items():
+        alias = re.match(r"backbone\.encoder\.(layer\d)\.(.*)", key)
+        if alias:
+            extra[f"backbone.{alias[1]}.{alias[2]}"] = val
+        stem = re.match(r"backbone\.encoder\.(conv1|bn1)\.(.*)", key)
+        if stem:
+            extra[f"backbone.layer0.{int(stem[1] == 'bn1')}.{stem[2]}"] = val
+        if key.endswith(".running_var"):
+            extra[key.removesuffix("running_var") + "num_batches_tracked"] = (
+                torch.tensor(0))
+    extra["backbone.encoder.fc.weight"] = torch.randn(1000, 2048,
+                                                      generator=g) / 45.0
+    extra["backbone.encoder.fc.bias"] = torch.zeros(1000)
+    d = cfg.d_model
+    for j in range(cfg.neck.num_decoder_layers):
+        for proj in ("q_proj", "k_proj", "v_proj", "merge"):
+            extra[f"transformer.decoder.layers.{j}.{proj}.weight"] = (
+                torch.randn(d, d, generator=g) / d ** 0.5)
+    torch.save({"state_dict": {f"module.{k}": v
+                               for k, v in {**sd, **extra}.items()},
+                "epoch": 0}, path)
+    return state, (len(sd), len(extra))
+
+
+def variant_forward(torch, port, ops, cfg_on, state, want, tag,
+                    traced=False):
+    """The main path of one variant: ``OETR(cfg_on)`` with ``state`` on
+    BATCH_PAIRS pairs of 640², its launch counts read around the forward,
+    every K2 and K3 call of that forward held to its plain version on the
+    same inputs, the outputs checked and the boxes against the switches-off
+    model (same state) within BOX_TOL_PX; then pairs/s (median of
+    VARIANT_REPS CUDA-event forwards after VARIANT_WARMUP) and, with
+    ``traced``, one traced forward. Returns the fields and the launches."""
+    dtype_name = cfg_on.dtype
+    model = port.build_oetr(cfg_on, device=DEV)
+    model.load_state_dict(state)
+    plain = port.build_oetr(switches_off(port, cfg_on), device=DEV)
+    plain.load_state_dict(state)
+    b, hw = BATCH_PAIRS, IMAGE_HW
+    g = torch.Generator(device=DEV).manual_seed(2)
+    im1, im2 = torch.rand(2, b, hw, hw, 3, generator=g, device=DEV)
+    want = {name: want.get(name, 0) for name in KERNELS}
+    with torch.inference_mode():
+        reset_counts(ops)
+        with recorded_kernel_calls() as calls:
+            out = model(im1, im2)
+            torch.cuda.synchronize()
+        launches = launch_counts(ops)
+        if launches != want:
+            raise AssertionError(f"{tag} kernel launches {launches} != "
+                                 f"{want}")
+        errs = recorded_kernel_errors(torch, ops, calls, path=tag)
+        if {k: v["calls"] for k, v in errs.items()} != {
+                k: n for k, n in want.items() if n}:
+            raise AssertionError(f"{tag}: recorded kernel calls {errs}")
+        del calls
+        ref = plain(im1, im2)
+        check_outputs(torch, cfg_on, out, b, hw, f"{tag} kernels")
+        check_outputs(torch, cfg_on, ref, b, hw, f"{tag} plain")
+        px = box_diff_px(port, out, ref, hw)
+        if not px <= BOX_TOL_PX[dtype_name]:
+            raise AssertionError(f"{tag}: boxes on vs off {px} px > "
+                                 f"{BOX_TOL_PX[dtype_name]}")
+        call = lambda: model(im1, im2)
+        ms = time_ms(torch, call, reps=VARIANT_REPS, warmup=VARIANT_WARMUP)
+        fields = {"path": tag, "dtype": dtype_name, "pairs": b,
+                  "image_hw": hw, "norm": cfg_on.backbone.norm,
+                  "stem_s2d": cfg_on.backbone.stem_s2d,
+                  "launches": {k: n for k, n in launches.items() if n},
+                  "path_kernels_vs_plain": errs,
+                  "box_max_diff_px": px,
+                  "box_tol_px": BOX_TOL_PX[dtype_name],
+                  "ms_per_call": ms, "pairs_per_s": b / ms * 1e3}
+        if traced:
+            stats = traced_stats(torch, call, reps=1, warmup=0,
+                                 names=VARIANT_TRACE_NAMES)
+            got = [stats[f"{n}_per_call"] for n in VARIANT_TRACE_NAMES]
+            if got != [2 * want["linear_encoder_attention"],
+                       want["groupnorm_relu_maxpool"]]:
+                raise AssertionError(f"{tag}: traced K2, K3 launches {got}")
+            fields["traced"] = stats
+    del model, plain
+    return fields, launches
+
+
+def bn_card_vs_cpu(torch, port, cfg, state):
+    """f32 (TF32 off), one pair: the card (K2 on) against the port on the
+    CPU (plain versions), and the CPU against itself with the images
+    nudged up by one ulp. Returns the fields; raises beyond the bounds."""
+    cfg32 = port.replace(cfg, dtype="float32")
+    card = port.build_oetr(cfg32, device=DEV)
+    card.load_state_dict(state)
+    cpu = port.build_oetr(cfg32, device="cpu")
+    cpu.load_state_dict(state)
+    g = torch.Generator().manual_seed(5)
+    im1, im2 = torch.rand(2, 1, IMAGE_HW, IMAGE_HW, 3, generator=g)
+    ones = torch.ones_like(im1)
+    with torch.inference_mode():
+        a = card(im1.to(DEV), im2.to(DEV))
+        r = cpu(im1, im2)
+        nudged = cpu(torch.nextafter(im1, ones), torch.nextafter(im2, ones))
+    del card, cpu
+
+    def gap(x, y, key):
+        d = (x[key].float().cpu() - y[key].float()).abs().max().item()
+        return d / y[key].abs().max().item() if key.startswith("prob") \
+            else d
+
+    keys = ("tlbr1", "tlbr2", "prob_map1", "prob_map2")
+    fields = {"pairs": 1, "dtype": "float32",
+              "card_vs_cpu": {k: gap(a, r, k) for k in keys},
+              "cpu_one_ulp_spread": {k: gap(nudged, r, k) for k in keys},
+              "tlbr_tol": VARIANT_TLBR_TOL, "prob_rtol": VARIANT_PROB_RTOL,
+              "prob_max": r["prob_map1"].max().item()}
+    for k, v in fields["card_vs_cpu"].items():
+        if not v <= (VARIANT_PROB_RTOL if k.startswith("prob")
+                     else VARIANT_TLBR_TOL):
+            raise AssertionError(f"variants bn card vs CPU: {fields}")
+    return fields
+
+
+def s2d_features(torch, port):
+    """The s2d + GN + fused-stem backbone against the 7x7 one with the
+    same weights (the stem's kernel mapped by ``space_to_depth_kernel``),
+    f32, 2 pairs. Returns the fields and the s2d model's state."""
+    from oetr_tpu_torch.models.resnet import space_to_depth_kernel
+
+    m7 = port.build_oetr(variant_config(port, "float32"), device=DEV,
+                         generator=torch.Generator().manual_seed(0))
+    state = dict(m7.state_dict())
+    state["backbone.Conv_0.weight"] = space_to_depth_kernel(
+        state["backbone.Conv_0.weight"])
+    ms2d = port.build_oetr(variant_config(port, "float32", stem_s2d=True),
+                           device=DEV)
+    ms2d.load_state_dict(state)
+    g = torch.Generator(device=DEV).manual_seed(6)
+    images = torch.rand(4, IMAGE_HW, IMAGE_HW, 3, generator=g, device=DEV)
+    with torch.inference_mode():
+        ref = m7.backbone(images)
+        got = ms2d.backbone(images)
+    err = (got - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    fields = {"pairs": 2, "dtype": "float32", "features": list(ref.shape),
+              "max_abs_diff": err, "ref_max": scale,
+              "tol": VARIANT_S2D_RTOL * max(1.0, scale)}
+    if not err <= fields["tol"]:
+        raise AssertionError(f"variants s2d against 7x7: {fields}")
+    return fields, state
+
+
+def run_variants(torch, port, ops, k2_bf16, launches):
+    """The OETR variants at full flagship width (see VARIANT_*): (a) the
+    frozen BatchNorm backbone loaded from a reference-layout checkpoint
+    file through ``load_reference_checkpoint`` (the tensors equal to the
+    state written), bf16 on 8 pairs (K2 16 calls, K3 0), beside the GN
+    flagship traced in the same run; its f32 card against the CPU; (b) the
+    s2d stem with GroupNorm and the fused stem: the backbone against the
+    7x7 one, then bf16 on 8 pairs (K2 16, K3 1, K3 on the 4x4 conv's
+    output); (c) the LayerNorm backbone, bf16, 8 pairs (K2 16, K3 0); then
+    ``device_memory_stats`` and K2's ``speed_of_light`` against
+    ``bound()``. cuDNN's defaults (not deterministic), as in ``slice``.
+    Yields one field dict a line; adds the three main paths' launches to
+    the Counter ``launches``."""
+    import os
+    import tempfile
+
+    from oetr_tpu_torch.interop import load_reference_checkpoint
+    from oetr_tpu_torch.utils.profiling import (PEAK_OPS_PER_S,
+                                                device_memory_stats,
+                                                speed_of_light)
+
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=False, allow_tf32=False):
+        cfg_bn = variant_config(port, "bfloat16", norm="bn")
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "oetr_reference.ckpt")
+            t = time.perf_counter()
+            state, (n_read, n_skipped) = reference_checkpoint(
+                torch, port, cfg_bn, path, seed=31)
+            write_s = time.perf_counter() - t
+            t = time.perf_counter()
+            loaded = load_reference_checkpoint(path, cfg_bn)
+            load_s = time.perf_counter() - t
+            size = os.path.getsize(path)
+        if set(loaded) != set(state) or not all(
+                torch.equal(loaded[k], state[k]) for k in state):
+            raise AssertionError("variants: the loaded checkpoint differs "
+                                 "from the state written")
+        fields, path_launches = variant_forward(
+            torch, port, ops, cfg_bn, loaded,
+            {"linear_encoder_attention": 16}, "bn_checkpoint", traced=True)
+        launches.update(path_launches)
+        gn_cfg = variant_config(port, "bfloat16")
+        gn = port.build_oetr(gn_cfg, device=DEV,
+                             generator=torch.Generator().manual_seed(0))
+        g = torch.Generator(device=DEV).manual_seed(2)
+        im1, im2 = torch.rand(2, BATCH_PAIRS, IMAGE_HW, IMAGE_HW, 3,
+                              generator=g, device=DEV)
+        with torch.inference_mode():
+            call = lambda: gn(im1, im2)
+            gn_ms = time_ms(torch, call, reps=VARIANT_REPS,
+                            warmup=VARIANT_WARMUP)
+            gn_traced = traced_stats(torch, call, reps=1, warmup=0,
+                                     names=VARIANT_TRACE_NAMES)
+        del gn
+        fields.update(
+            checkpoint={"bytes": size, "keys_read": n_read,
+                        "keys_skipped": n_skipped, "write_s": write_s,
+                        "load_s": load_s},
+            gn_flagship_same_run={"ms_per_call": gn_ms,
+                                  "pairs_per_s": BATCH_PAIRS / gn_ms * 1e3,
+                                  "traced": gn_traced},
+            f32_card_vs_cpu=bn_card_vs_cpu(torch, port, cfg_bn, loaded))
+        yield fields
+        del loaded, state
+        torch.cuda.empty_cache()
+
+        s2d_check, s2d_state = s2d_features(torch, port)
+        fields, path_launches = variant_forward(
+            torch, port, ops, variant_config(port, "bfloat16", stem_s2d=True),
+            s2d_state, {"linear_encoder_attention": 16,
+                        "groupnorm_relu_maxpool": 1}, "s2d_gn_fused")
+        launches.update(path_launches)
+        fields["s2d_vs_7x7_backbone"] = s2d_check
+        yield fields
+
+        cfg_ln = variant_config(port, "bfloat16", norm="ln")
+        ln_state = port.build_oetr(
+            cfg_ln, device="cpu",
+            generator=torch.Generator().manual_seed(0)).state_dict()
+        fields, path_launches = variant_forward(
+            torch, port, ops, cfg_ln, ln_state,
+            {"linear_encoder_attention": 16}, "ln")
+        launches.update(path_launches)
+        yield fields
+    torch.cuda.empty_cache()
+
+    sol = speed_of_light(k2_bf16["flops"], k2_bf16["bytes"],
+                         peak_flops=PEAK_OPS_PER_S["bfloat16"])
+    sol_ms = sol["t_sol_s"] * 1e3
+    by = {"memory": "bytes", "compute": "operations"}[sol["bound"]]
+    if not (math.isclose(sol_ms, k2_bf16["bound_ms"], rel_tol=1e-12)
+            and by == k2_bf16["bound_by"]):
+        raise AssertionError(f"speed_of_light {sol} against bound() "
+                             f"{k2_bf16['bound_ms']} {k2_bf16['bound_by']}")
+    memory = device_memory_stats("cuda")
+    if not 0 <= memory["bytes_in_use"] <= memory["bytes_limit"]:
+        raise AssertionError(f"device_memory_stats {memory}")
+    yield {"path": "utilities", "device_memory_stats": memory,
+           "k2_speed_of_light": sol, "k2_bound_ms": k2_bf16["bound_ms"],
+           "k2_bound_by": k2_bf16["bound_by"]}
+
+
 def main() -> int:
     import torch
 
@@ -4091,6 +4419,16 @@ def main() -> int:
     # line each. None of the port's kernels is on these paths.
     for fields in run_match_train(torch, port, ops):
         phase("match_train", **fields)
+    torch.cuda.empty_cache()
+
+    # Path 13, the OETR variants at the flagship's widths: the frozen
+    # BatchNorm backbone from a reference-layout checkpoint file, the
+    # space-to-depth stem with GroupNorm and the fused stem, the LayerNorm
+    # backbone; then the profiling utilities.
+    variant_launches = collections.Counter()
+    for fields in run_variants(torch, port, ops, k2["bfloat16"],
+                               variant_launches):
+        phase("variants", **fields)
 
     phase("kernels", ported=["linear_attention_cuda<-K1",
                              "linear_encoder_attention<-K2",
@@ -4125,7 +4463,9 @@ def main() -> int:
         by_path = {p: n for p, n in ((path, launches[name]),
                                      ("dense", dense_launches[name]),
                                      ("train", train_launches[name]),
-                                     ("api", api_launches[name])) if n}
+                                     ("api", api_launches[name]),
+                                     ("variants", variant_launches[name]))
+                   if n}
         row = {"name": name, "route": "cuda", "source": src,
                "replaces": replaces, "launches": sum(by_path.values()),
                "max_abs_err": res["max_abs_err"],

@@ -2,9 +2,8 @@
 
 Own copies of the fields of ``oetr_tpu/config.py`` that the ported OETR
 forward and trainer read: the port imports nothing of the JAX package. The
-fields the port has carry the JAX names and defaults. It lacks these JAX
-fields, and a config that sets one raises a ``TypeError`` here:
-``BackboneConfig.norm``, ``BackboneConfig.stem_s2d`` and
+fields the port has carry the JAX names and defaults. It lacks one JAX
+field, and a config that sets it raises a ``TypeError`` here:
 ``TrainConfig.data_axis`` (the mesh's data axis: the trainer runs on one
 device). The attention kinds differ in their kernel suffixes (see
 ``NeckConfig``).
@@ -20,7 +19,13 @@ class BackboneConfig:
     depth: int = 50                 # resnet 18/34/50/101/152
     stop_layer: str = "layer3"      # 'layer3' (stride 16) | 'layer4' (stride 32)
     last_layer: int = 1024          # channels at stop_layer
+    norm: str = "gn"                # 'gn' | 'ln' | 'bn' (frozen statistics:
+                                    # the reference's torchvision checkpoints)
+    stem_s2d: bool = False          # space-to-depth stem: 2x2 pixel blocks
+                                    # folded into channels, the 7x7/s2 conv as
+                                    # the equivalent 4x4/s1 (resnet.py)
     fused_stem: bool = False        # GN+ReLU+max-pool stem as one CUDA kernel
+                                    # (taken with norm 'gn' only, as in JAX)
     norm_input: bool = True         # (x - 0.45) / 0.225
 
 

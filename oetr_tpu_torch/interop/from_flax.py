@@ -3,9 +3,9 @@
 The port names its submodules after flax's scopes, so a leaf's key is its
 flax path joined by dots, with the leaf renamed and its layout changed:
 conv ``kernel`` HWIO -> ``weight`` OIHW, Dense ``kernel`` [in, out] ->
-``weight`` [out, in], LayerNorm/GroupNorm ``scale`` -> ``weight``,
-``bias``, ``query_embed1/2`` and SuperGlue's scalar ``bin_score`` as they
-are. The fused kernels' modules use the plain branches' names, so one map
+``weight`` [out, in], LayerNorm/GroupNorm/FrozenBatchNorm ``scale`` ->
+``weight``, ``bias``, FrozenBatchNorm's ``mean`` and ``var``,
+``query_embed1/2`` and SuperGlue's scalar ``bin_score`` as they are. The fused kernels' modules use the plain branches' names, so one map
 serves both switches. Every leaf is used once and every parameter set.
 """
 from __future__ import annotations
@@ -22,11 +22,12 @@ from ..models.d2net import build_d2net
 from ..models.disk import build_disk
 from ..models.fcos import build_fcos_head
 from ..models.loftr import build_loftr
-from ..models.oetr import build_oetr
+from ..models.oetr import PatchEmbed, build_oetr
 from ..models.r2d2 import build_r2d2
 from ..models.sift_based import build_contextdesc, build_contextdesc_augmenter
 from ..models.superglue import build_superglue
 from ..models.superpoint import build_superpoint, build_superpoint_net
+from ..models.transformer import ChannelAttention, SpatialAttention
 
 _AS_IS = {("query_embed1",), ("query_embed2",), ("bin_score",)}
 
@@ -49,32 +50,52 @@ def _convert_leaf(path: tuple[str, ...], arr: np.ndarray):
             return ".".join(path[:-1] + ("weight",)), arr.T
     elif leaf == "scale":
         return ".".join(path[:-1] + ("weight",)), arr
-    elif leaf == "bias" or path in _AS_IS:
+    elif leaf in ("bias", "mean", "var") or path in _AS_IS:
+        # (mean and var: a FrozenBatchNorm's statistics)
         return ".".join(path), arr
     raise KeyError(f"flax leaf {'/'.join(path)} {arr.shape}: no rule maps it "
                    "to a port parameter")
 
 
-def _state_dict(tree: Mapping, model) -> dict:
-    """The strict state_dict of ``model`` (built on the meta device) from a
-    flax tree: float32 CPU tensors."""
+def _float32_cpu(arr) -> torch.Tensor:
+    if isinstance(arr, torch.Tensor):
+        return arr.detach().to(device="cpu", dtype=torch.float32).clone()
+    # (ascontiguousarray makes a 0-d leaf 1-d: reshape it back)
+    return torch.tensor(np.ascontiguousarray(arr).reshape(arr.shape),
+                        dtype=torch.float32)
+
+
+def checked_state(items, model) -> dict:
+    """The strict state_dict of ``model`` (built on the meta device) from
+    ``items``, (port key, array or tensor, where it came from) triples:
+    float32 CPU tensors. Every parameter must be set exactly once: raises
+    KeyError on a key the model lacks, on a key set twice and on a
+    parameter left unset, ValueError on a shape mismatch."""
     expected = {name: tuple(p.shape) for name, p in model.named_parameters()}
     state = {}
-    for path, leaf in _flatten(tree):
-        key, arr = _convert_leaf(path, np.asarray(leaf))
+    for key, arr, origin in items:
         if key not in expected:
-            raise KeyError(f"flax leaf {'/'.join(path)} maps to {key}, which "
-                           "the port's model does not have")
-        if arr.shape != expected[key]:
-            raise ValueError(f"{key}: flax gives {arr.shape}, the port "
-                             f"expects {expected[key]}")
-        # (ascontiguousarray makes a 0-d leaf 1-d: reshape it back)
-        state[key] = torch.tensor(np.ascontiguousarray(arr).reshape(arr.shape),
-                                  dtype=torch.float32)
+            raise KeyError(f"{origin} maps to {key}, which the port's model "
+                           "does not have")
+        if key in state:
+            raise KeyError(f"{origin} maps to {key}, which is set already")
+        if tuple(arr.shape) != expected[key]:
+            raise ValueError(f"{key}: {origin} gives {tuple(arr.shape)}, the "
+                             f"port expects {expected[key]}")
+        state[key] = _float32_cpu(arr)
     missing = sorted(set(expected) - set(state))
     if missing:
         raise KeyError(f"port parameters left unset: {missing}")
     return state
+
+
+def _state_dict(tree: Mapping, model) -> dict:
+    """The strict state_dict of ``model`` (built on the meta device) from a
+    flax tree: float32 CPU tensors."""
+    return checked_state(
+        ((*_convert_leaf(path, np.asarray(leaf)),
+          f"flax leaf {'/'.join(path)}") for path, leaf in _flatten(tree)),
+        model)
 
 
 def _unwrap(params: Mapping) -> Mapping:
@@ -153,3 +174,23 @@ convert_contextdesc_augmenter_params = _converter(
     build_contextdesc_augmenter, "ContextDescAugmenter")
 # ``in_channels`` must be the channels the flax tree was initialised on.
 convert_fcos_params = _converter(build_fcos_head, "FCOSHead")
+
+
+def _module_converter(cls):
+    def convert(params: Mapping, **kwargs) -> dict:
+        with torch.device("meta"):
+            model = cls(**kwargs)
+        return _state_dict(_unwrap(params), model)
+
+    convert.__name__ = f"convert_{cls.__name__.lower()}_params"
+    convert.__doc__ = (f"A flax {cls.__name__} tree -> the state_dict of the "
+                       f"port's ``{cls.__name__}(**kwargs)`` (its input "
+                       "widths must be the tree's). Raises as "
+                       "``convert_flax_params`` does.")
+    return convert
+
+
+# OETR's component-parity modules, which no model of the port builds.
+convert_patchembed_params = _module_converter(PatchEmbed)
+convert_channelattention_params = _module_converter(ChannelAttention)
+convert_spatialattention_params = _module_converter(SpatialAttention)

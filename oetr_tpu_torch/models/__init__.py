@@ -10,18 +10,20 @@ from .fcos import (DynamicConv, FCOSHead, Scale, build_fcos_head,
 from .icp import icp_match
 from .loftr import LoFTR, build_loftr
 from .matchers import disk_brute_match, nearest_neighbor_match
-from .oetr import (OETR, PatchMerging, build_oetr, decode_boxes,
-                   sine_position_encoding)
+from .oetr import (OETR, PatchEmbed, PatchMerging, build_oetr, decode_boxes,
+                   detr_position_embedding, sine_position_encoding)
 from .r2d2 import R2D2, build_r2d2
-from .resnet import ResNetEncoder, backbone_channels
+from .resnet import (FrozenBatchNorm, ResNetEncoder, backbone_channels,
+                     space_to_depth_kernel)
 from .sift_based import (ContextDesc, ContextDescAugmenter,
                          build_contextdesc, build_contextdesc_augmenter,
                          contextdesc_extract, landmark_extract)
 from .superglue import SuperGlue, build_superglue
 from .superpoint import (SuperPoint, SuperPointNet, build_superpoint,
                          build_superpoint_net, grayscale)
-from .transformer import (DecoderLayer, EncoderLayer, MultiHeadAttention,
-                          QueryTransformer)
+from .transformer import (ChannelAttention, DecoderLayer, EncoderLayer,
+                          MultiHeadAttention, QueryTransformer,
+                          SpatialAttention)
 
 __all__ = ["registry", "ASLFeat", "build_aslfeat", "COTR", "build_cotr",
            "cotr_match", "make_composite", "D2Net", "build_d2net", "DISK",
@@ -30,11 +32,13 @@ __all__ = ["registry", "ASLFeat", "build_aslfeat", "COTR", "build_cotr",
            "fcos_targets", "sigmoid_focal_loss", "softmax_focal_loss",
            "icp_match", "LoFTR", "build_loftr",
            "disk_brute_match", "nearest_neighbor_match", "OETR",
-           "PatchMerging", "build_oetr", "decode_boxes",
-           "sine_position_encoding", "R2D2", "build_r2d2", "ResNetEncoder",
-           "backbone_channels", "ContextDesc", "ContextDescAugmenter",
+           "PatchEmbed", "PatchMerging", "build_oetr", "decode_boxes",
+           "detr_position_embedding", "sine_position_encoding", "R2D2",
+           "build_r2d2", "FrozenBatchNorm", "ResNetEncoder",
+           "backbone_channels", "space_to_depth_kernel", "ContextDesc", "ContextDescAugmenter",
            "build_contextdesc", "build_contextdesc_augmenter",
            "contextdesc_extract", "landmark_extract", "SuperGlue",
            "build_superglue", "SuperPoint", "SuperPointNet",
-           "build_superpoint", "build_superpoint_net", "grayscale", "DecoderLayer", "EncoderLayer",
-           "MultiHeadAttention", "QueryTransformer"]
+           "build_superpoint", "build_superpoint_net", "grayscale",
+           "ChannelAttention", "DecoderLayer", "EncoderLayer",
+           "MultiHeadAttention", "QueryTransformer", "SpatialAttention"]

@@ -95,6 +95,15 @@ class LayerNorm(nn.Module):
                             self.bias, self.eps).to(self.dtype)
 
 
+class PixelLayerNorm(LayerNorm):
+    """LayerNorm over the channels of each pixel of an NCHW map (flax's
+    ``nn.LayerNorm`` on NHWC): on a channels_last tensor the permutes are
+    views."""
+
+    def forward(self, x):
+        return super().forward(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+
+
 class GroupNorm(nn.Module):
     """GroupNorm over NCHW: 32 groups and eps 1e-5 by default (OETR's);
     LoFTR keeps flax's eps of 1e-6 with its own group counts."""
@@ -119,15 +128,16 @@ class GroupNorm(nn.Module):
 def init_params(model: nn.Module, generator: torch.Generator) -> None:
     """Fill every parameter from ``generator`` (a CPU generator, so that a
     seed gives the same weights on every device): Dense and Conv weights
-    ~ N(0, 1/fan_in) (flax's lecun_normal without truncation), biases 0,
-    the scales of modules with ``is_norm`` 1, any other parameter
-    ~ N(0, 1)."""
+    ~ N(0, 1/fan_in) (flax's lecun_normal without truncation), biases (and
+    a frozen BatchNorm's means) 0, the other parameters of modules with
+    ``is_norm`` (scales, variances) 1, any other parameter ~ N(0, 1)."""
     for module in model.modules():
         for name, p in module.named_parameters(recurse=False):
             if isinstance(module, (Dense, Conv)) and name == "weight":
                 fan_in = p[0].numel()
                 val = torch.randn(p.shape, generator=generator) * fan_in ** -0.5
-            elif isinstance(module, (Dense, Conv)) or name == "bias":
+            elif isinstance(module, (Dense, Conv)) or name in ("bias",
+                                                                "mean"):
                 val = torch.zeros(p.shape)
             elif getattr(module, "is_norm", False):
                 val = torch.ones(p.shape)

@@ -16,7 +16,7 @@ import torch.nn.functional as F
 from ..config import OETRConfig
 from ..geometry.boxes import (box_tlbr_to_xyxy, boxes_from_prob_map,
                               mesh_grid_centers)
-from .layers import Conv, Dense, GroupNorm, LayerNorm, materialize
+from .layers import Conv, Dense, GroupNorm, PixelLayerNorm, materialize
 from .resnet import ResNetEncoder, backbone_channels
 from .transformer import QueryTransformer
 
@@ -51,13 +51,48 @@ def sine_position_encoding(d_model: int, max_shape: tuple[int, int],
     return pe.permute(1, 2, 0)
 
 
+def detr_position_embedding(mask: torch.Tensor, d_model: int,
+                            temperature: float = 10000.0,
+                            normalize: bool = True,
+                            scale: float | None = None) -> torch.Tensor:
+    """DETR's mask-aware sine embedding [B, H, W, d_model] (float32).
+
+    Positions are cumsums over the validity ``mask`` [B, H, W] (True = a
+    valid pixel), so padding does not stretch the coordinate frame;
+    ``normalize`` maps each image's extent to [0, ``scale``] (2*pi by
+    default). The channels are the y features, then the x features, each
+    sin and cos interleaved.
+    """
+    if scale is None:
+        scale = 2.0 * math.pi
+    m = mask.float()
+    y_embed = torch.cumsum(m, dim=1)
+    x_embed = torch.cumsum(m, dim=2)
+    if normalize:
+        eps = 1e-6
+        y_embed = y_embed / (y_embed[:, -1:, :] + eps) * scale
+        x_embed = x_embed / (x_embed[:, :, -1:] + eps) * scale
+    num_pos_feats = d_model // 2
+    dim_t = torch.arange(num_pos_feats, dtype=torch.float32,
+                         device=mask.device)
+    dim_t = temperature ** (2.0 * torch.floor(dim_t / 2.0) / num_pos_feats)
+
+    def sines(embed):
+        pos = embed[..., None] / dim_t
+        return torch.stack([torch.sin(pos[..., 0::2]),
+                            torch.cos(pos[..., 1::2])],
+                           dim=-1).reshape(*pos.shape[:-1], -1)
+
+    return torch.cat([sines(y_embed), sines(x_embed)], dim=-1)
+
+
 class PatchMerging(nn.Module):
     """LayerNorm over channels, then parallel stride-2 convs with kernel
     sizes ``patch_sizes`` (padding (ps-2)//2), channel-concatenated."""
 
     def __init__(self, dim: int, patch_sizes=(4, 8, 16), dtype=torch.float32):
         super().__init__()
-        self.LayerNorm_0 = LayerNorm(dim, dtype)
+        self.LayerNorm_0 = PixelLayerNorm(dim, dtype)
         n = len(patch_sizes)
         self.n = n
         for i, ps in enumerate(patch_sizes):
@@ -67,9 +102,29 @@ class PatchMerging(nn.Module):
                                  dtype=dtype))
 
     def forward(self, x):
-        x = self.LayerNorm_0(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+        x = self.LayerNorm_0(x)
         return torch.cat([getattr(self, f"reduction_{i}")(x)
                           for i in range(self.n)], dim=1)
+
+
+class PatchEmbed(nn.Module):
+    """Non-overlapping patch embedding: a stride-``patch_size`` conv (XLA's
+    "SAME" padding, flax's default), then optionally a LayerNorm over the
+    channels. [B, C, H, W] -> [B, embed_dim, H/ps, W/ps] (ceil)."""
+
+    def __init__(self, in_chans: int = 3, patch_size: int = 4,
+                 embed_dim: int = 96, use_norm: bool = True,
+                 dtype=torch.float32):
+        super().__init__()
+        self.proj = Conv(in_chans, embed_dim, patch_size, patch_size, "SAME",
+                         dtype=dtype)
+        self.use_norm = use_norm
+        if use_norm:
+            self.LayerNorm_0 = PixelLayerNorm(embed_dim, dtype)
+
+    def forward(self, x):
+        x = self.proj(x)
+        return self.LayerNorm_0(x) if self.use_norm else x
 
 
 class OETR(nn.Module):
@@ -93,7 +148,8 @@ class OETR(nn.Module):
         d = cfg.neck.d_model
         bb = cfg.backbone
         self.backbone = ResNetEncoder(bb.depth, bb.stop_layer, bb.norm_input,
-                                      bb.fused_stem, dtype)
+                                      bb.fused_stem, dtype, bb.norm,
+                                      bb.stem_s2d)
         self.input_proj = Conv(backbone_channels(bb.depth, bb.stop_layer), d,
                                1, dtype=dtype)
         self.patchmerging = PatchMerging(d, cfg.neck.patch_sizes, dtype)

@@ -14,7 +14,7 @@ from ..ops.attention import full_attention, linear_attention
 from ..ops.attention_kernels import (flash_attention_cuda, full_attention_cuda,
                                      linear_attention_cuda)
 from ..ops.linear_encoder import linear_encoder_attention
-from .layers import Dense, LayerNorm
+from .layers import Conv, Dense, LayerNorm
 
 # Below this many queries or keys the attention kernels are not used, as
 # in the JAX package (the decoder's single learned query).
@@ -224,3 +224,39 @@ class QueryTransformer(nn.Module):
         hs0 = run_decoder(q0, feat0, mask0, pos0)
         hs1 = run_decoder(q1, feat1, mask1, pos1)
         return hs0, hs1, feat0, feat1
+
+
+class ChannelAttention(nn.Module):
+    """CBAM channel gate over tokens [B, N, C]: mean and max over the
+    tokens, each through one shared 2-layer MLP (``fc1``, ``fc2``, no
+    biases), summed; the sigmoid taken in float32 and cast back, as JAX
+    does."""
+
+    def __init__(self, d_model: int, reduction: int = 16,
+                 dtype=torch.float32):
+        super().__init__()
+        hidden = max(d_model // reduction, 1)
+        self.fc1 = Dense(d_model, hidden, False, dtype)
+        self.fc2 = Dense(hidden, d_model, False, dtype)
+
+    def forward(self, x):
+        avg = self.fc2(F.relu(self.fc1(x.mean(dim=1))))
+        mx = self.fc2(F.relu(self.fc1(x.amax(dim=1))))
+        gate = torch.sigmoid((avg + mx).float()).to(x.dtype)
+        return x * gate[:, None, :]
+
+
+class SpatialAttention(nn.Module):
+    """CBAM spatial gate over an NCHW map: the mean and max over channels,
+    a ``kernel_size`` conv (``conv``, no bias) of the two, and its sigmoid
+    (float32, cast back) scaling every channel."""
+
+    def __init__(self, kernel_size: int = 7, dtype=torch.float32):
+        super().__init__()
+        self.conv = Conv(2, 1, kernel_size, 1, kernel_size // 2, bias=False,
+                         dtype=dtype)
+
+    def forward(self, x):
+        g = self.conv(torch.cat([x.mean(dim=1, keepdim=True),
+                                 x.amax(dim=1, keepdim=True)], dim=1))
+        return x * torch.sigmoid(g.float()).to(x.dtype)

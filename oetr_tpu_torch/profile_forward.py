@@ -46,6 +46,7 @@ from . import (DensePipeline, PipelineConfig, SparsePipeline, build_loftr,
 from .geometry import estimate_pose
 from .geometry.overlap import rigid_inverse, warp_grid_via_depth
 from .models.superpoint import grayscale
+from .utils.profiling import device_events, pad_trace
 
 PAIRS, HW, DTYPE = 8, 640, "bfloat16"   # the chip_smoke.py paths
 CANVAS, KEYPOINTS = 832, 2048
@@ -87,39 +88,6 @@ CATEGORIES = (
     ("reduction", ("reduce",)),
     ("elementwise / copy", ("elementwise", "copy", "cat", "vectorized")),
 )
-# A torch.profiler trace on the H100 can miss the first device events of
-# the calls it traces: the first 2 of a trace (LoFTR's first convolution
-# and copy, in chip_smoke.py's runs), and late in a long run the first
-# kernel after 4 pads (the first of 3 pose calls, in every trace; the
-# host launched it, 4,062 launches against 4,061 events). The count, not
-# the time, is what it misses: pads of 1 ms in all did not help, and a
-# trace of 3 train steps missed all of 16 pads. So a trace starts with
-# PADS sleep kernels, which absorb what it misses, and ends with them
-# too; their events are left out by name (chip_smoke.traced_stats
-# reports how many it missed).
-PADS, PAD_KERNEL = 64, "spin_kernel"
-
-
-def pad_trace() -> None:
-    """Launch the PADS sleep kernels that open (and close) a trace."""
-    for _ in range(PADS):
-        torch.cuda._sleep(1000)
-
-
-def device_events(prof) -> tuple[list, list]:
-    """The device events of a trace opened by ``pad_trace``, the pads left
-    out: (kernels, copies and sets; the device-side spans of the
-    record_function ranges, which the profiler marks as user annotations
-    and which are not device work)."""
-    work, spans = [], []
-    for evt in prof.events():
-        if evt.device_type != torch.autograd.DeviceType.CUDA \
-                or PAD_KERNEL in evt.name:
-            continue
-        (spans if evt.is_user_annotation else work).append(evt)
-    return work, spans
-
-
 # The pipelines' record_function ranges, in path order.
 STAGES = {"sparse": ("oetr", "crop", "superpoint_net", "nms_topk",
                      "superglue_gnn", "sinkhorn", "match_extraction"),

@@ -51,7 +51,10 @@ refinement returning its input. For the matching trainers (SuperPoint's
 joint step with HA labels, SuperGlue, LoFTR with the fine loss,
 ContextDesc, the FCOS head): one step on the card against the CPU, no
 device -> host copy in a step, and the HA labeler on the card against the
-CPU on the same draws.
+CPU on the same draws. For the OETR variants (frozen BatchNorm, LayerNorm,
+the space-to-depth stem with the fused GroupNorm stem): every K2 and K3
+call of a forward against its plain version, the BatchNorm model on the
+card against the CPU, and the profiling utilities on the card.
 """
 import numpy as np
 import pytest
@@ -1946,3 +1949,100 @@ def test_ha_labeler_card_vs_cpu(cuda):
     labels = tr.make_ha_labeler(net, hw, n_homo=3, max_cells=24)(
         im0, torch.Generator(device=cuda).manual_seed(2))
     assert torch.equal(labels.cpu(), card)
+
+
+# ---------------------------------------------------------- variants ----
+
+def _variant_cfg(variant, dtype="float32", **kw):
+    bb = {"bn": dict(norm="bn"), "ln": dict(norm="ln"),
+          "s2d": dict(norm="gn", stem_s2d=True)}[variant]
+    return port.OETRConfig(
+        backbone=port.BackboneConfig(depth=18, last_layer=256,
+                                     fused_stem=True, **bb, **kw),
+        neck=port.NeckConfig(d_model=64, nhead=4, num_layers=1,
+                             num_decoder_layers=1, attention="linear:cuda"),
+        dtype=dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("variant", ["bn", "ln", "s2d"])
+def test_variant_kernel_calls_match_plain(cuda, variant, dtype):
+    """Each variant's forward on the card: K2 4 calls (self and cross, each
+    image), K3 1 call with the s2d + GroupNorm stem (on the 4x4 conv's
+    output) and none with 'bn' or 'ln' (JAX's rule); every call's output
+    against its plain version on the same inputs (chip_smoke.py's
+    recorder, at the kernel checks' bounds)."""
+    import chip_smoke
+
+    model = port.build_oetr(_variant_cfg(variant, dtype), device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    im1, im2 = torch.rand(2, 2, 160, 160, 3, generator=g, device=cuda)
+    want = {"linear_encoder_attention": 4}
+    if variant == "s2d":
+        want["groupnorm_relu_maxpool"] = 1
+    before = {k: getattr(ops, k).launches for k in
+              ("linear_encoder_attention", "groupnorm_relu_maxpool")}
+    with torch.inference_mode(), chip_smoke.recorded_kernel_calls() as calls:
+        model(im1, im2)
+    got = {k: getattr(ops, k).launches - n for k, n in before.items()}
+    assert got == {"linear_encoder_attention": 4,
+                   "groupnorm_relu_maxpool": int(variant == "s2d")}
+    errs = chip_smoke.recorded_kernel_errors(torch, ops, calls, variant)
+    assert {k: v["calls"] for k, v in errs.items()} == want
+    if variant == "s2d":
+        # the 4x4 conv's output: [2 x 2 images, 160 / 2, 160 / 2, 64]
+        assert errs["groupnorm_relu_maxpool"]["input"] == [4, 80, 80, 64]
+
+
+def test_bn_forward_on_card_matches_cpu(cuda):
+    """The frozen BatchNorm OETR, f32 (TF32 off), statistics drawn as a
+    trained network's: the card (K2) against the CPU (plain versions)
+    with the same state, at the small forward's bounds."""
+    from oetr_tpu_torch.models.resnet import FrozenBatchNorm
+
+    cfg = _variant_cfg("bn")
+    on_cpu = port.build_oetr(cfg, device="cpu")
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for m in on_cpu.modules():
+            if isinstance(m, FrozenBatchNorm):
+                c = m.weight.shape[0]
+                m.mean.copy_(0.1 * torch.randn(c, generator=g))
+                m.var.copy_(0.5 + torch.rand(c, generator=g))
+    on_card = port.build_oetr(cfg, device=cuda)
+    on_card.load_state_dict(on_cpu.state_dict())
+    im1, im2 = torch.rand(2, 2, 160, 160, 3, generator=g)
+    with torch.inference_mode():
+        a = on_card(im1.to(cuda), im2.to(cuda))
+        b = on_cpu(im1, im2)
+    for key in b:
+        torch.testing.assert_close(a[key].cpu(), b[key], rtol=1e-4,
+                                   atol=1e-3, msg=key)
+
+
+def test_profiling_utilities_on_card(cuda):
+    """device_memory_stats reads the allocator and the card; benchmark
+    waits for the card; trace records its kernels."""
+    from oetr_tpu_torch.utils import profiling
+
+    keys = {"bytes_in_use", "peak_bytes_in_use", "bytes_reserved",
+            "bytes_limit", "bytes_free", "utilization"}
+    before = profiling.device_memory_stats("cuda")
+    assert set(before) == keys
+    x = torch.empty(64 << 20, dtype=torch.uint8, device=cuda)
+    after = profiling.device_memory_stats(cuda)
+    assert after["bytes_in_use"] - before["bytes_in_use"] >= 64 << 20
+    assert 0 < after["bytes_in_use"] <= after["bytes_limit"]
+    assert 0 < after["utilization"] <= 1
+    assert set(profiling.device_memory_stats()) == keys   # the card's
+    del x
+    a = torch.rand(2048, 2048, device=cuda)
+    res = profiling.benchmark(lambda: [a @ a], iters=3, warmup=1)
+    assert res["mean_s"] > 0
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiling.trace(tmp) as prof:
+            a @ a
+        work, _ = profiling.device_events(prof)
+        assert any("gemm" in e.name.lower() or "cutlass" in e.name.lower()
+                   or "xmma" in e.name.lower() for e in work)

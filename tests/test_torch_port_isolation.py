@@ -8,7 +8,8 @@ imports every module of the port (the geometry, the evaluation package,
 the h5 utilities, the pair lists, the trainer, the MegaDepth dataset, the
 extractors, matchers and registry, the image service, the public API, the
 runner, the demo, the plots, SfM and its demo, the scene generator and the
-pair-list generation, the matching trainers and the FCOS head among them)
+pair-list generation, the matching trainers and the FCOS head, the
+reference-checkpoint converter and the profiling utilities among them)
 and ``chip_smoke``, runs a small forward on the CPU and ``get_matches``'s
 helper below the decode, renders a scene with the generator's renderers,
 bundle-adjusts a small problem, takes a SuperPoint train step, and finds
@@ -62,7 +63,8 @@ MUST_LIST = ("oetr_tpu_torch.geometry.ransac",
              "oetr_tpu_torch.training.superglue",
              "oetr_tpu_torch.training.loftr",
              "oetr_tpu_torch.training.contextdesc",
-             "oetr_tpu_torch.training.optim", "oetr_tpu_torch.models.fcos")
+             "oetr_tpu_torch.training.optim", "oetr_tpu_torch.models.fcos",
+             "oetr_tpu_torch.interop.torch_convert")
 
 
 class Refuse:
