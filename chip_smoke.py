@@ -136,7 +136,15 @@ paths with seeded random weights:
     with the kernel mapped; (c) the LayerNorm backbone (K2 16, K3 none);
     every K2 and K3 call of each path against its plain version, boxes on
     against off, pairs/s; then ``device_memory_stats`` and K2's
-    ``speed_of_light`` against ``bound()``.
+    ``speed_of_light`` against ``bound()``;
+  * ``multi``: the parallel layer at one NCCL rank (the machine has one
+    card, and NCCL takes one rank a device): the flagship's f32 train step
+    through DDP, 2 steps, against one process on the same weights,
+    batches and generators (bit-equality reported), every K2 and K3 call
+    of the DDP steps against its plain version, ms a step of each, a
+    traced DDP step; FSDP2 with K2 in bf16 and TP in f32 on a small config
+    against one process; ``bundle_adjust`` at Dubrovnik-16's counts with a
+    group against local.
 K1's lines give its cluster (blocks per batch row and head), its grid and
 its device time at every cluster size.
 One JSON line per phase, each with ``t_s``, seconds since start, and
@@ -2407,6 +2415,219 @@ def run_train(torch, port, ops):
 
 
 
+# ------------------------------------------------------------------ multi --
+
+MULTI_STEPS = 2          # steps of each layout against the one-process run
+MULTI_SMALL_HW = 160     # the FSDP2 / TP check's images (10 x 10 tokens)
+MULTI_SMALL_LR = 1e-2    # large enough that bf16 weights move each step
+MULTI_BA_COST_RTOL = 2e-7   # BA with a group against local, of cost0
+MULTI_BA_CAMS_TOL = 1e-3
+
+
+def multi_small_config(port, dtype_name, attention):
+    return port.OETRConfig(
+        backbone=port.BackboneConfig(depth=18, stop_layer="layer3",
+                                     last_layer=256, fused_stem=True),
+        neck=port.NeckConfig(d_model=64, nhead=4, num_layers=1,
+                             num_decoder_layers=1, max_shape=(10, 10),
+                             attention=attention),
+        dtype=dtype_name)
+
+
+def layouts_vs_local(torch, local, other, lr, steps, loss_rtol):
+    """Two runs' step metrics and parameters: losses relative to the
+    local run's, the largest parameter difference against ``steps`` Adam
+    steps of ``lr`` each, and whether every parameter is bit-equal."""
+    (st_a, ms_a, norm_a), (st_b, ms_b, norm_b) = local, other
+    rel = max(abs(b["loss"].item() - a["loss"].item())
+              / max(abs(a["loss"].item()), 1e-12)
+              for a, b in zip(ms_a, ms_b))
+    pa = dict(st_a.model.named_parameters())
+    diff, equal = 0.0, True
+    for name, p in st_b.model.named_parameters():
+        p = p.full_tensor() if hasattr(p, "full_tensor") else p
+        d = (p.detach() - pa[name].detach()).abs().max().item()
+        diff, equal = max(diff, d), equal and d == 0.0
+    return {"loss_rel_diff_max": rel, "loss_rtol": loss_rtol,
+            "grad_norm_local": norm_a, "grad_norm": norm_b,
+            "grad_norm_rel_diff": abs(norm_b - norm_a) / norm_a,
+            "grad_norm_rtol": TRAIN_NORM_RTOL,
+            "param_max_abs_diff": diff, "param_bound": 2 * lr * steps,
+            "bit_equal": equal and all(
+                torch.equal(a["loss"], b["loss"]) for a, b in zip(ms_a, ms_b))}
+
+
+def run_multi(torch, port, ops):
+    """The parallel layer on the card, one rank under NCCL (the machine
+    has one H100; NCCL takes one rank a device). (1) The flagship f32 train
+    step (8 pairs of 640², K2 and K3 on, cuDNN deterministic, seeded
+    weights) through DDP for MULTI_STEPS steps against the one-process
+    step on the same weights, batches and generators: losses, gradient
+    norm, parameters (``layouts_vs_local``), every K2 and K3 call of the
+    DDP steps against its plain version, launches, ms a step of each,
+    traced device -> host copies. (2) FSDP2 ({"data": 1, "fsdp": 1}) on a
+    small config in bf16 with K2 on, lr MULTI_SMALL_LR, against local:
+    each K2 call against its plain version shows that K2 never reads a
+    stale bf16 weight after FSDP's gathers. (3) TP ({"data": 1, "model":
+    1}) on the small config in f32, attention 'linear'. (4) bundle_adjust
+    at Dubrovnik-16's counts with a group of one against local. Returns
+    (fields, the launches of (1))."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from oetr_tpu_torch.parallel import initialize_distributed, make_mesh
+    from oetr_tpu_torch.sfm import bundle_adjust
+    from oetr_tpu_torch.training import (create_train_state,
+                                         global_grad_norm, make_train_step)
+    from oetr_tpu_torch.training.train import shard_train_state
+
+    with tempfile.TemporaryDirectory() as tmp:
+        initialize_distributed(f"file://{tmp}/rendezvous", 1, 0, device=DEV)
+    backend = dist.get_backend()
+    if DEV == "cuda" and backend != "nccl":
+        raise AssertionError(f"multi: backend {backend}, not nccl")
+    fields = {"backend": backend, "world_size": dist.get_world_size(),
+              "steps": MULTI_STEPS}
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    gen = lambda seed: torch.Generator(device=DEV).manual_seed(seed)
+
+    def run(state, step, batches, seed=180):
+        metrics = [step(state, b, gen(seed + i))[1]
+                   for i, b in enumerate(batches)]
+        return state, metrics, global_grad_norm(state.model).item()
+
+    def check(tag, res):
+        if not (res["loss_rel_diff_max"] <= res["loss_rtol"]
+                and res["grad_norm_rel_diff"] <= TRAIN_NORM_RTOL
+                and res["param_max_abs_diff"] <= res["param_bound"]):
+            raise AssertionError(f"multi, {tag} against local: {res}")
+
+    # (1) DDP on the flagship.
+    tcfg = port.TrainConfig()
+    b = tcfg.batch_size
+    synth = port.make_device_generator(IMAGE_HW, b, scale_range=(1.8, 3.2),
+                                       p_translate=0.0, device=DEV)
+    batches = [synth(gen(170 + i)) for i in range(MULTI_STEPS)]
+    cfg = port.oetr_r50_kernels_config("float32")
+
+    def fresh(c, lr=tcfg.lr):
+        return create_train_state(c, port.replace(tcfg, lr=lr),
+                                  torch.Generator().manual_seed(5),
+                                  device=DEV)[1]
+
+    local_step = make_train_step(cycle=True)
+    local = run(fresh(cfg), local_step, batches)
+    mesh = make_mesh({"data": 1}, DEV)
+    ddp, _ = shard_train_state(fresh(cfg), mesh, rules=[])
+    fields["ddp_module"] = type(ddp.module).__name__
+    ddp_step = make_train_step(cycle=True, group=mesh["data"].get_group())
+    reset_counts(ops)
+    with recorded_kernel_calls() as calls:
+        ddp_run = run(ddp, ddp_step, batches)
+        torch.cuda.synchronize()
+    launches = launch_counts(ops)
+    want = {name: 0 for name in KERNELS}
+    want.update(linear_encoder_attention=4 * cfg.neck.num_layers
+                * MULTI_STEPS, groupnorm_relu_maxpool=MULTI_STEPS)
+    if launches != want:
+        raise AssertionError(f"multi DDP launches {launches} != {want}")
+    with torch.no_grad():
+        kernel_errs = recorded_kernel_errors(torch, ops, calls, "multi")
+    del calls
+    res = layouts_vs_local(torch, local, ddp_run, tcfg.lr, MULTI_STEPS,
+                           TRAIN_LOSS_RTOL)
+    check("DDP", res)
+    g = gen(190)
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=False):
+        ms_local = time_ms(torch, lambda: local_step(local[0], batches[0],
+                                                     g), reps=3, warmup=1)
+        ms_ddp = time_ms(torch, lambda: ddp_step(ddp, batches[0], g),
+                         reps=3, warmup=1)
+        stats = traced_stats(torch, lambda: ddp_step(ddp, batches[0], g),
+                             reps=1, names=("linear_encoder_kernel",
+                                            "gn_apply_pool_kernel", "nccl"))
+    fields["ddp_flagship"] = {
+        "model": "oetr_r50_kernels_config('float32')", "pairs": b,
+        "image_hw": IMAGE_HW, **res,
+        "launches": {k: n for k, n in launches.items() if n},
+        "path_kernels_vs_plain": kernel_errs,
+        "ms_per_step": ms_ddp, "ms_per_step_local": ms_local,
+        "timing": "median of 3 CUDA-event steps after 1 warm-up, cuDNN's "
+                  "defaults (as the train phase)",
+        "traced_per_step": {k: stats[k] for k in (
+            "wall_ms", "device_busy_ms", "idle_share", "launches_per_call",
+            "dtoh_copies_per_call", "device_reads",
+            "linear_encoder_kernel_per_call", "gn_apply_pool_kernel_per_call",
+            "nccl_per_call")}}
+    del local, ddp, ddp_run
+    torch.cuda.empty_cache()
+
+    # (2) FSDP2 in bf16 with K2 on; (3) TP in f32.
+    synth = port.make_device_generator(MULTI_SMALL_HW, b, device=DEV)
+    small = [synth(gen(175 + i)) for i in range(MULTI_STEPS)]
+    for tag, dtype_name, attention, axes, fsdp in (
+            ("fsdp2", "bfloat16", "linear:cuda", {"data": 1, "fsdp": 1},
+             "fsdp"),
+            ("tp", "float32", "linear", {"data": 1, "model": 1}, None)):
+        c = multi_small_config(port, dtype_name, attention)
+        step = make_train_step(cycle=True)
+        base = run(fresh(c, MULTI_SMALL_LR), step, small)
+        sub = make_mesh(axes, DEV)
+        st, specs = shard_train_state(fresh(c, MULTI_SMALL_LR), sub,
+                                      rules=None if "model" in axes else [],
+                                      fsdp_axis=fsdp)
+        step = make_train_step(cycle=True, group=sub["data"].get_group())
+        reset_counts(ops)
+        with recorded_kernel_calls() as calls:
+            other = run(st, step, small)
+            torch.cuda.synchronize()
+        with torch.no_grad():
+            errs = recorded_kernel_errors(torch, ops, calls, f"multi {tag}")
+        del calls
+        res = layouts_vs_local(torch, base, other, MULTI_SMALL_LR,
+                               MULTI_STEPS, TRAIN_LOSS_RTOL)
+        check(tag, res)
+        fields[tag] = {"mesh": axes, "dtype": dtype_name,
+                       "attention": attention, "image_hw": MULTI_SMALL_HW,
+                       "pairs": b, "lr": MULTI_SMALL_LR, **res,
+                       "split_over_model": sum("model" in v
+                                               for v in specs.values()),
+                       "launches": {k: n for k, n in
+                                    launch_counts(ops).items() if n},
+                       "path_kernels_vs_plain": errs}
+        del base, st, other
+    torch.cuda.empty_cache()
+
+    # (4) BA with the observations over a group of one.
+    args, _ = bal_problem()
+    on_card = [a.to(DEV) for a in args]
+    kw = dict(iters=BAL_ITERS, cg_iters=BAL_CG_ITERS, huber_delta=BAL_HUBER)
+    ms = {}
+    out = {}
+    for tag, extra in (("local", {}), ("group", {"group": dist.group.WORLD})):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out[tag] = bundle_adjust(*on_card, **kw, **extra)
+        torch.cuda.synchronize()
+        ms[tag] = (time.perf_counter() - start) * 1e3
+    cost_rel = abs(out["group"]["cost"].item() - out["local"]["cost"].item()
+                   ) / out["local"]["cost0"].item()
+    cams = (out["group"]["cams"] - out["local"]["cams"]).abs().max().item()
+    if not (cost_rel <= MULTI_BA_COST_RTOL and cams <= MULTI_BA_CAMS_TOL):
+        raise AssertionError(f"multi BA with a group: cost {cost_rel}, "
+                             f"cams {cams}")
+    fields["ba_group"] = {
+        "counts": [BAL_CAMS, BAL_POINTS, BAL_OBS],
+        "cost_rel_diff_of_cost0": cost_rel, "cost_rtol": MULTI_BA_COST_RTOL,
+        "cams_max_abs_diff": cams, "cams_tol": MULTI_BA_CAMS_TOL,
+        "ms_group_first_call": ms["group"], "ms_local": ms["local"]}
+    dist.destroy_process_group()
+    return fields, launches
+
+
 # -------------------------------------------------------------------- api --
 
 API_WARMUP, API_REPS = 2, 5
@@ -4429,6 +4650,13 @@ def main() -> int:
     for fields in run_variants(torch, port, ops, k2["bfloat16"],
                                variant_launches):
         phase("variants", **fields)
+    torch.cuda.empty_cache()
+
+    # Path 14, the parallel layer at one rank under NCCL: the flagship's
+    # train step through DDP, FSDP2 (K2 in bf16) and TP on a small config,
+    # BA with a group, each against the one-process run.
+    fields, multi_launches = run_multi(torch, port, ops)
+    phase("multi", **fields)
 
     phase("kernels", ported=["linear_attention_cuda<-K1",
                              "linear_encoder_attention<-K2",
@@ -4464,7 +4692,8 @@ def main() -> int:
                                      ("dense", dense_launches[name]),
                                      ("train", train_launches[name]),
                                      ("api", api_launches[name]),
-                                     ("variants", variant_launches[name]))
+                                     ("variants", variant_launches[name]),
+                                     ("multi", multi_launches[name]))
                    if n}
         row = {"name": name, "route": "cuda", "source": src,
                "replaces": replaces, "launches": sum(by_path.values()),

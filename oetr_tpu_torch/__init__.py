@@ -30,7 +30,9 @@ tensors lie;
 estimator on the card unless the caller passes ``device="cpu"``. The
 train steps run where their model's parameters lie, the HA labeler on its
 network's device and ``make_corner_labeler`` on ``device="cuda"`` by
-default.
+default. ``oetr_tpu_torch.parallel`` runs them over several ranks (NCCL on
+the card, gloo with ``device="cpu"``); ``oetr_tpu_torch.entry`` has the
+flagship forward and ``dryrun_multichip``.
 """
 from .config import (BackboneConfig, LossConfig, NeckConfig, OETRConfig,
                      TrainConfig, oetr_fc_r50_config, oetr_r50_config,

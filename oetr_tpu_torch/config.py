@@ -2,11 +2,8 @@
 
 Own copies of the fields of ``oetr_tpu/config.py`` that the ported OETR
 forward and trainer read: the port imports nothing of the JAX package. The
-fields the port has carry the JAX names and defaults. It lacks one JAX
-field, and a config that sets it raises a ``TypeError`` here:
-``TrainConfig.data_axis`` (the mesh's data axis: the trainer runs on one
-device). The attention kinds differ in their kernel suffixes (see
-``NeckConfig``).
+fields carry the JAX names and defaults. The attention kinds differ in
+their kernel suffixes (see ``NeckConfig``).
 """
 from __future__ import annotations
 
@@ -39,6 +36,8 @@ class NeckConfig:
     #   the bare kernel (K1).
     # 'full:cuda' (JAX 'full:pallas'): whole-row softmax kernel (K5).
     # 'full:flash' (the same in JAX): streaming softmax kernel (K6).
+    # 'full:ring' (the same in JAX): ring attention over the group of
+    #   parallel.ring_context (sequence parallelism).
     max_shape: tuple[int, int] = (100, 100)  # positional-encoding grid cap
     patch_sizes: tuple[int, ...] = (4, 8, 16)
     nhead: int = 8
@@ -79,6 +78,7 @@ class TrainConfig:
     pairs_per_epoch: int = 128_000
     seed: int = 42
     checkpoint_dir: str = "checkpoints"
+    data_axis: str = "data"         # the mesh axis the batch is split over
 
 
 def replace(cfg, **kwargs):

@@ -16,6 +16,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
@@ -188,14 +189,16 @@ def fcos_targets(locations: torch.Tensor, targets: torch.Tensor,
 
 def fcos_losses(locations: torch.Tensor, box_cls: torch.Tensor,
                 box_regression: torch.Tensor, centerness: torch.Tensor,
-                targets: torch.Tensor) -> dict:
-    """FCOS's loss triple on one device.
+                targets: torch.Tensor, group=None) -> dict:
+    """FCOS's loss triple.
 
     locations [N, 2]; box_cls [B, H, W, 1]; box_regression [B, H, W, 4];
-    centerness [B, H, W, 1]; targets [B, 4] xyxy. The positive count and
-    the centerness-target sum are the local ones (JAX averages them over a
-    data axis; over one device that is the same). Returns cls_loss,
-    reg_loss, centerness_loss and num_pos, tensors on the inputs' device.
+    centerness [B, H, W, 1]; targets [B, 4] xyxy. With ``group`` (JAX's
+    ``data_axis``) the positive count and the centerness-target sum are
+    all-reduced over its ranks and divided by their number, as the
+    reference's ``all_reduce(SUM) / num_gpus``; without, the local ones.
+    Returns cls_loss, reg_loss, centerness_loss and num_pos (the local
+    count), tensors on the inputs' device.
     """
     labels, reg_t = fcos_targets(locations, targets)
     cls_flat = box_cls.reshape(-1)
@@ -206,9 +209,16 @@ def fcos_losses(locations: torch.Tensor, box_cls: torch.Tensor,
 
     num_pos = pos.sum()
     cent_targets = compute_centerness_targets(reg_t_flat) * pos
-    # One device: the averages over devices are the local sums.
-    num_pos_avg = torch.clamp(num_pos, min=1.0)
-    sum_cent_avg = cent_targets.sum()
+    sum_cent = cent_targets.sum()
+    if group is not None:
+        n_dev = dist.get_world_size(group)
+        sums = torch.stack([num_pos, sum_cent]).detach()
+        dist.all_reduce(sums, group=group)
+        num_pos_avg = torch.clamp(sums[0] / n_dev, min=1.0)
+        sum_cent_avg = sums[1] / n_dev
+    else:
+        num_pos_avg = torch.clamp(num_pos, min=1.0)
+        sum_cent_avg = sum_cent
 
     cls_loss = sigmoid_focal_loss(cls_flat, pos).sum() / num_pos_avg
 

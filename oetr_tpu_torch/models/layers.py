@@ -13,9 +13,13 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 
-class Dense(nn.Module):
+class Dense(nn.Linear):
+    """flax's ``nn.Dense``: weight [out, in] as ``nn.Linear`` holds it (an
+    ``nn.Linear``, so that torch's tensor-parallel styles take it)."""
+
     def __init__(self, cin: int, cout: int, bias: bool, dtype: torch.dtype):
-        super().__init__()
+        nn.Module.__init__(self)
+        self.in_features, self.out_features = cin, cout
         self.weight = nn.Parameter(torch.empty(cout, cin))
         self.bias = nn.Parameter(torch.empty(cout)) if bias else None
         self.dtype = dtype

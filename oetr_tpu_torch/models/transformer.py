@@ -14,6 +14,7 @@ from ..ops.attention import full_attention, linear_attention
 from ..ops.attention_kernels import (flash_attention_cuda, full_attention_cuda,
                                      linear_attention_cuda)
 from ..ops.linear_encoder import linear_encoder_attention
+from ..parallel.data import batch_shard
 from .layers import Conv, Dense, LayerNorm
 
 # Below this many queries or keys the attention kernels are not used, as
@@ -34,11 +35,34 @@ def _attend(kind: str, q, k, v, q_mask, kv_mask):
       'linear:cuda'     — the bare linear-attention kernel (K1);
       'full:cuda'       — the whole-row softmax kernel (K5; JAX's
                           'full:pallas');
-      'full:flash'      — the streaming softmax kernel (K6).
+      'full:flash'      — the streaming softmax kernel (K6);
+      'full:ring'       — ring attention, the K/V sequence sharded over
+                          the group of ``parallel.ring_context`` (every
+                          rank holds the whole sequence and attends with
+                          its block).
     A kernel kind takes the plain op when q or k has fewer than 8 tokens,
     as JAX does; on CPU tensors each wrapper runs its kernel's plain
     version (ops/attention_kernels.py).
     """
+    if kind == "full:ring":
+        import torch.distributed as dist
+
+        from ..parallel.ring_attention import (current_ring_context,
+                                               ring_attention, take_block)
+        group = current_ring_context()
+        if group is None:
+            raise ValueError("attention='full:ring' requires wrapping the "
+                             "forward in parallel.ring_context(group)")
+        if k.shape[1] % dist.get_world_size(group) != 0:
+            # Short K/V (the decoder's single learned query) does not shard
+            # over the ring; plain attention is cheaper there too.
+            return full_attention(q, k, v, q_mask, kv_mask)
+        out = ring_attention(
+            q, take_block(k, group), take_block(v, group), group,
+            None if kv_mask is None else take_block(kv_mask, group))
+        if q_mask is not None:
+            out = out * q_mask[:, :, None, None].to(out.dtype)
+        return out
     if kind in KERNEL_KINDS:
         kernel, plain = KERNEL_KINDS[kind]
         if (q.shape[1] >= MIN_KERNEL_TOKENS
@@ -129,7 +153,10 @@ class Dropout(nn.Module):
     probability 1 - rate and scaled by 1 / (1 - rate), else zeroed; in
     eval mode (or at rate 0) the identity. The masks are drawn from the
     ``torch.Generator`` the caller passes (on the input's device), never
-    from torch's global generator, as JAX takes a dropout key per step."""
+    from torch's global generator, as JAX takes a dropout key per step.
+    Inside ``parallel.global_batch`` each rank draws the global batch's
+    masks and keeps its rows, so that ranks together draw what one process
+    draws for the whole batch."""
 
     def __init__(self, rate: float):
         super().__init__()
@@ -142,8 +169,17 @@ class Dropout(nn.Module):
             raise ValueError("dropout in training mode draws its masks from "
                              "a torch.Generator: pass the step's generator")
         keep = 1.0 - self.rate
-        mask = torch.rand(x.shape, generator=generator,
-                          device=x.device) < keep
+        shard = batch_shard()
+        if shard is None:
+            mask = torch.rand(x.shape, generator=generator,
+                              device=x.device) < keep
+        else:
+            # The global batch's masks, this rank's rows of them.
+            ranks, rank = shard
+            b = x.shape[0]
+            mask = torch.rand((ranks * b,) + tuple(x.shape[1:]),
+                              generator=generator,
+                              device=x.device)[rank * b:(rank + 1) * b] < keep
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
 

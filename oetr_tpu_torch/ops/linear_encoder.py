@@ -56,6 +56,14 @@ def _weight_as(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return rounded
 
 
+def forget_rounded_weights() -> None:
+    """Drop every cached bf16 copy. FSDP2 writes each forward's gathered
+    weights into the same parameter objects without a version bump, at an
+    address the allocator may give again; its models call this before each
+    forward (``parallel.shard_model``)."""
+    _ROUNDED.clear()
+
+
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """The kernel reads 16 bytes at a time: a copy where t is not aligned."""
     return t if t.data_ptr() % 16 == 0 else t.clone()

@@ -13,8 +13,10 @@ the CG iterations; JAX's two ``lax.scan``s) reads anything back: the step
 is accepted or rejected by ``torch.where`` on tensors, and the 3x3 and 6x6
 inverses are ``torch.linalg.inv_ex`` unchecked (``inv`` reads its status
 back on every call). The sums are atomic adds on the card, so their order,
-and the last bits of a sum, change from run to run. Observation sharding
-(JAX's ``axis_name``) is not ported yet.
+and the last bits of a sum, change from run to run. With ``group`` (JAX's
+``axis_name``) the observations are sharded over its ranks: every segment
+sum and the cost are all-reduced (JAX's psum), so each rank runs the same
+LM steps on the same cameras and points.
 
 The Jacobians are forward-mode AD, one JVP a column, as ``jax.jacfwd``
 takes them. Through ``geometry.ransac.so3_exp``, which divides with JAX's
@@ -29,6 +31,7 @@ fixed per-camera intrinsics K [C, 3, 3]; residual = pi(K (R X + t)) - uv.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from ..geometry.ransac import so3_exp
 from ..ops.small_eigh import eigh
@@ -101,9 +104,19 @@ def _vm(v: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
     return (v[..., None, :] @ M)[..., 0, :]
 
 
-def _segment_sum(x: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
-    return torch.zeros((n,) + x.shape[1:], dtype=x.dtype,
-                       device=x.device).index_add_(0, idx, x)
+def _segment_sum(x: torch.Tensor, idx: torch.Tensor, n: int,
+                 group=None) -> torch.Tensor:
+    out = torch.zeros((n,) + x.shape[1:], dtype=x.dtype,
+                      device=x.device).index_add_(0, idx, x)
+    return _psum(out, group)
+
+
+def _psum(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over the ranks of ``group`` (in place); ``x`` alone
+    without one."""
+    if group is not None:
+        dist.all_reduce(x, group=group)
+    return x
 
 
 def _apply_cam(cams: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
@@ -125,7 +138,8 @@ def bundle_adjust(cams0: torch.Tensor, pts0: torch.Tensor, K: torch.Tensor,
                   obs_uv: torch.Tensor, valid: torch.Tensor,
                   update_mask: torch.Tensor | None = None,
                   iters: int = 10, cg_iters: int = 30,
-                  damping: float = 1e-3, huber_delta: float = 0.0) -> dict:
+                  damping: float = 1e-3, huber_delta: float = 0.0,
+                  group=None) -> dict:
     """Levenberg-Marquardt BA.
 
     Args:
@@ -133,6 +147,9 @@ def bundle_adjust(cams0: torch.Tensor, pts0: torch.Tensor, K: torch.Tensor,
       obs_cam/obs_pt: [O] int indices; obs_uv: [O, 2]; valid: [O] bool.
       update_mask: [C, 6] float (0 freezes a component, gauge fixing;
         default fixes camera 0 entirely).
+      group: the process group the observations are sharded over (each
+        rank passes its own obs_*; cameras, points and K whole on every
+        rank), or None.
 
     Returns dict: cams [C, 6], pts [P, 3], cost0, cost, cost_history
     [iters + 1], tensors where the inputs lie.
@@ -153,8 +170,8 @@ def bundle_adjust(cams0: torch.Tensor, pts0: torch.Tensor, K: torch.Tensor,
             n = torch.linalg.norm(r, dim=-1)
             per = torch.where(n <= huber_delta, 0.5 * n ** 2,
                               huber_delta * (n - 0.5 * huber_delta))
-            return torch.sum(per * vf)
-        return 0.5 * torch.sum(r ** 2)
+            return _psum(torch.sum(per * vf), group)
+        return 0.5 * _psum(torch.sum(r ** 2), group)
 
     def lm_step(cams, pts, lam, prev_cost):
         r = residuals(cams, pts, K, obs_cam, obs_pt, obs_uv, vf)
@@ -167,10 +184,10 @@ def bundle_adjust(cams0: torch.Tensor, pts0: torch.Tensor, K: torch.Tensor,
 
         # Gradient and diagonal blocks.
         JcT, JpT = Jc.transpose(1, 2), Jp.transpose(1, 2)
-        g_c = _segment_sum(_vm(r, Jc), obs_cam, C)
-        g_p = _segment_sum(_vm(r, Jp), obs_pt, P)
-        Hcc = _segment_sum(JcT @ Jc, obs_cam, C)
-        Hpp = _segment_sum(JpT @ Jp, obs_pt, P)
+        g_c = _segment_sum(_vm(r, Jc), obs_cam, C, group)
+        g_p = _segment_sum(_vm(r, Jp), obs_pt, P, group)
+        Hcc = _segment_sum(JcT @ Jc, obs_cam, C, group)
+        Hpp = _segment_sum(JpT @ Jp, obs_pt, P, group)
         Hcc = Hcc + lam * eye6
         Hpp = Hpp + lam * eye3
         Hpp_inv = torch.linalg.inv_ex(Hpp, check_errors=False)[0]
@@ -179,15 +196,17 @@ def bundle_adjust(cams0: torch.Tensor, pts0: torch.Tensor, K: torch.Tensor,
 
         # Schur RHS: b = -(g_c - W Hpp⁻¹ g_p).
         y_p = _mv(Hpp_inv, g_p)
-        t = _segment_sum(_mv(W, y_p[obs_pt]), obs_cam, C)
+        t = _segment_sum(_mv(W, y_p[obs_pt]), obs_cam, C, group)
         b = -(g_c - t) * update_mask
 
         def S_mv(v):
             """S v = Hcc v - W Hpp⁻¹ Wᵀ v."""
             v = v * update_mask
             u1 = _mv(Hcc, v)
-            wtv = _segment_sum(_vm(_mv(Jc, v[obs_cam]), Jp), obs_pt, P)
-            u2 = _segment_sum(_mv(W, _mv(Hpp_inv, wtv)[obs_pt]), obs_cam, C)
+            wtv = _segment_sum(_vm(_mv(Jc, v[obs_cam]), Jp), obs_pt, P,
+                               group)
+            u2 = _segment_sum(_mv(W, _mv(Hpp_inv, wtv)[obs_pt]), obs_cam, C,
+                              group)
             return (u1 - u2) * update_mask
 
         Hcc_inv = torch.linalg.inv_ex(Hcc, check_errors=False)[0]
@@ -214,7 +233,8 @@ def bundle_adjust(cams0: torch.Tensor, pts0: torch.Tensor, K: torch.Tensor,
         dc = x
 
         # Point back-substitution: dp = Hpp⁻¹ (-g_p - Wᵀ dc).
-        wtdc = _segment_sum(_vm(_mv(Jc, dc[obs_cam]), Jp), obs_pt, P)
+        wtdc = _segment_sum(_vm(_mv(Jc, dc[obs_cam]), Jp), obs_pt, P,
+                            group)
         dp = _mv(Hpp_inv, -(g_p + wtdc))
 
         cams_new = _apply_cam(cams, dc * update_mask).to(dt)

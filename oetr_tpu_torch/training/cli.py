@@ -1,8 +1,8 @@
 """OETR training from the command line (port of
-``oetr_tpu/training/cli.py``), one process on one device.
+``oetr_tpu/training/cli.py``).
 
-    python -m oetr_tpu_torch.training.cli --base_path /data/megadepth \\
-        --train_pairs pairs_train.txt --val_pairs pairs_val.txt \\
+    python -m oetr_tpu_torch.training.cli --base_path /data/megadepth \
+        --train_pairs pairs_train.txt --val_pairs pairs_val.txt \
         --batch_size 8 --epochs 35 --save_path checkpoints
 
 The model is the flagship (``oetr_r50_kernels_config('float32')``: K2 and
@@ -14,9 +14,22 @@ and re-executes the process with ``--resume``. The dropout masks of step
 N are drawn from a generator seeded ``seed + 1 + N``, so a resumed run
 draws what an uninterrupted one would.
 
-Not yet in the port (ROADMAP item 11): tensor-parallel and FSDP meshes
-(``--tp``, ``--fsdp``) and multi-process runs (``--coordinator``,
-``--num_processes``, ``--process_id``); the flags are accepted and refused.
+Several processes, one rank each, under torchrun or with explicit flags:
+
+    torchrun --nproc_per_node 4 -m oetr_tpu_torch.training.cli ... \
+        --tp 2 --fsdp 2
+    python -m oetr_tpu_torch.training.cli ... --coordinator host:port \
+        --num_processes 2 --process_id 0      # and 1 in a second process
+
+The mesh is {"data": world / (tp * fsdp), "model": tp, "fsdp": fsdp}, as
+in JAX: ``--tp`` splits the transformer's projections over 'model' (the
+encoder then runs the plain 'linear' attention: K2 reads whole weights),
+``--fsdp`` shards the parameters over 'fsdp', and 'data' replicates (DDP
+when neither is asked). Each data rank keeps every P-th batch (P the
+data axis's size), so a step trains on P x batch_size pairs; the loss is
+the global batch's. NCCL on the card, gloo with ``--device cpu``. Rank 0
+alone logs and writes the checkpoints, which are whole, so a run resumes
+on any layout.
 """
 from __future__ import annotations
 
@@ -27,16 +40,19 @@ import sys
 import time
 
 import torch
+import torch.distributed as dist
 
 from ..config import TrainConfig, oetr_r50_kernels_config
 from ..data.megadepth import MegaDepthPairsDataset
+from ..parallel import initialize_distributed, make_mesh
 from .train import (batch_to, create_train_state, latest_checkpoint_step,
-                    load_checkpoint, make_train_step, save_checkpoint)
+                    load_checkpoint, make_train_step, save_checkpoint,
+                    shard_train_state)
 from .validation import evaluate
 
 
 def parse_args(argv=None):
-    ap = argparse.ArgumentParser(description="OETR training on one device")
+    ap = argparse.ArgumentParser(description="OETR training")
     ap.add_argument("--base_path", required=True)
     ap.add_argument("--train_pairs", required=True)
     ap.add_argument("--val_pairs", default=None)
@@ -70,33 +86,58 @@ def parse_args(argv=None):
     ap.add_argument("--max_steps_per_segment", type=int, default=0,
                     help="after N steps in this process: checkpoint and "
                          "re-execute with --resume; 0 never")
-    ap.add_argument("--tp", type=int, default=1)
-    ap.add_argument("--fsdp", type=int, default=1)
-    ap.add_argument("--coordinator", default=None)
-    ap.add_argument("--num_processes", type=int, default=None)
-    ap.add_argument("--process_id", type=int, default=None)
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel mesh axis size ('model')")
+    ap.add_argument("--fsdp", type=int, default=1,
+                    help="FSDP mesh axis size ('fsdp')")
+    ap.add_argument("--coordinator", default=None,
+                    help="host:port of rank 0 (or a tcp:// or file:// "
+                         "URL); torchrun's MASTER_ADDR/PORT by default")
+    ap.add_argument("--num_processes", type=int, default=None,
+                    help="world size; torchrun's WORLD_SIZE by default")
+    ap.add_argument("--process_id", type=int, default=None,
+                    help="this process's rank; torchrun's RANK by default")
     args = ap.parse_args(argv)
-    if (args.tp > 1 or args.fsdp > 1 or args.coordinator is not None
-            or args.num_processes is not None
-            or args.process_id is not None):
-        ap.error("--tp/--fsdp above 1 and --coordinator/--num_processes/"
-                 "--process_id (meshes, several processes) are not ported "
-                 "yet: ROADMAP item 11. The trainer runs on one device.")
+    env = os.environ
+    world = args.num_processes or int(env.get("WORLD_SIZE", "1"))
+    if args.coordinator is not None and world <= 1 \
+            and args.num_processes is None:
+        ap.error("--coordinator needs --num_processes (or torchrun's "
+                 "WORLD_SIZE)")
+    if world > 1 and args.coordinator is None and not env.get("MASTER_ADDR"):
+        ap.error(f"a run of {world} processes needs --coordinator "
+                 "host:port (or torchrun's MASTER_ADDR and MASTER_PORT)")
+    if world > 1 and args.process_id is None and not env.get("RANK"):
+        ap.error(f"a run of {world} processes needs --process_id (or "
+                 "torchrun's RANK)")
+    if args.tp < 1 or args.fsdp < 1 or world % (args.tp * args.fsdp):
+        ap.error(f"mesh model {args.tp} x fsdp {args.fsdp} needs a multiple "
+                 f"of {args.tp * args.fsdp} devices, have {world}")
     return args
 
 
 def main(argv=None):
     args = parse_args(argv)
-    logging.basicConfig(level=logging.INFO,
+    initialize_distributed(args.coordinator, args.num_processes,
+                           args.process_id, device=args.device)
+    distributed = dist.is_initialized()
+    world, rank = ((dist.get_world_size(), dist.get_rank()) if distributed
+                   else (1, 0))
+    logging.basicConfig(level=logging.INFO if rank == 0 else logging.WARNING,
                         format="%(asctime)s %(levelname)s %(message)s")
     log = logging.getLogger("train")
     device = torch.device(args.device)
+    if device.type == "cuda" and distributed:
+        device = torch.device("cuda", torch.cuda.current_device())
 
+    tp, fsdp = args.tp, args.fsdp
+    n_data, d_rank = world // (tp * fsdp), 0
     hw = (args.image_size, args.image_size)
     train_cfg = TrainConfig(batch_size=args.batch_size, image_size=hw,
                             epochs=args.epochs, lr=args.lr,
                             pairs_per_epoch=args.pairs_per_epoch)
-    model_cfg = oetr_r50_kernels_config("float32")
+    model_cfg = oetr_r50_kernels_config(
+        "float32", attention="linear" if tp > 1 else "linear:cuda")
 
     dataset = MegaDepthPairsDataset(args.base_path, args.train_pairs,
                                     image_size=hw,
@@ -106,17 +147,29 @@ def main(argv=None):
     if args.val_pairs:
         val_dataset = MegaDepthPairsDataset(args.base_path, args.val_pairs,
                                             image_size=hw, train=False)
-    steps_per_epoch = max(len(dataset) // args.batch_size, 1)
+    # Global steps an epoch: each takes n_data batches.
+    steps_per_epoch = max(len(dataset) // (args.batch_size * n_data), 1)
 
     model, state = create_train_state(
         model_cfg, train_cfg, torch.Generator().manual_seed(train_cfg.seed),
         steps_per_epoch, device=device)
+    group = None
+    if world > 1 or tp * fsdp > 1:
+        mesh = make_mesh({train_cfg.data_axis: n_data, "model": tp,
+                          "fsdp": fsdp}, device.type)
+        state, _ = shard_train_state(
+            state, mesh, rules=None if tp > 1 else [],
+            fsdp_axis="fsdp" if fsdp > 1 else None,
+            data_axis=train_cfg.data_axis)
+        group = mesh[train_cfg.data_axis].get_group()
+        d_rank = mesh.get_local_rank(train_cfg.data_axis)
+        log.info("%d processes, mesh %s", world, mesh)
     step_fn = make_train_step(cycle=args.cycle, oiou=args.oiou,
                               full_cycle=args.full_cycle,
                               aux_match_weight=args.aux_match,
                               heatmap_weight=args.heatmap,
                               size_weight=args.size_loss,
-                              reweight_power=args.reweight)
+                              reweight_power=args.reweight, group=group)
     log.info("device %s, %d steps an epoch", device, steps_per_epoch)
 
     start_epoch, start_it = 0, 0
@@ -126,7 +179,7 @@ def main(argv=None):
             state = load_checkpoint(args.save_path, last, state)
             start_epoch = state.step // steps_per_epoch
             # Mid-epoch: skip the batches already consumed.
-            start_it = state.step % steps_per_epoch
+            start_it = (state.step % steps_per_epoch) * n_data
             log.info("resumed from step %d (epoch %d, it %d)", last,
                      start_epoch, start_it)
         else:
@@ -143,11 +196,13 @@ def main(argv=None):
                  args.max_steps_per_segment, state.step)
         sys.stdout.flush()
         sys.stderr.flush()
+        if distributed:
+            dist.destroy_process_group()
         os.execv(sys.executable, [sys.executable, "-m",
                                   "oetr_tpu_torch.training.cli", *argv_out])
 
     writer = None
-    if args.tensorboard:
+    if args.tensorboard and rank == 0:
         from ..utils.profiling import ScalarWriter
         writer = ScalarWriter(args.tensorboard)
 
@@ -159,7 +214,13 @@ def main(argv=None):
         t0 = time.time()
         for it, batch in enumerate(
                 dataset.batches(args.batch_size, geometry=needs_geom)):
+            if it >= steps_per_epoch * n_data:
+                break                        # a last, partial global step
             if epoch == start_epoch and it < start_it:
+                continue
+            # DistributedSampler's split: each data rank keeps every
+            # n_data-th batch; the global batch is n_data x batch_size.
+            if it % n_data != d_rank:
                 continue
             dropout_gen.manual_seed(train_cfg.seed + 1 + state.step)
             state, metrics = step_fn(state, batch_to(batch, device),
@@ -168,7 +229,7 @@ def main(argv=None):
             if (args.max_steps_per_segment
                     and segment_steps >= args.max_steps_per_segment):
                 reexec_segment()
-            if it % args.log_every == 0:
+            if it // n_data % args.log_every == 0 and rank == 0:
                 m = {k: float(v) for k, v in metrics.items()}
                 log.info("epoch %d it %d loss %.4f iou %.3f/%.3f (%.1f s)",
                          epoch, it, m["loss"], m["iou1"], m["iou2"],
@@ -184,6 +245,8 @@ def main(argv=None):
         log.info("epoch %d checkpointed at step %d", epoch, state.step)
     if writer is not None:
         writer.close()
+    if distributed:
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel.data import (global_batch, global_count, global_numel,
+                             sum_metrics, sync_params)
 from .losses import interpolate_depth
 from .optim import apply_update
 
@@ -30,7 +32,7 @@ def loftr_coarse_loss(coarse_conf: torch.Tensor, gt_matches0: torch.Tensor,
     col = torch.clamp(gt, 0, coarse_conf.shape[-1] - 1)
     p = torch.gather(coarse_conf, 2, col[..., None])[..., 0]
     ll = torch.where(has_gt, torch.log(torch.clamp(p, min=eps)), 0.0)
-    return -ll.sum() / torch.clamp(has_gt.sum(), min=1)
+    return -ll.sum() / torch.clamp(global_count(has_gt.sum()), min=1)
 
 
 def warp_cell_centers_batch(xy0: torch.Tensor, depth0: torch.Tensor,
@@ -78,13 +80,14 @@ def loftr_fine_loss(out: dict, gt_matches0: torch.Tensor,
     sup = out["valid"] & okv & (gt_col >= 0) & (cells1 == gt_col) & inreach
     err = (out["mkpts1"] - tgt) / reach_px
     l2 = (err * err).sum(dim=-1)
-    n = torch.clamp(sup.sum(), min=1)
+    n = torch.clamp(global_count(sup.sum()), min=1)
     loss = torch.where(sup, l2, 0.0).sum() / n
-    return loss, sup.sum() / sup.numel()
+    return loss, sup.sum() / global_numel(sup.numel())
 
 
 def make_loftr_train_step(model, optimizer, fine_weight: float = 0.0,
-                          scheduler=None, clip_norm: float | None = None):
+                          scheduler=None, clip_norm: float | None = None,
+                          group=None):
     """``step(image0, image1, gt_matches0) -> {"loss", "coarse_acc"}``: the
     coarse loss, its backward and the update. ``coarse_acc`` is the share
     of cells with a GT match whose coarse_conf row argmax is that match.
@@ -92,24 +95,32 @@ def make_loftr_train_step(model, optimizer, fine_weight: float = 0.0,
     With ``fine_weight`` > 0 the step takes ``gt_xy1`` [B, N, 2] and
     ``gt_valid1`` [B, N] too (``warp_cell_centers_batch`` of the cell
     centres), adds ``fine_weight`` times the fine loss and reports
-    ``fine_loss`` and ``fine_frac``.
+    ``fine_loss`` and ``fine_frac``. ``group``: data parallelism over its
+    ranks, each with its rows of the global batch.
     """
+    sync_params(model, group)
+
     def step(image0, image1, gt_matches0, gt_xy1=None, gt_valid1=None):
         optimizer.zero_grad(set_to_none=True)
-        out = model(image0, image1)
-        loss = loftr_coarse_loss(out["coarse_conf"], gt_matches0)
-        metrics = {}
-        if fine_weight:
-            fine, frac = loftr_fine_loss(out, gt_matches0, gt_xy1, gt_valid1)
-            loss = loss + fine_weight * fine
-            metrics = {"fine_loss": fine.detach(), "fine_frac": frac}
+        with global_batch(group):
+            out = model(image0, image1)
+            loss = loftr_coarse_loss(out["coarse_conf"], gt_matches0)
+            metrics = {}
+            if fine_weight:
+                fine, frac = loftr_fine_loss(out, gt_matches0, gt_xy1,
+                                             gt_valid1)
+                loss = loss + fine_weight * fine
+                metrics = {"fine_loss": fine.detach(), "fine_frac": frac}
+            gt = gt_matches0.long()
+            has_gt = gt >= 0
+            pred = out["coarse_conf"].detach().argmax(dim=2)
+            acc = (has_gt & (pred == gt)).sum() / torch.clamp(
+                global_count(has_gt.sum()), min=1)
         loss.backward()
-        apply_update(model.parameters(), optimizer, scheduler, clip_norm)
-        gt = gt_matches0.long()
-        has_gt = gt >= 0
-        pred = out["coarse_conf"].detach().argmax(dim=2)
-        acc = (has_gt & (pred == gt)).sum() / torch.clamp(has_gt.sum(), min=1)
-        return {"loss": loss.detach(), "coarse_acc": acc, **metrics}
+        apply_update(model.parameters(), optimizer, scheduler, clip_norm,
+                     group)
+        return sum_metrics({"loss": loss.detach(), "coarse_acc": acc,
+                            **metrics}, group)
 
     if fine_weight:
         return step

@@ -7,7 +7,10 @@ depth-warped cycle GIoU loss, the token InfoNCE of coarse correspondences,
 the dense heat-map cross-entropy, the tlbr size loss and the per-pair
 difficulty weights. Invalid pairs are masked by ``overlap_valid``, not
 dropped, so shapes stay fixed. The functions that JAX vmaps over pairs take
-the pairs as a leading batch dimension here.
+the pairs as a leading batch dimension here. Inside
+``parallel.global_batch(group)`` every mean divides by the global batch's
+count (the valid pairs, the matched tokens, the difficulty weights' mean),
+as JAX's loss over a sharded batch does.
 """
 from __future__ import annotations
 
@@ -17,12 +20,16 @@ from ..geometry.boxes import (bbox_oiou, bbox_overlaps_aligned,
                               box_xyxy_to_cxywh, giou_loss,
                               pair_overlap_loss)
 from ..geometry.overlap import warp_grid_via_depth
+from ..parallel.data import batch_shard, global_count, global_numel
 
 
 def _masked_mean(x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """Mean over the valid rows; 0 when none is valid."""
+    """Mean over the valid rows; 0 when none is valid. Inside
+    ``parallel.global_batch`` the valid rows of every rank count: this
+    rank's share of the global batch's mean."""
     w = valid.to(x.dtype)
-    return torch.sum(x * w) / torch.clamp(torch.sum(w), min=1.0)
+    return torch.sum(x * w) / torch.clamp(global_count(torch.sum(w)),
+                                          min=1.0)
 
 
 def _pair(a: float, b: float, like: torch.Tensor) -> torch.Tensor:
@@ -238,7 +245,7 @@ def token_infonce_loss(mem1: torch.Tensor, mem2: torch.Tensor,
     ll = torch.gather(logp, -1, tgt[..., None])[..., 0]
     has = (gt1 >= 0) & valid1
     return -torch.sum(torch.where(has, ll, 0.0)) / torch.clamp(
-        has.sum().to(ll.dtype), min=1.0)
+        global_count(has.sum().to(ll.dtype)), min=1.0)
 
 
 def aux_match_loss(outputs: dict, batch: dict, stride: int,
@@ -337,4 +344,6 @@ def difficulty_weights(gt_bbox1: torch.Tensor, gt_bbox2: torch.Tensor,
     a1 = area_frac(gt_bbox1, image_hw1)
     a2 = area_frac(gt_bbox2, image_hw2)
     wgt = torch.sqrt(torch.maximum(a1, a2) / torch.minimum(a1, a2)) ** power
-    return wgt / torch.clamp(torch.mean(wgt), min=1e-6)
+    mean = (torch.mean(wgt) if batch_shard() is None
+            else global_count(wgt.sum()) / global_numel(wgt.numel()))
+    return wgt / torch.clamp(mean, min=1e-6)

@@ -13,6 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..parallel.data import all_reduce_grads
+
 
 def piecewise_constant_schedule(init_value: float,
                                 boundaries_and_scales: dict | None = None):
@@ -51,13 +53,15 @@ def clip_by_global_norm_(grads: list[torch.Tensor],
 
 
 def apply_update(params, optimizer: torch.optim.Optimizer, scheduler=None,
-                 clip_norm: float | None = None) -> None:
-    """After the backward: give every parameter without a gradient a zero
-    one (optax updates every leaf; torch's optimizers skip a parameter
-    without one, and its step count would fall behind), clip as optax
-    does when ``clip_norm`` is set, take the optimizer's step, then the
-    scheduler's."""
+                 clip_norm: float | None = None, group=None) -> None:
+    """After the backward: sum the gradients over ``group`` when given
+    (data parallelism: each rank's is its share of the global loss's),
+    give every parameter without a gradient a zero one (optax updates
+    every leaf; torch's optimizers skip a parameter without one, and its
+    step count would fall behind), clip as optax does when ``clip_norm``
+    is set, take the optimizer's step, then the scheduler's."""
     params = list(params)
+    all_reduce_grads(params, group)
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)

@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.sinkhorn import NO_BACKWARD
+from ..parallel.data import global_batch, global_mean, sum_metrics, sync_params
 from .losses import interpolate_depth
 from .optim import apply_update
 
@@ -46,7 +47,7 @@ def superglue_nll_loss(log_assignment: torch.Tensor,
     denom = valid0.sum(dim=1) + unmatched1.sum(dim=1)
     per_b = -(row_ll.sum(dim=1) + col_ll.sum(dim=1)) / torch.clamp(
         denom.float(), min=1.0)
-    return per_b.mean()
+    return global_mean(per_b)
 
 
 def gt_matches_batch(xy0: torch.Tensor, v0: torch.Tensor, xy1: torch.Tensor,
@@ -90,24 +91,31 @@ def gt_matches_batch(xy0: torch.Tensor, v0: torch.Tensor, xy1: torch.Tensor,
 
 
 def make_superglue_train_step(model, optimizer, scheduler=None,
-                              clip_norm: float | None = None):
+                              clip_norm: float | None = None, group=None):
     """``step(batch) -> {"loss", "match_acc"}``: ``model`` (a ``SuperGlue``)
     on the batch (its input dict plus ``gt_matches0`` [B, M]), the NLL loss,
     the backward through the plain Sinkhorn and the update.
     ``match_acc`` is the share of keypoint slots whose ``matches0`` equals
     the GT and is valid. With the model's ``cuda_sinkhorn`` switch on the
-    step raises K4's error: the kernel has no backward."""
+    step raises K4's error: the kernel has no backward. ``group``: data
+    parallelism over its ranks, each with its rows of the global batch."""
+    sync_params(model, group)
+
     def step(batch: dict):
         if model.cuda_sinkhorn:
             raise RuntimeError(NO_BACKWARD)
         optimizer.zero_grad(set_to_none=True)
-        out = model(batch)
-        loss = superglue_nll_loss(out["log_assignment"], batch["gt_matches0"],
-                                  batch["valid0"], batch["valid1"])
+        with global_batch(group):
+            out = model(batch)
+            loss = superglue_nll_loss(out["log_assignment"],
+                                      batch["gt_matches0"], batch["valid0"],
+                                      batch["valid1"])
+            hit = ((out["matches0"] == batch["gt_matches0"].long())
+                   & batch["valid0"])
+            acc = global_mean(hit.float())
         loss.backward()
-        apply_update(model.parameters(), optimizer, scheduler, clip_norm)
-        hit = ((out["matches0"] == batch["gt_matches0"].long())
-               & batch["valid0"])
-        return {"loss": loss.detach(), "match_acc": hit.float().mean()}
+        apply_update(model.parameters(), optimizer, scheduler, clip_norm,
+                     group)
+        return sum_metrics({"loss": loss.detach(), "match_acc": acc}, group)
 
     return step

@@ -22,6 +22,8 @@ import torch.nn.functional as F
 from ..data.device_synth import (_bilinear, draw_homography,
                                  homography_from_draws, warp_gray)
 from ..ops.nms import remove_borders, simple_nms, topk_stable
+from ..parallel.data import (global_batch, global_mean, global_numel,
+                             sum_metrics, sync_params)
 from .optim import apply_update
 
 
@@ -50,7 +52,7 @@ def magicpoint_loss(logits: torch.Tensor,
     """Mean 65-way cross-entropy over cells (SuperPoint eq. 2, l_p)."""
     logp = F.log_softmax(logits, dim=-1)
     ll = torch.gather(logp, -1, cell_labels.long()[..., None])[..., 0]
-    return -ll.mean()
+    return -global_mean(ll)
 
 
 def make_superpoint_train_step(net, optimizer, scheduler=None,
@@ -146,7 +148,7 @@ def descriptor_hinge_loss(desc0: torch.Tensor, desc1: torch.Tensor,
     pos = torch.clamp(pos_margin - dot, min=0.0)
     neg = torch.clamp(dot - neg_margin, min=0.0)
     loss = torch.where(s, lambda_d * pos, neg)
-    return loss.sum() / (b * n * n)
+    return loss.sum() / global_numel(b * n * n)
 
 
 def random_homography(rng: np.random.Generator, hw: tuple[int, int],
@@ -201,27 +203,33 @@ def homography_pairs_batch(rng: np.random.Generator, b: int, hw: int = 128,
 
 def make_superpoint_joint_train_step(net, optimizer, lambda_desc: float = 1.0,
                                      scheduler=None,
-                                     clip_norm: float | None = None):
+                                     clip_norm: float | None = None,
+                                     group=None):
     """The detector loss on synthetic shapes plus ``lambda_desc`` times the
     descriptor hinge on homography pairs (one doubled batch through the
     network for both sides of the pairs), one update.
 
     ``step(shape_imgs, cell_labels, im0, im1, H) -> {"loss", "det_loss",
-    "desc_loss"}``.
+    "desc_loss"}``. ``group``: data parallelism over its ranks, each with
+    its rows of the global batch.
     """
+    sync_params(net, group)
+
     def step(shape_imgs, cell_labels, im0, im1, H):
         hw = tuple(im0.shape[1:3])
         optimizer.zero_grad(set_to_none=True)
-        _, _, logits = net(shape_imgs, with_logits=True)
-        det = magicpoint_loss(logits, cell_labels)
-        _, desc = net(torch.cat([im0, im1], dim=0))
-        d0, d1 = torch.chunk(desc, 2, dim=0)
-        des = descriptor_hinge_loss(d0, d1, H, hw)
+        with global_batch(group):
+            _, _, logits = net(shape_imgs, with_logits=True)
+            det = magicpoint_loss(logits, cell_labels)
+            _, desc = net(torch.cat([im0, im1], dim=0))
+            d0, d1 = torch.chunk(desc, 2, dim=0)
+            des = descriptor_hinge_loss(d0, d1, H, hw)
         loss = det + lambda_desc * des
         loss.backward()
-        apply_update(net.parameters(), optimizer, scheduler, clip_norm)
-        return {"loss": loss.detach(), "det_loss": det.detach(),
-                "desc_loss": des.detach()}
+        apply_update(net.parameters(), optimizer, scheduler, clip_norm,
+                     group)
+        return sum_metrics({"loss": loss.detach(), "det_loss": det.detach(),
+                            "desc_loss": des.detach()}, group)
 
     return step
 

@@ -54,7 +54,9 @@ device -> host copy in a step, and the HA labeler on the card against the
 CPU on the same draws. For the OETR variants (frozen BatchNorm, LayerNorm,
 the space-to-depth stem with the fused GroupNorm stem): every K2 and K3
 call of a forward against its plain version, the BatchNorm model on the
-card against the CPU, and the profiling utilities on the card.
+card against the CPU, and the profiling utilities on the card. For the
+parallel layer: NCCL at one rank, DDP and FSDP2 (K2's cached bf16 weights
+following FSDP's gathers) against one process, ring attention.
 """
 import numpy as np
 import pytest
@@ -2046,3 +2048,62 @@ def test_profiling_utilities_on_card(cuda):
         work, _ = profiling.device_events(prof)
         assert any("gemm" in e.name.lower() or "cutlass" in e.name.lower()
                    or "xmma" in e.name.lower() for e in work)
+
+
+def test_nccl_one_rank_layouts_match_local(cuda, tmp_path):
+    """NCCL at world size 1 (the card's machine has one H100): a small
+    OETR's steps under DDP (f32, K2 and K3 on) and under FSDP2 (bf16, K2
+    on, lr 1e-2 so that the bf16 weights move each step; K2's cached
+    weights must follow FSDP's gathers) against the one-process steps, and
+    ring attention over the one rank against full attention."""
+    import torch.distributed as dist
+
+    from oetr_tpu_torch.ops.attention import full_attention
+    from oetr_tpu_torch.parallel import (initialize_distributed, make_mesh,
+                                         ring_attention)
+    from oetr_tpu_torch.training import create_train_state, make_train_step
+    from oetr_tpu_torch.training.train import shard_train_state
+
+    initialize_distributed(f"file://{tmp_path}/rdv", 1, 0, device="cuda")
+    try:
+        assert dist.get_backend() == "nccl"
+        g = torch.Generator(device=cuda)
+        synth = port.make_device_generator(160, 2, device=cuda)
+        batches = [synth(g.manual_seed(i)) for i in range(2)]
+        for dtype_name, lr, axes, fsdp in (
+                ("float32", 1e-4, {"data": 1}, None),
+                ("bfloat16", 1e-2, {"data": 1, "fsdp": 1}, "fsdp")):
+            cfg = port.OETRConfig(
+                backbone=port.BackboneConfig(depth=18, last_layer=256,
+                                             fused_stem=True),
+                neck=port.NeckConfig(d_model=64, nhead=4, num_layers=1,
+                                     num_decoder_layers=1, max_shape=(10, 10),
+                                     attention="linear:cuda"),
+                dtype=dtype_name)
+            tcfg = port.TrainConfig(lr=lr)
+            losses = []
+            for layout in (None, axes):
+                _, st = create_train_state(
+                    cfg, tcfg, torch.Generator().manual_seed(0), device=cuda)
+                group = None
+                if layout is not None:
+                    mesh = make_mesh(layout, "cuda")
+                    st, _ = shard_train_state(st, mesh, rules=[],
+                                              fsdp_axis=fsdp)
+                    group = mesh["data"].get_group()
+                step = make_train_step(cycle=True, group=group)
+                with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                                deterministic=True):
+                    losses.append([step(st, b, g.manual_seed(10 + i))[1][
+                        "loss"].item() for i, b in enumerate(batches)])
+            np.testing.assert_allclose(losses[1], losses[0], rtol=1e-4,
+                                       err_msg=dtype_name)
+        gen = torch.Generator(device=cuda).manual_seed(3)
+        q, k, v = (torch.randn(2, 16, 4, 8, generator=gen, device=cuda)
+                   for _ in range(3))
+        km = torch.rand(2, 16, generator=gen, device=cuda) > 0.3
+        torch.testing.assert_close(ring_attention(q, k, v, None, km),
+                                   full_attention(q, k, v, None, km),
+                                   rtol=1e-5, atol=1e-5)
+    finally:
+        dist.destroy_process_group()

@@ -9,7 +9,8 @@ the h5 utilities, the pair lists, the trainer, the MegaDepth dataset, the
 extractors, matchers and registry, the image service, the public API, the
 runner, the demo, the plots, SfM and its demo, the scene generator and the
 pair-list generation, the matching trainers and the FCOS head, the
-reference-checkpoint converter and the profiling utilities among them)
+reference-checkpoint converter, the profiling utilities, the parallel
+layer and the entry points among them)
 and ``chip_smoke``, runs a small forward on the CPU and ``get_matches``'s
 helper below the decode, renders a scene with the generator's renderers,
 bundle-adjusts a small problem, takes a SuperPoint train step, and finds
@@ -64,7 +65,12 @@ MUST_LIST = ("oetr_tpu_torch.geometry.ransac",
              "oetr_tpu_torch.training.loftr",
              "oetr_tpu_torch.training.contextdesc",
              "oetr_tpu_torch.training.optim", "oetr_tpu_torch.models.fcos",
-             "oetr_tpu_torch.interop.torch_convert")
+             "oetr_tpu_torch.interop.torch_convert",
+             "oetr_tpu_torch.parallel", "oetr_tpu_torch.parallel.mesh",
+             "oetr_tpu_torch.parallel.multihost",
+             "oetr_tpu_torch.parallel.ring_attention",
+             "oetr_tpu_torch.parallel.pipeline",
+             "oetr_tpu_torch.parallel.data", "oetr_tpu_torch.entry")
 
 
 class Refuse:
@@ -166,7 +172,7 @@ def test_port_sources_name_no_jax_import():
     files = sorted(f for f in PORT.rglob("*.py")
                    if "_build" not in f.relative_to(PORT).parts)
     files += [ROOT / "chip_smoke.py", ROOT / "pose_timing.py",
-              ROOT / "sfm_spread.py"]
+              ROOT / "sfm_spread.py", ROOT / "tests" / "torch_port_ranks.py"]
     assert len(files) >= 13
     offenders = [str(f.relative_to(ROOT)) for f in files
                  if pattern.search(f.read_text())]

@@ -715,9 +715,14 @@ def test_cli_trains_resumes_and_reexecs(scene, tmp_path):
 @pytest.mark.parametrize("flags", [["--tp", "2"], ["--fsdp", "2"],
                                    ["--coordinator", "localhost:1234"],
                                    ["--num_processes", "2"]])
-def test_cli_refuses_meshes(flags, capsys):
+def test_cli_refuses_meshes(flags, capsys, monkeypatch):
+    """In one process, with no torchrun variables, a mesh wider than the
+    one device and a half-given rendezvous are refused before anything
+    runs (multi-process runs: tests/test_torch_port_multiproc.py)."""
     from oetr_tpu_torch.training import cli
+    for var in ("WORLD_SIZE", "RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(var, raising=False)
     with pytest.raises(SystemExit):
         cli.parse_args(["--base_path", ".", "--train_pairs", "p.txt",
                         *flags])
-    assert "ROADMAP item 11" in capsys.readouterr().err
+    assert "needs" in capsys.readouterr().err
