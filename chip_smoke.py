@@ -125,6 +125,19 @@ paths with seeded random weights:
     CUDA launches and device -> host copies (none) in a traced step, busy
     ms, idle share, and one step against the CPU on the same weights and
     inputs (none of the port's kernels is on these paths);
+  * ``demos``: the demo programs (``python -m oetr_tpu_torch.scripts.*``)
+    at their JAX defaults' widths, f32, seeded weights, through their own
+    phase functions on the device generators' pairs: ``train_demo``'s OETR
+    (ResNet18 to layer3, d 64, 8 heads, 2 + 2 layers, 16 pairs of 160²)
+    with the fused stem (K3) and ``'linear:cuda'`` (K2), its recall table
+    before and after on 8 pairs; ``train_matching_demo --device_data``:
+    SuperPoint (corner teacher, 32 x 128²), SuperGlue on its keypoints (8
+    pairs x 512 at 256², its batch made on the card), its ``evaluate`` on
+    8 pairs with K4 on (the SIFT rows need cv2: not run); and
+    ``train_loftr_demo``'s LoFTR (fine loss, 4 pairs of 256²) with its
+    ``loftr`` row: ms a step, peak memory, a traced step (no device -> host
+    copy), each program's JSON fields, and every K2, K3 and K4 call of the
+    phase against its plain version;
   * ``variants``: the OETR variants at the flagship's widths, bf16, 8
     pairs of 640², K2 on and the fused-stem switch on: (a) the frozen
     BatchNorm backbone from a reference-layout checkpoint file (written
@@ -291,7 +304,7 @@ def phase(phase_name: str, /, **fields) -> None:
     LAST_PHASE_S[0] = now
 
 
-def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
+def time_ms(torch, fn, reps: int = 10, warmup: int = 2) -> float:
     """Median of ``reps`` CUDA-event timings of ``fn()`` after warm-up."""
     for _ in range(warmup):
         fn()
@@ -319,11 +332,16 @@ def trace_calls(torch, fn, reps: int, warmup: int = 1, sessions: int = 6,
     call, the traces taken). ``fn`` launches the same work on every call,
     so a trace where the count of events that ``select`` keeps (all by
     default) is 0 or not a multiple of ``reps`` missed some (seen once on
-    the H100 in ~100 traces, and once in two traces in a row): it is
-    taken again, up to ``sessions`` traces in all. With ``cpu=False`` only
-    the device is traced (no CPU op events: a trace of thousands of
-    launches is processed in a fraction of the time)."""
-    from oetr_tpu_torch.utils.profiling import device_events, pad_trace
+    the H100 in ~100 traces, and once in two traces in a row); so did one
+    whose first or last device event is not a pad kernel (the profiler
+    misses a trace's first events, 4-10 of its 128 pads in a run here, and
+    the pads absorb them unless it missed all of one end's). Either is
+    taken again, up to ``sessions`` traces in all: with ``reps`` 1 the
+    pads are the guard. With ``cpu=False`` only the device is traced (no
+    CPU op events: a trace of thousands of launches is processed in a
+    fraction of the time)."""
+    from oetr_tpu_torch.utils.profiling import (PAD_KERNEL, device_events,
+                                                pad_trace)
 
     select = select or (lambda evts: evts)
     for _ in range(warmup):
@@ -346,30 +364,36 @@ def trace_calls(torch, fn, reps: int, warmup: int = 1, sessions: int = 6,
             torch.cuda.synchronize()
         dev, _ = device_events(prof)
         kept = select(dev)
-        if kept and len(kept) % reps == 0:
+        on_device = sorted((e for e in prof.events()
+                            if e.device_type == torch.autograd.DeviceType.CUDA
+                            and not e.is_user_annotation),
+                           key=lambda e: e.time_range.start)
+        padded = bool(on_device) and all(
+            PAD_KERNEL in e.name for e in (on_device[0], on_device[-1]))
+        if kept and len(kept) % reps == 0 and padded:
             return prof, dev, wall, taken
         names = collections.Counter(e.name for e in kept)
-        counts.append((len(kept), {name[:80]: n for name, n in names.items()
-                                   if n % reps}))
-    raise RuntimeError(f"torch.profiler recorded (device events, the names "
-                       f"whose count is not a multiple of {reps}) {counts} "
-                       f"for {reps} calls")
+        counts.append((len(kept), padded, {name[:80]: n for name, n in
+                                           names.items() if n % reps}))
+    raise RuntimeError(f"torch.profiler recorded (device events, both ends "
+                       f"pads, the names whose count is not a multiple of "
+                       f"{reps}) {counts} for {reps} calls")
 
 
-def device_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
+def device_ms(torch, fn, reps: int = 10, warmup: int = 1) -> float:
     """Device time per call of ``fn()``: the summed duration of the device
     events of ``reps`` calls in a trace (``trace_calls``), over ``reps``.
     Unlike ``time_ms`` it leaves out the host's work between launches."""
-    _, dev, _, _ = trace_calls(torch, fn, reps, warmup)
+    _, dev, _, _ = trace_calls(torch, fn, reps, warmup, cpu=False)
     return sum(e.time_range.elapsed_us() for e in dev) / 1e3 / reps
 
 
-def traced_launches(torch, fn, kernel_name: str, reps: int = 3) -> int:
+def traced_launches(torch, fn, kernel_name: str, reps: int = 1) -> int:
     """Launches per call of ``fn()`` of the kernels whose name holds
     ``kernel_name``: their device events in a trace of ``reps`` calls
     (``trace_calls``), over ``reps``."""
     pick = lambda evts: [e for e in evts if kernel_name in e.name]
-    _, dev, _, _ = trace_calls(torch, fn, reps, select=pick)
+    _, dev, _, _ = trace_calls(torch, fn, reps, select=pick, cpu=False)
     return len(pick(dev)) // reps
 
 
@@ -631,7 +655,7 @@ def check_sinkhorn(torch, ops, b, k, iters, seed, sfu_per_s, big_k):
                              f"{wide_err}, {wide_worst:.2f} x its tolerance")
     del wide_out
     wide_ms = device_ms(torch, lambda: ops.log_sinkhorn_cuda(*wide, iters),
-                        reps=10)
+                        reps=5)
     del wide
 
     call = lambda: ops.log_sinkhorn_cuda(aug, mu, nu, iters)
@@ -641,9 +665,9 @@ def check_sinkhorn(torch, ops, b, k, iters, seed, sfu_per_s, big_k):
                              f"call in the trace, the plan has "
                              f"{plan.launches}")
     ms = time_ms(torch, call)
-    dev_ms = device_ms(torch, call, reps=10)
+    dev_ms = device_ms(torch, call, reps=5)
     plain_ms = time_ms(torch, lambda: ops.log_sinkhorn(aug, mu, nu, iters),
-                       reps=10)
+                       reps=5)
     bound_ms, bound_term = bound(nbytes(aug, mu, nu, out),
                                  4 * b * iters * m * n, "float32",
                                  transcendentals=2 * b * iters * m * n,
@@ -750,7 +774,7 @@ def check_attention(torch, F, ops, kind, dtype_name, b, l, s, masks, seed,
         def library():  # scaled_dot_product_attention, a yardstick only
             return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=pair)
 
-    reps = 20 if b * l * s <= 8 * 400 * 400 else 5
+    reps = 5 if b * l * s <= 8 * 400 * 400 else 2
     ms = time_ms(torch, lambda: wrapper(q, k, v, qm, km), reps=reps)
     plain_ms = time_ms(torch, lambda: plain(q, k, v, qm, km), reps=reps)
     library_ms = time_ms(torch, library, reps=reps)
@@ -1294,7 +1318,7 @@ def match_agreement(a, b, valid):
 
 
 def pairs_per_s(torch, pipe, args, reps):
-    for _ in range(2):
+    for _ in range(1):
         pipe(*args)
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -1365,13 +1389,13 @@ def run_sparse(torch, port, ops, b):
 
         # (b) rates: every switch on, then every switch off.
         torch.cuda.reset_peak_memory_stats()
-        fields["pairs_per_s"] = pairs_per_s(torch, pipe_on, args, reps=5)
+        fields["pairs_per_s"] = pairs_per_s(torch, pipe_on, args, reps=3)
         fields["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
         del pipe_k4_off, sg_k4_off
         off = sparse_models(torch, port, "bfloat16", kernels=False, like=on)
         pipe_off = pipeline(port, off, off[2], 0)
         fields["plain_pairs_per_s"] = pairs_per_s(torch, pipe_off, args,
-                                                  reps=5)
+                                                  reps=3)
         del pipe_off, off
 
         # One call with the reference's rule: < 30 matches -> full image.
@@ -1466,8 +1490,8 @@ def run_loftr(torch, port, ops):
                                      f"{tuple(out[key].shape)}, or not finite")
         ref = pf.loftr_model("cpu")(g0[:2].cpu(), g1[:2].cpu())
         call = lambda: model(g0, g1)
-        ms = time_ms(torch, call, reps=10, warmup=2)
-        busy = device_ms(torch, call, reps=3, warmup=1)
+        ms = time_ms(torch, call, reps=5, warmup=1)
+        busy = device_ms(torch, call, reps=2, warmup=1)
     got = {key: out[key][:2].cpu() for key in ref}
     conf, conf_ref = got["coarse_conf"], ref["coarse_conf"]
     conf_tol = LOFTR_CONF_RTOL * conf_ref.max().item()
@@ -1706,10 +1730,10 @@ def run_dense(torch, port, ops, b):
                       for row in out["bbox0"].tolist()],
             "peak_mem_gb_one_call": peak_gb}
         torch.cuda.reset_peak_memory_stats()
-        fields["pairs_per_s"] = pairs_per_s(torch, pipe_on, args, reps=5)
+        fields["pairs_per_s"] = pairs_per_s(torch, pipe_on, args, reps=3)
         fields["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
         fields["plain_pairs_per_s"] = pairs_per_s(torch, pipe_off, args,
-                                                  reps=5)
+                                                  reps=3)
         del pipe_off, oetr_off, raw_on, raw_off
 
         # One call with the reference's rule: < 30 matches -> full image.
@@ -1896,7 +1920,7 @@ def eigh_errors(torch, ops, calls):
             "max_rel_err": worst, "max_abs_err": abs_err}
 
 
-def eigh_by_shape(torch, eigh, calls, reps=20):
+def eigh_by_shape(torch, eigh, calls, reps=10):
     """Per distinct shape of the recorded ``calls``, largest first: the
     calls of that shape, the device ms of ``eigh`` and of torch.linalg.eigh
     on its first input, and the bound: each matrix read once and w, V
@@ -1948,14 +1972,15 @@ def eigh_row(torch, ops, calls):
                                   for r in by_shape)}
 
 
-def traced_stats(torch, fn, reps=3, names=(), warmup=1, cpu=True,
+def traced_stats(torch, fn, reps=1, names=(), warmup=1, cpu=True,
                  top_kernels=0):
     """Per call of ``fn()`` in a trace of ``reps`` calls (``trace_calls``,
     after ``warmup`` calls): wall ms, device busy ms (and by
     profile_forward's kernel categories, with the ``top_kernels`` kernels
     by device time when asked), the idle share, kernel launches (and those of
     the kernels whose names hold each of ``names``), device -> host
-    copies, and (``cpu``) the CPU ops that read a value back."""
+    copies, and with ``cpu`` (a slower trace) the CPU ops that read a
+    value back (``device_reads``)."""
     from oetr_tpu_torch.profile_forward import category
     from oetr_tpu_torch.utils.profiling import PAD_KERNEL, PADS
 
@@ -1982,7 +2007,8 @@ def traced_stats(torch, fn, reps=3, names=(), warmup=1, cpu=True,
             "idle_share": 1.0 - busy / wall,
             "launches_per_call": (len(dev) - len(copies)) / reps,
             "dtoh_copies_per_call": len(dtoh) / reps,
-            "device_reads": dict(readers), "traces_taken": taken,
+            **({"device_reads": dict(readers)} if cpu else {}),
+            "traces_taken": taken,
             "pad_events_missed": 2 * PADS - pads,
             "device_ms_by_category": dict(by_category.most_common()),
             **({"top_kernels_ms": dict(by_name.most_common(top_kernels))}
@@ -2179,7 +2205,7 @@ def run_pose(torch, port, ops, scenes):
                     general["kpts0"], general["kpts1"], general["valid"],
                     general["K"], general["K"], gen, use_5pt=use_5pt)
 
-            ms = time_ms(torch, call, reps=5, warmup=2)
+            ms = time_ms(torch, call, reps=3, warmup=1)
             stats = traced_stats(torch, call)
             if not use_5pt and stats["dtoh_copies_per_call"] != 0:
                 raise AssertionError(f"pose, use_5pt off: device -> host "
@@ -2238,7 +2264,7 @@ def run_train(torch, port, ops):
     same weights, batch and generator, dropout off: the losses within
     TRAIN_LOSS_RTOL, the global gradient norm within TRAIN_NORM_RTOL, and
     each parameter's gradient at the grad phase's bounds. (3) One step with
-    every loss switch on. (4) Five timed steps after two warm-ups with
+    every loss switch on. (4) Three timed steps after one warm-up with
     cuDNN's defaults: ms a step, pairs/s, peak memory; then a trace: K2's
     and K3's CUDA launches a step, device -> host copies (none), busy ms
     by kind of kernel, idle share. (1), (2), (3) and (5) use cuDNN's
@@ -2360,7 +2386,7 @@ def run_train(torch, port, ops):
                     "reweight 1.0",
         "losses": {k: v.item() for k, v in m_every.items()}}
 
-    # (4) Times: five steps after two warm-ups; then a trace.
+    # (4) Times: three steps after one warm-up; then a trace.
     g = gen(83)
     seen = []
 
@@ -2371,10 +2397,11 @@ def run_train(torch, port, ops):
     torch.cuda.reset_peak_memory_stats()
     with torch.backends.cudnn.flags(enabled=True, benchmark=False,
                                     deterministic=False):
-        ms = time_ms(torch, call, reps=5, warmup=2)
+        ms = time_ms(torch, call, reps=3, warmup=1)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         stats = traced_stats(torch, call, names=("linear_encoder_kernel",
-                                                 "gn_apply_pool_kernel"))
+                                                 "gn_apply_pool_kernel"),
+                             cpu=False)
     if not all(finite(m) for m in seen):
         raise AssertionError("train: a timed step's loss is not finite")
     if (stats["dtoh_copies_per_call"] != 0
@@ -2543,25 +2570,25 @@ def run_multi(torch, port, ops):
     with torch.backends.cudnn.flags(enabled=True, benchmark=False,
                                     deterministic=False):
         ms_local = time_ms(torch, lambda: local_step(local[0], batches[0],
-                                                     g), reps=3, warmup=1)
+                                                     g), reps=2, warmup=1)
         ms_ddp = time_ms(torch, lambda: ddp_step(ddp, batches[0], g),
-                         reps=3, warmup=1)
+                         reps=2, warmup=1)
         stats = traced_stats(torch, lambda: ddp_step(ddp, batches[0], g),
                              reps=1, names=("linear_encoder_kernel",
-                                            "gn_apply_pool_kernel", "nccl"))
+                                            "gn_apply_pool_kernel", "nccl"),
+                             cpu=False)
     fields["ddp_flagship"] = {
         "model": "oetr_r50_kernels_config('float32')", "pairs": b,
         "image_hw": IMAGE_HW, **res,
         "launches": {k: n for k, n in launches.items() if n},
         "path_kernels_vs_plain": kernel_errs,
         "ms_per_step": ms_ddp, "ms_per_step_local": ms_local,
-        "timing": "median of 3 CUDA-event steps after 1 warm-up, cuDNN's "
+        "timing": "median of 2 CUDA-event steps after 1 warm-up, cuDNN's "
                   "defaults (as the train phase)",
         "traced_per_step": {k: stats[k] for k in (
             "wall_ms", "device_busy_ms", "idle_share", "launches_per_call",
-            "dtoh_copies_per_call", "device_reads",
-            "linear_encoder_kernel_per_call", "gn_apply_pool_kernel_per_call",
-            "nccl_per_call")}}
+            "dtoh_copies_per_call", "linear_encoder_kernel_per_call",
+            "gn_apply_pool_kernel_per_call", "nccl_per_call")}}
     del local, ddp, ddp_run
     torch.cuda.empty_cache()
 
@@ -2630,7 +2657,7 @@ def run_multi(torch, port, ops):
 
 # -------------------------------------------------------------------- api --
 
-API_WARMUP, API_REPS = 2, 5
+API_WARMUP, API_REPS = 1, 2
 API_SMALL_HW = 256           # card against CPU, per extractor and COTR
 API_COTR_HW = 256            # COTR's pair (its paper's input size)
 API_COTR_QUERIES = 1024
@@ -3256,7 +3283,7 @@ SFM_REPROJ_PX = 0.05
 # cameras, in float32. Only the counts are BAL's, not its camera model.
 BAL_CAMS, BAL_POINTS, BAL_OBS = 16, 22106, 83718
 BAL_ITERS, BAL_CG_ITERS, BAL_HUBER = 15, 40, 4.0
-SFM_REPS = 5
+SFM_REPS = 2
 # The CPU's BA runs in a child process beside part (a), on 4 of the
 # machine's 8 cores (its index_add_s slow down with more threads).
 CPU_BA_THREADS = 4
@@ -3659,7 +3686,7 @@ MT_FIRM_AGREE = 10.0
 MT_HA_CELLS = 96            # make_ha_labeler's default label budget
 MT_HA_AGREE_MIN = 0.99      # HA labels, card vs CPU on the same draws
 MT_TIE = 1e-5               # a near-tie: within this of the map's largest
-MT_WARMUP, MT_REPS = 2, 5
+MT_WARMUP, MT_REPS = 1, 3
 
 
 def host_shapes(rng, b, hw):
@@ -3835,7 +3862,8 @@ def mt_row(torch, ops, name, model, build, make_step, args, lr, steps=0,
     torch.cuda.reset_peak_memory_stats()
     ms = time_ms(torch, call, reps=MT_REPS, warmup=MT_WARMUP)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    stats = traced_stats(torch, call, reps=1, warmup=0, top_kernels=6)
+    stats = traced_stats(torch, call, reps=1, warmup=0, cpu=False,
+                         top_kernels=6)
     if stats["dtoh_copies_per_call"] != 0 or not all(
             all(math.isfinite(v.item()) for v in m.values()) for m in seen):
         raise AssertionError(f"match_train {name}: traced step {stats}, or "
@@ -3850,7 +3878,6 @@ def mt_row(torch, ops, name, model, build, make_step, args, lr, steps=0,
             "device_busy_ms": stats["device_busy_ms"],
             "idle_share": stats["idle_share"],
             "traced_wall_ms": stats["wall_ms"],
-            "device_reads": stats["device_reads"],
             "busy_ms_by_category": stats["device_ms_by_category"],
             "top_kernels_ms": stats["top_kernels_ms"],
             "card_vs_cpu": cmp,
@@ -4128,6 +4155,218 @@ def run_match_train(torch, port, ops):
     torch.cuda.empty_cache()
 
 
+# ----------------------------------------------------------------- demos --
+
+# The demos phase: the programs of oetr_tpu_torch.scripts at their JAX
+# defaults' widths, through their phase functions, on the on-device
+# generators' pairs. Each trainer: one checked step (its K2/K3 launches
+# read around it), DEMO_TIMED_STEPS CUDA-event steps, peak memory, one
+# traced step (no device -> host copy). Each program's evaluate function
+# on DEMO_EVAL_PAIRS generator pairs.
+DEMO_TIMED_STEPS = 2
+DEMO_EVAL_PAIRS = 8
+
+
+def demo_timing(torch, call):
+    """ms a step (median of DEMO_TIMED_STEPS CUDA-event calls), peak
+    memory over them, and one traced call: launches, device -> host copies
+    (none allowed), busy ms and idle share."""
+    torch.cuda.reset_peak_memory_stats()
+    ms = time_ms(torch, call, reps=DEMO_TIMED_STEPS, warmup=0)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    stats = traced_stats(torch, call, reps=1, warmup=0, cpu=False)
+    if stats["dtoh_copies_per_call"] != 0:
+        raise AssertionError(f"demos: device -> host copies in a step "
+                             f"{stats}")
+    return {"ms_per_step": ms, "steps_timed": DEMO_TIMED_STEPS,
+            "peak_mem_gb": peak,
+            "launches_per_step": stats["launches_per_call"],
+            "dtoh_copies_per_step": stats["dtoh_copies_per_call"],
+            "device_busy_ms": stats["device_busy_ms"],
+            "idle_share": stats["idle_share"],
+            "traced_wall_ms": stats["wall_ms"]}
+
+
+def finite_metrics(metrics) -> dict:
+    """The step's metrics as numbers; raises where one is not finite."""
+    if not finite(metrics):
+        raise AssertionError(f"demos: a metric not finite: {metrics}")
+    return {k: v.item() for k, v in metrics.items()}
+
+
+def run_demos(torch, port, ops, launches):
+    """The demo programs (``python -m oetr_tpu_torch.scripts.*``) on the
+    card, f32, seeded weights, through their own phase functions on the
+    device generators' pairs: (1) ``train_demo``'s OETR (ResNet18 to
+    layer3, d 64, 8 heads, 2 + 2 layers) with the fused stem (K3) and
+    ``'linear:cuda'`` (K2), 16 pairs of 160² a step, its recall table
+    before and after on 8 pairs; (2) ``train_matching_demo --device_data``
+    (teacher ``corner``): SuperPoint (32 x 128², D 128), then SuperGlue on
+    its keypoints (8 pairs x 512 at 256², the batch made on the card), then
+    its ``evaluate`` on 8 pairs with ``cuda_sinkhorn`` (K4 on [8, 513,
+    513]): the SP + NN and SP + SG rows, repeatability, the assignment
+    quality and the gate (the SIFT rows need cv2, which this machine
+    lacks); (3) ``train_loftr_demo``: LoFTR (192/96, 4 layers, fine loss),
+    4 pairs of 256², its ``loftr`` row on 8 pairs. Every K2, K3 and K4 call
+    of the phase is held to its plain version on the same inputs
+    (``recorded_kernel_errors``); the checked step of (1) launches K2 8
+    and K3 1 times. Yields one field dict a program; adds the phase's
+    wrapper launches to ``launches``."""
+    import copy
+    import itertools
+
+    import numpy as np
+
+    from oetr_tpu_torch.scripts import common
+    from oetr_tpu_torch.scripts import train_demo as td
+    from oetr_tpu_torch.scripts import train_loftr_demo as ld
+    from oetr_tpu_torch.scripts import train_matching_demo as md
+    from oetr_tpu_torch.training import create_train_state
+
+    gen = lambda seed: torch.Generator(device=DEV).manual_seed(seed)
+    seeded = lambda seed: torch.Generator().manual_seed(seed)
+    scenes = lambda hw, seed, **kw: port.make_device_generator(
+        hw, DEMO_EVAL_PAIRS, device=DEV, **kw)(gen(seed))
+    reset_counts(ops)
+    with recorded_kernel_calls(sinkhorn=True) as calls:
+        # (1) train_demo, its pairs pure translations (generate_scene's
+        # default).
+        t0 = time.perf_counter()
+        args = td.parse_args(["--device", DEV])
+        cfg = td.model_config(fused_stem=True, attention="linear:cuda")
+        _, state = create_train_state(cfg, td.train_config(args), seeded(0),
+                                      device=DEV)
+        synth = port.make_device_generator(args.hw, args.batch,
+                                           scale_range=(1.0, 1.0),
+                                           p_translate=1.0, device=DEV)
+        data, drop = gen(200), gen(1)
+        stream = iter(lambda: synth(data), None)
+        val = {k: v.cpu().numpy() for k, v in scenes(
+            args.hw, 201, scale_range=(1.0, 1.0), p_translate=1.0).items()}
+        r_init = td.evaluate(state.model, [val])
+        losses = []
+        one = lambda: losses.extend(td.train_oetr(state, stream, 1, drop))
+        before = launch_counts(ops)
+        one()
+        torch.cuda.synchronize()
+        step_launches = {k: n - before[k] for k, n in
+                         launch_counts(ops).items() if n - before[k]}
+        want = {"linear_encoder_attention": 4 * cfg.neck.num_layers,
+                "groupnorm_relu_maxpool": 1}
+        if step_launches != want:
+            raise AssertionError(f"demos train_demo: launches a step "
+                                 f"{step_launches} != {want}")
+        timing = demo_timing(torch, one)
+        r_final = td.evaluate(state.model, [val])
+        done = copy.copy(args)
+        done.steps = len(losses)
+        summary = td.summary(done, losses, r_init, r_final, t0)
+        summary.pop("wall_s")
+        yield {"program": "train_demo", "widths": {
+            "depth": 18, "d_model": 64, "nhead": 8, "layers": "2 + 2",
+            "batch": args.batch, "hw": args.hw, "eval_pairs":
+                DEMO_EVAL_PAIRS}, "switches": "fused_stem, linear:cuda",
+            "launches_checked_step": step_launches, **timing,
+            "json": summary, "program_s": time.perf_counter() - t0}
+        del state, synth, stream
+
+        # (2) train_matching_demo --device_data: SuperPoint, SuperGlue,
+        # then its evaluate with K4 on.
+        t0 = time.perf_counter()
+        args = md.parse_args(["--device_data", "--device", DEV])
+        net = port.build_superpoint_net(device=DEV, generator=seeded(10),
+                                        descriptor_dim=args.desc_dim)
+        opt, sched = common.adam(net, md.SP_LR, args.sp_steps)
+        pairs = md.device_pair_batch(args.sp_hw, args.sp_batch, DEV)
+        rng, count, sp_metrics = np.random.default_rng(0), \
+            itertools.count(), []
+
+        def sp_step():
+            it = next(count)
+            sp_metrics.append(md.train_superpoint(net, opt, sched, args, rng,
+                                                  pairs, it, it + 1))
+
+        sp_step()
+        sp_timing = demo_timing(torch, sp_step)
+        sp = md.extractor(net, args)
+        sg = md.build_sg(args, DEV, seeded(11)).train()
+        opt, sched = common.adam(sg, args.sg_lr, args.sg_steps)
+        batches = md.device_sg_batches(sp, args, DEV)
+        count, sg_metrics = itertools.count(), []
+
+        def sg_step():
+            it = next(count)
+            sg_metrics.append(md.train_superglue(sg, opt, sched, batches,
+                                                 it + 1, it))
+
+        sg_step()
+        sg_timing = demo_timing(torch, sg_step)
+        sg.eval()
+        sg.cuda_sinkhorn = True
+        k4_before = ops.log_sinkhorn_cuda.launches
+        t1 = time.perf_counter()
+        fields = md.evaluate(sp, sg, common.items_of(scenes(
+            args.hw, 210, scale_range=(1.0, 2.0), p_translate=0.5)),
+            args, DEV, sift=False)
+        eval_s = time.perf_counter() - t1
+        if ops.log_sinkhorn_cuda.launches == k4_before:
+            raise AssertionError("demos: SuperGlue's evaluate launched no K4")
+        yield {"program": "train_matching_demo", "flags": "--device_data "
+               "--teacher corner", "widths": {
+                   "sp_batch": args.sp_batch, "sp_hw": args.sp_hw,
+                   "desc_dim": args.desc_dim, "sg_batch": args.sg_batch,
+                   "topk": args.topk, "hw": args.hw,
+                   "eval_pairs": DEMO_EVAL_PAIRS},
+               "superpoint": {"metrics_step1": finite_metrics(
+                   sp_metrics[0]), **sp_timing},
+               "superglue": {"metrics_step1": finite_metrics(
+                   sg_metrics[0]), **sg_timing},
+               "json": {**fields, "sift_nn": "not run: needs cv2",
+                        "repeatability@3px": dict(
+                            fields["repeatability@3px"],
+                            sift="not run: needs cv2")},
+               "eval_s": eval_s, "program_s": time.perf_counter() - t0}
+        del net, sp, sg, opt, batches
+
+        # (3) train_loftr_demo.
+        t0 = time.perf_counter()
+        args = ld.parse_args(["--device", DEV])
+        model = ld.build_model(args, DEV, seeded(20))
+        opt, sched = common.adam(model, args.lr, args.steps)
+        raw_of = ld.device_batches(args, DEV)
+        count, lt_metrics = itertools.count(), []
+
+        def loftr_step():
+            it = next(count)
+            lt_metrics.append(ld.train_loftr(model, opt, sched, args, raw_of,
+                                             it, it + 1))
+
+        loftr_step()
+        lt_timing = demo_timing(torch, loftr_step)
+        t1 = time.perf_counter()
+        rows = ld.evaluate(model, common.items_of(scenes(
+            args.hw, 220, scale_range=(1.0, 2.0), p_translate=0.5)), DEV,
+            sift=False)
+        eval_s = time.perf_counter() - t1
+        phase_launches = {k: n for k, n in launch_counts(ops).items() if n}
+        launches.update(phase_launches)
+        with torch.no_grad():
+            checks = recorded_kernel_errors(torch, ops, calls, "demos")
+    if set(checks) != {"linear_encoder_attention", "groupnorm_relu_maxpool",
+                       "log_optimal_transport"}:
+        raise AssertionError(f"demos: kernel calls checked {checks}")
+    yield {"program": "train_loftr_demo", "widths": {
+               "batch": args.batch, "hw": args.hw, "d_coarse": args.d_coarse,
+               "d_fine": 96, "layers": args.layers,
+               "fine_weight": args.fine_weight,
+               "eval_pairs": DEMO_EVAL_PAIRS},
+           "metrics_step1": finite_metrics(lt_metrics[0]), **lt_timing,
+           "json": {**rows, "sift_nn": "not run: needs cv2"},
+           "eval_s": eval_s, "program_s": time.perf_counter() - t0,
+           "phase_launches": phase_launches,
+           "kernels_vs_plain": checks}
+
+
 # -------------------------------------------------------------- variants --
 
 # The OETR variants at the flagship's widths (ResNet50 to layer3, d 256, 8
@@ -4146,7 +4385,7 @@ def run_match_train(torch, port, ops):
 VARIANT_TLBR_TOL = 1e-5
 VARIANT_PROB_RTOL = 1e-4
 VARIANT_S2D_RTOL = 1e-4
-VARIANT_REPS, VARIANT_WARMUP = 5, 2
+VARIANT_REPS, VARIANT_WARMUP = 3, 1
 VARIANT_TRACE_NAMES = ("linear_encoder_kernel", "gn_apply_pool_kernel")
 
 
@@ -4642,7 +4881,15 @@ def main() -> int:
         phase("match_train", **fields)
     torch.cuda.empty_cache()
 
-    # Path 13, the OETR variants at the flagship's widths: the frozen
+    # Path 13, the demo programs (oetr_tpu_torch.scripts) at their JAX
+    # defaults' widths: train_demo (K2, K3), train_matching_demo (K4 in its
+    # evaluate), train_loftr_demo.
+    demo_launches = collections.Counter()
+    for fields in run_demos(torch, port, ops, demo_launches):
+        phase("demos", **fields)
+    torch.cuda.empty_cache()
+
+    # Path 14, the OETR variants at the flagship's widths: the frozen
     # BatchNorm backbone from a reference-layout checkpoint file, the
     # space-to-depth stem with GroupNorm and the fused stem, the LayerNorm
     # backbone; then the profiling utilities.
@@ -4652,7 +4899,7 @@ def main() -> int:
         phase("variants", **fields)
     torch.cuda.empty_cache()
 
-    # Path 14, the parallel layer at one rank under NCCL: the flagship's
+    # Path 15, the parallel layer at one rank under NCCL: the flagship's
     # train step through DDP, FSDP2 (K2 in bf16) and TP on a small config,
     # BA with a group, each against the one-process run.
     fields, multi_launches = run_multi(torch, port, ops)
@@ -4692,6 +4939,7 @@ def main() -> int:
                                      ("dense", dense_launches[name]),
                                      ("train", train_launches[name]),
                                      ("api", api_launches[name]),
+                                     ("demos", demo_launches[name]),
                                      ("variants", variant_launches[name]),
                                      ("multi", multi_launches[name]))
                    if n}

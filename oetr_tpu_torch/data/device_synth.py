@@ -237,10 +237,13 @@ def random_homography_device(generator: torch.Generator, b: int, hw: int,
 def warp_gray(g: torch.Tensor, H: torch.Tensor, hw: int):
     """Inverse-warp grayscale images [B, hw, hw] (or [B, hw, hw, 1]) by H
     [B, 3, 3]: im1(x) = g(H⁻¹ x), 0 outside (cv2.warpPerspective's border).
-    Returns (im1 [B, hw, hw, 1], inside [B, hw, hw] bool)."""
+    Returns (im1 [B, hw, hw, 1], inside [B, hw, hw] bool). The inverse
+    reads no status back to the host (``inv_ex``; JAX's ``inv`` raises on
+    nothing either), so a train step that draws its pairs here waits on no
+    copy."""
     if g.dim() == 4:
         g = g[..., 0]
-    Hi = torch.linalg.inv(H)
+    Hi = torch.linalg.inv_ex(H).inverse
     u = torch.arange(hw, dtype=torch.float32, device=g.device)
     gy, gx = torch.meshgrid(u, u, indexing="ij")
     pts = torch.stack([gx, gy, torch.ones_like(gx)], dim=-1)    # [hw, hw, 3]

@@ -1,42 +1,76 @@
-"""ctypes binding to the native C++ data service (``native/libodsdata.so``,
-built from ``native/dataservice.cpp`` by ``make -C native``): threaded JPEG
-decode and image preparation giving the arrays of
+"""ctypes binding to the native C++ data service (``native/dataservice.cpp``):
+threaded JPEG decode and image preparation giving the arrays of
 ``data/images.py::prepare_image``.
 
-The port's own binding of the library the JAX package binds; it builds the
-library on first use with g++ and libjpeg. ``load_native`` returns None
-where it cannot be built or loaded, and ``run_benchmark(use_native=True)``
-then reads images in Python (host input, not the device's path).
+The port's own binding of the library the JAX package binds. On first use
+it compiles ``native/dataservice.cpp`` with the flags of ``native/Makefile``
+into the port's git-ignored build directory (``oetr_tpu_torch/_build/``,
+the library named by a hash of the source and flags), through
+``ops/_build.build_once``: under a lock, into a fresh directory, then moved
+into place, so processes that start together all load one whole library.
+Nothing is written under ``native/``. ``load_native`` returns None where
+the library cannot be built or loaded, and ``native_error`` says why;
+``run_benchmark(use_native=True)`` then raises with that reason.
 """
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import shlex
 import subprocess
+from pathlib import Path
 
 import numpy as np
 
-_NATIVE_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "native")
-_LIB_PATH = os.path.join(_NATIVE_DIR, "libodsdata.so")
+from ..ops import _build
+
+NATIVE_SRC = Path(__file__).resolve().parents[2] / "native" / "dataservice.cpp"
+# native/Makefile's CXXFLAGS and LDFLAGS.
+CXX_FLAGS = ["-O3", "-march=native", "-fPIC", "-std=c++17", "-Wall"]
+LD_FLAGS = ["-shared", "-ljpeg", "-lpthread"]
 _lib = None
+_error = None
 
 
-def build_native(force: bool = False) -> str:
-    """Compile native/libodsdata.so (make). Returns the library path."""
-    if force or not os.path.exists(_LIB_PATH):
-        subprocess.run(["make", "-C", _NATIVE_DIR], check=True,
-                       capture_output=True)
-    return _LIB_PATH
+def library_path() -> Path:
+    """Where the library of this source and these flags lives."""
+    h = hashlib.sha256(" ".join(CXX_FLAGS + LD_FLAGS).encode())
+    h.update(NATIVE_SRC.read_bytes())
+    return _build.BUILD_DIR / f"libodsdata_{h.hexdigest()[:16]}.so"
+
+
+def build_native() -> Path:
+    """Compile the data service (once; ``ops/_build.build_once``). Returns
+    the library's path; raises RuntimeError with the compiler's message
+    where it cannot be built."""
+    lib = library_path()
+    cxx = shlex.split(os.environ.get("CXX", "g++"))
+
+    def build(work: Path) -> None:
+        cmd = [*cxx, *CXX_FLAGS, str(NATIVE_SRC), "-o", str(work / lib.name),
+               *LD_FLAGS]
+        try:
+            p = subprocess.run(cmd, capture_output=True, text=True)
+        except OSError as e:
+            raise RuntimeError(f"{cmd[0]}: {e}") from e
+        if p.returncode != 0:
+            raise RuntimeError(f"{' '.join(cmd)} failed:\n{p.stderr}")
+
+    _build.build_once([lib], build)
+    return lib
 
 
 def load_native():
-    """The library (built if needed), or None if it cannot be had."""
-    global _lib
+    """The library (built if needed), or None if it cannot be had
+    (``native_error`` says why)."""
+    global _lib, _error
     if _lib is not None:
         return _lib
     try:
-        lib = ctypes.CDLL(build_native())
-    except (OSError, subprocess.CalledProcessError):
+        lib = ctypes.CDLL(str(build_native()))
+    except (OSError, RuntimeError) as e:
+        _error = str(e)
         return None
     lib.ods_jpeg_shape.restype = ctypes.c_int
     lib.ods_jpeg_shape.argtypes = [
@@ -51,8 +85,13 @@ def load_native():
     lib.ods_prepare_batch.restype = i
     lib.ods_prepare_batch.argtypes = [ctypes.c_char_p, i, i, i, i, i, i, i,
                                       vp, vp, vp, vp, vp]
-    _lib = lib
+    _lib, _error = lib, None
     return lib
+
+
+def native_error() -> str | None:
+    """Why the last ``load_native`` found no library, or None."""
+    return _error
 
 
 def native_available() -> bool:
@@ -63,7 +102,7 @@ def decode_jpeg(data: bytes) -> np.ndarray:
     """JPEG bytes -> RGB uint8 [H, W, 3]."""
     lib = load_native()
     if lib is None:
-        raise RuntimeError("native data service unavailable")
+        raise RuntimeError(f"native data service unavailable: {_error}")
     h, w = ctypes.c_int(), ctypes.c_int()
     if lib.ods_jpeg_shape(data, len(data), ctypes.byref(h),
                           ctypes.byref(w)) != 0:
@@ -86,7 +125,7 @@ def prepare_batch_native(paths: list[str], canvas_hw: tuple[int, int],
     scale_to_orig [N, 2] f32."""
     lib = load_native()
     if lib is None:
-        raise RuntimeError("native data service unavailable")
+        raise RuntimeError(f"native data service unavailable: {_error}")
     n = len(paths)
     ch, cw = canvas_hw
     oh, ow = oetr_hw

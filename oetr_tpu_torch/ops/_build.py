@@ -9,10 +9,17 @@ library is keyed by a hash of the sources and flags and lands in
 report beside it in a ``.json`` of the same name; a later call in the same
 checkout reuses both. Nothing here runs at import: the first call of
 ``load_library`` builds.
+
+``build_once`` is the one build path of the port's native code (these
+kernels and the data service, ``data/native.py``): under a file lock, into
+a fresh directory, then ``os.replace`` into place, so processes that start
+at once build a library once and never load a half-written one.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import functools
 import hashlib
 import json
@@ -20,8 +27,10 @@ import os
 import re
 import shutil
 import subprocess
+import tempfile
 import time
 from pathlib import Path
+from typing import Callable
 
 PKG_DIR = Path(__file__).resolve().parents[1]
 SRC_DIR = PKG_DIR / "csrc"
@@ -150,6 +159,45 @@ def ptxas_stack_frames(logs: list[str]) -> dict:
     return frames
 
 
+@contextlib.contextmanager
+def dir_lock(path: Path):
+    """An exclusive ``flock`` on the directory ``path`` (created if
+    missing), held for the ``with`` block; other processes that ask for it
+    wait. Locking the directory leaves no lock file behind."""
+    path.mkdir(parents=True, exist_ok=True)
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        fcntl.flock(fd, fcntl.LOCK_EX)
+        yield
+    finally:
+        os.close(fd)
+
+
+def build_once(products: list[Path], build: Callable[[Path], object]):
+    """Make ``products`` (files of one directory) unless all exist.
+
+    Under a lock on their directory, ``build(work)`` writes files of
+    the products' names into ``work``, a fresh directory beside them; each
+    is then moved into place with ``os.replace``, in the order given (so
+    a reader that checks for the last one sees the others). Returns what
+    ``build`` returned, or None where the products were already there (a
+    process that waited on the lock finds them built)."""
+    if all(p.exists() for p in products):
+        return None
+    out_dir = products[-1].parent
+    with dir_lock(out_dir):
+        if all(p.exists() for p in products):
+            return None
+        work = Path(tempfile.mkdtemp(prefix="tmp_", dir=out_dir))
+        try:
+            result = build(work)
+            for p in products:
+                os.replace(work / p.name, p)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        return result
+
+
 def _run_parallel(cmds: list[list[str]]) -> tuple[list[str], list[float]]:
     """Run the commands at once. Returns each one's output and the seconds
     until it was seen to end; raises if any failed."""
@@ -185,14 +233,10 @@ def load_library():
     lib_path = BUILD_DIR / f"oetr_kernels_{key}.so"
     report_path = lib_path.with_suffix(".json")
     record = {"so": str(lib_path), "built": False, "steps_s": {}}
-    if lib_path.exists() and report_path.exists():
-        record.update(json.loads(report_path.read_text()))
-    else:
-        nvcc = nvcc_path()
-        work = BUILD_DIR / f"tmp_{key}_{os.getpid()}"
-        work.mkdir(parents=True, exist_ok=True)
-        tmp_lib = work / lib_path.name
-        compiles, link = build_commands(nvcc, work, tmp_lib, srcs)
+
+    def build(work: Path) -> dict:
+        compiles, link = build_commands(nvcc_path(), work,
+                                        work / lib_path.name, srcs)
         logs, compile_s = _run_parallel(compiles)
         _, link_s = _run_parallel([link])
         report = {"ptxas": [line.strip() for log in logs
@@ -200,15 +244,14 @@ def load_library():
                             if "registers" in line or "spill" in line],
                   "resources": ptxas_resources(logs),
                   "stack_frames": ptxas_stack_frames(logs)}
-        tmp_report = work / report_path.name
-        tmp_report.write_text(json.dumps(report))
-        # The report lands first: a library is never seen without its own.
-        os.replace(tmp_report, report_path)
-        os.replace(tmp_lib, lib_path)
-        shutil.rmtree(work, ignore_errors=True)
+        (work / report_path.name).write_text(json.dumps(report))
         steps = {f"nvcc -c {s.name}": t for s, t in zip(srcs, compile_s)}
         steps["nvcc -shared (link)"] = link_s[0]
-        record.update(report, built=True, steps_s=steps)
+        return dict(report, built=True, steps_s=steps)
+
+    # The report lands first: a library is never seen without its own.
+    built = build_once([report_path, lib_path], build)
+    record.update(built or json.loads(report_path.read_text()))
     lib = ctypes.CDLL(str(lib_path))
     for name, argtypes in ENTRY_POINTS.items():
         fn = getattr(lib, name)

@@ -93,9 +93,9 @@ def run_benchmark(pipeline, pairs_file: str, dataset_path: str,
                   use_native: bool = False) -> dict:
     """Match every pair, write per-scene h5, return simple run stats.
 
-    ``use_native=True`` reads images through the C++ data service, and
-    through Python where the library cannot be built (as the JAX runner
-    does; host input only).
+    ``use_native=True`` reads images through the C++ data service (host
+    input only); where the library cannot be built or loaded it raises
+    with the reason (JAX's runner falls back to Python without a word).
     """
     cfg = pipeline.cfg
     pairs = load_eval_pairs(pairs_file)
@@ -105,8 +105,11 @@ def run_benchmark(pipeline, pairs_file: str, dataset_path: str,
     n_matches_total = 0
 
     if use_native:
-        from ..data.native import native_available
-        use_native = native_available()
+        from ..data.native import native_available, native_error
+        if not native_available():
+            raise RuntimeError("run_benchmark(use_native=True): the native "
+                               f"data service is unavailable: "
+                               f"{native_error()}")
 
     for start in range(0, len(pairs), batch_size):
         chunk = pairs[start:start + batch_size]

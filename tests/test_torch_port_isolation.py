@@ -10,11 +10,12 @@ extractors, matchers and registry, the image service, the public API, the
 runner, the demo, the plots, SfM and its demo, the scene generator and the
 pair-list generation, the matching trainers and the FCOS head, the
 reference-checkpoint converter, the profiling utilities, the parallel
-layer and the entry points among them)
+layer, the entry points and the demo programs among them)
 and ``chip_smoke``, runs a small forward on the CPU and ``get_matches``'s
 helper below the decode, renders a scene with the generator's renderers,
 bundle-adjusts a small problem, takes a SuperPoint train step, and finds
-that the trainers' cv2 batch builders raise ImportError.
+that the trainers' cv2 batch functions and the demo programs raise
+ImportError (the demos name cv2).
 """
 import os
 import re
@@ -70,7 +71,13 @@ MUST_LIST = ("oetr_tpu_torch.geometry.ransac",
              "oetr_tpu_torch.parallel.multihost",
              "oetr_tpu_torch.parallel.ring_attention",
              "oetr_tpu_torch.parallel.pipeline",
-             "oetr_tpu_torch.parallel.data", "oetr_tpu_torch.entry")
+             "oetr_tpu_torch.parallel.data", "oetr_tpu_torch.entry",
+             "oetr_tpu_torch.scripts", "oetr_tpu_torch.scripts.common",
+             "oetr_tpu_torch.scripts.train_demo",
+             "oetr_tpu_torch.scripts.train_matching_demo",
+             "oetr_tpu_torch.scripts.train_loftr_demo",
+             "oetr_tpu_torch.scripts.eval_demo",
+             "oetr_tpu_torch.scripts.overlap_ab_demo")
 
 
 class Refuse:
@@ -147,6 +154,16 @@ for builder, args in ((tr.synthetic_shapes_batch, (2, 32)),
     except ImportError:
         continue
     raise AssertionError(f"{builder.__name__} ran without cv2")
+from oetr_tpu_torch.scripts import (eval_demo, overlap_ab_demo, train_demo,
+                                    train_loftr_demo, train_matching_demo)
+for demo in (train_demo, train_matching_demo, train_loftr_demo, eval_demo,
+             overlap_ab_demo):
+    try:
+        demo.main(["--device", "cpu"])
+    except ImportError as e:
+        assert "cv2" in str(e), e
+        continue
+    raise AssertionError(f"{demo.__name__} ran without cv2")
 leaked = sorted(m for m in sys.modules
                 if any(m == b or m.startswith(b + ".") for b in BLOCKED))
 assert not leaked, leaked
@@ -172,7 +189,8 @@ def test_port_sources_name_no_jax_import():
     files = sorted(f for f in PORT.rglob("*.py")
                    if "_build" not in f.relative_to(PORT).parts)
     files += [ROOT / "chip_smoke.py", ROOT / "pose_timing.py",
-              ROOT / "sfm_spread.py", ROOT / "tests" / "torch_port_ranks.py"]
+              ROOT / "sfm_spread.py", ROOT / "chip_time_sites.py",
+              ROOT / "tests" / "torch_port_ranks.py"]
     assert len(files) >= 13
     offenders = [str(f.relative_to(ROOT)) for f in files
                  if pattern.search(f.read_text())]
