@@ -3,7 +3,8 @@ matching trainers (SuperPoint, SuperGlue, LoFTR, ContextDesc; all in
 ``oetr_tpu_torch.training``), the FCOS head and its losses, the
 overlap-guided sparse (SuperPoint +
 SuperGlue) and dense (LoFTR) matching pipelines, the public matching API
-(``build_model``, ``get_matches``, ``get_pose``; the registry of
+(``build_model``, ``build_shipped_model`` from the committed trained
+checkpoints, ``get_matches``, ``get_pose``; the registry of
 extractors and matchers: D2-Net, R2D2, DISK, ASLFeat, SIFT, ContextDesc,
 NN, DISK's matcher, COTR, ICP), the host image service and benchmark
 runner, the on-device synthetic scene and homography pair generators,
@@ -14,7 +15,8 @@ COLMAP model and database export; ``python -m oetr_tpu_torch.sfm.demo``).
 The package stands alone: it imports torch and numpy, never JAX or the
 ``oetr_tpu`` package, so it runs where only torch is installed (the
 machine with the CUDA card has neither flax nor orbax, which the JAX
-package's models and checkpoints need).
+package's models and checkpoints need); it reads the committed orbax
+checkpoints with its own code (``interop.read_checkpoint``).
 Entry points (``build_oetr``, ``build_superpoint``,
 ``build_superpoint_net``, ``build_superglue``, ``build_loftr``,
 ``build_fcos_head``, ``build_model``, ``models.registry.build``, ``get_pose``,
@@ -46,7 +48,8 @@ from .models import (OETR, FCOSHead, LoFTR, SuperGlue, SuperPoint,
                      build_superglue, build_superpoint, build_superpoint_net,
                      decode_boxes)
 from .pipelines import (DensePipeline, PipelineConfig, SparsePipeline,
-                        build_model, get_matches, get_pose, run_benchmark)
+                        build_model, build_shipped_model, get_matches,
+                        get_pose, run_benchmark)
 from .sfm import (bundle_adjust, export_colmap, export_database, reconstruct,
                   triangulate_points)
 
@@ -61,6 +64,7 @@ __all__ = ["BackboneConfig", "LossConfig", "NeckConfig", "OETRConfig",
            "make_homography_pair_generator", "estimate_pose",
            "ransac_essential", "recover_pose", "ransac_homography",
            "pose_error", "validation_error", "pose_auc", "build_model",
+           "build_shipped_model",
            "get_matches", "get_pose", "run_benchmark", "bundle_adjust",
            "export_colmap", "export_database", "reconstruct",
            "triangulate_points"]

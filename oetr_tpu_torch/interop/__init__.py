@@ -1,6 +1,7 @@
 """Weight conversion into the port's modules: flax trees
-(``from_flax``) and the reference's torch checkpoints
-(``torch_convert``)."""
+(``from_flax``), the reference's torch checkpoints (``torch_convert``),
+and orbax checkpoints read without orbax (``orbax_read``, over
+``ocdbt`` and ``zstd``)."""
 from .from_flax import (convert_aslfeat_params,
                         convert_channelattention_params,
                         convert_contextdesc_augmenter_params,
@@ -13,6 +14,7 @@ from .from_flax import (convert_aslfeat_params,
                         convert_superglue_params,
                         convert_superpoint_net_params,
                         convert_superpoint_params)
+from .orbax_read import read_checkpoint
 from .torch_convert import (MissingReferenceKey, convert_oetr_state_dict,
                             load_reference_checkpoint, reference_state_dict,
                             skipped_keys)
@@ -25,6 +27,7 @@ __all__ = ["convert_aslfeat_params", "convert_channelattention_params",
            "convert_loftr_params", "convert_patchembed_params",
            "convert_r2d2_params", "convert_spatialattention_params",
            "convert_superglue_params", "convert_superpoint_net_params",
-           "convert_superpoint_params", "MissingReferenceKey",
+           "convert_superpoint_params", "read_checkpoint",
+           "MissingReferenceKey",
            "convert_oetr_state_dict", "load_reference_checkpoint",
            "reference_state_dict", "skipped_keys"]

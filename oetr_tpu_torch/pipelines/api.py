@@ -14,15 +14,29 @@ host SIFT extractors (``landmark``, ``contextdesc``: functions of a uint8
 image, not modules of the data dict), ``icp`` (a function of two images)
 or ``cotr`` (a module of a composite and queries) in a pipeline; the port
 refuses them with a ValueError that names the function to call instead.
+``build_shipped_model`` assembles the pipelines of the repo's committed
+trained checkpoints, read without orbax (``interop/orbax_read.py``).
 """
 from __future__ import annotations
+
+import os
+from pathlib import Path
 
 import numpy as np
 import torch
 
+from ..config import oetr_r50_kernels_config
 from ..data.images import batch_pairs, prepare_image, read_image
 from ..geometry.homography import ransac_homography
+from ..interop.from_flax import (convert_flax_params, convert_loftr_params,
+                                 convert_superglue_params,
+                                 convert_superpoint_params)
+from ..interop.orbax_read import read_checkpoint
 from ..models import registry
+from ..models.loftr import build_loftr
+from ..models.oetr import build_oetr
+from ..models.superglue import build_superglue
+from ..models.superpoint import build_superpoint
 from .matching import DensePipeline, PipelineConfig, SparsePipeline
 from .runner import pair_result, run_batch
 
@@ -83,6 +97,84 @@ def build_model(extractor: str = "superpoint_aachen",
     else:                                    # 'NN', 'disk': functions
         match_fn = registry.build(matcher, device=device)
     return SparsePipeline(ex, match_fn, oetr, cfg), conf
+
+
+SHIPPED_CKPTS = {"oetr": ".ckpt_oetr_r5/params",
+                 "superpoint": ".ckpt_matching_r5/superpoint",
+                 "superglue": ".ckpt_matching_r5/superglue",
+                 "loftr": ".ckpt_loftr_r5/loftr"}
+# The shipped training configs (JAX's build_shipped_model pins them).
+SHIPPED_SP = dict(max_keypoints=2048, keypoint_threshold=0.0,
+                  descriptor_dim=128)
+SHIPPED_SG = dict(descriptor_dim=128)
+SHIPPED_LOFTR = dict(d_coarse=192, d_fine=96, coarse_layers=4,
+                     max_matches=1024)
+
+
+def shipped_tree(name: str, ckpt_root=None) -> dict:
+    """The flax tree of shipped checkpoint ``name`` (a key of
+    ``SHIPPED_CKPTS``) under ``ckpt_root`` (default: the repo root this
+    package sits in), read by ``interop.orbax_read.read_checkpoint``.
+    Raises FileNotFoundError where the directory is absent."""
+    root = Path(ckpt_root) if ckpt_root else Path(__file__).resolve(
+    ).parents[2]
+    path = os.path.abspath(root / SHIPPED_CKPTS[name])
+    if not os.path.exists(path):
+        raise FileNotFoundError(
+            f"shipped checkpoint missing: {path} (train it via the "
+            "scripts/ demos or pass explicit params to build_model)")
+    return read_checkpoint(path)
+
+
+def build_shipped_model(matcher: str = "superglue",
+                        with_overlap: bool = False, ckpt_root=None,
+                        cfg: PipelineConfig | None = None, device="cuda"):
+    """A pipeline of the repo's committed trained checkpoints: (pipeline,
+    conf dict), as ``build_model`` returns.
+
+    ``"superglue"``: SuperPoint (descriptor 128, 2048 keypoints, threshold
+    0) from ``.ckpt_matching_r5/superpoint`` and SuperGlue (descriptor 128,
+    K4 on) from ``.ckpt_matching_r5/superglue``; ``"loftr"``: LoFTR (d 192
+    coarse, 96 fine, 4 coarse layers, 1024 matches) from
+    ``.ckpt_loftr_r5/loftr``; ``with_overlap`` adds the flagship OETR from
+    ``.ckpt_oetr_r5/params`` with K2 and K3 on, in float32. The stores are
+    read with the port's own OCDBT, zarr and zstd code. Raises
+    FileNotFoundError where a store is absent, ValueError for another
+    matcher, RuntimeError for a CUDA device where there is no card.
+    """
+    if matcher not in ("superglue", "loftr"):
+        raise ValueError(f"no shipped weights for matcher {matcher!r}")
+    cfg = cfg or PipelineConfig(box_source="heatmap")
+    registry.check_device(device)
+    overlaper = "oetr" if with_overlap else None
+    conf = {"matcher": matcher, "extractor": None, "overlaper": overlaper,
+            "config": cfg, "device": device}
+
+    def load(module, state):
+        module.load_state_dict(state)
+        return module
+
+    oetr = None
+    if with_overlap:
+        ocfg = oetr_r50_kernels_config(dtype="float32")
+        oetr = load(build_oetr(ocfg, device=device),
+                    convert_flax_params(shipped_tree("oetr", ckpt_root),
+                                        ocfg))
+    if matcher == "loftr":
+        loftr = load(build_loftr(device=device, **SHIPPED_LOFTR),
+                     convert_loftr_params(shipped_tree("loftr", ckpt_root),
+                                          **SHIPPED_LOFTR))
+        return DensePipeline(loftr, oetr, cfg), conf
+
+    sp = load(build_superpoint(device=device, **SHIPPED_SP),
+              convert_superpoint_params(
+                  shipped_tree("superpoint", ckpt_root), **SHIPPED_SP))
+    sg = load(build_superglue(device=device, cuda_sinkhorn=True,
+                              **SHIPPED_SG),
+              convert_superglue_params(shipped_tree("superglue", ckpt_root),
+                                       **SHIPPED_SG))
+    return SparsePipeline(sp, sg, oetr, cfg), dict(conf,
+                                                   extractor="superpoint")
 
 
 def get_matches(model, name0: str, name1: str, with_overlap: bool = True,

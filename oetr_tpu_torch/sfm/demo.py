@@ -7,10 +7,12 @@
      arc, ray-cast on the host (``data/synthetic.py``);
   2. candidate matches per view pair within ``--max_span``: SIFT + NN on
      the host (``--matcher sift_nn``, needs cv2; the NN on the card), or
-     SuperPoint + SuperGlue / LoFTR modules the caller passes
-     (``candidates_sp_sg``, ``candidates_loftr``); or, where neither cv2
-     nor trained weights exist, the rendered depths' own correspondences
-     (``depth_candidates``);
+     the trained SuperPoint + SuperGlue of ``--ckpt_dir``
+     (``--matcher sp_sg``) or LoFTR of ``.ckpt_loftr_r5/loftr``
+     (``--matcher loftr``), read without orbax
+     (``candidates_sp_sg``, ``candidates_loftr`` also take modules the
+     caller built); or, where neither cv2 nor trained weights exist, the
+     rendered depths' own correspondences (``depth_candidates``);
   3. ``two_view``: ``estimate_pose`` per edge (5-point stage on, 1 px):
      inlier filtering and the relative-pose chain, on the card;
   4. ``chain_init``: incremental poses from the matches alone, each edge's
@@ -39,6 +41,14 @@ import torch
 from ..data.synthetic import _render_planes, _rot, _texture
 from ..evalx.trajectory import absolute_trajectory_error
 from ..geometry.ransac import estimate_pose
+from ..interop.from_flax import (convert_loftr_params,
+                                 convert_superglue_params,
+                                 convert_superpoint_params)
+from ..interop.orbax_read import read_checkpoint
+from ..models.loftr import build_loftr
+from ..models.superglue import build_superglue
+from ..models.superpoint import build_superpoint
+from ..pipelines.api import SHIPPED_LOFTR, SHIPPED_SG
 from .ba import triangulate_points
 from .reconstruct import export_colmap, export_database, reconstruct
 
@@ -192,6 +202,29 @@ def candidates_sp_sg(images: np.ndarray, edges, superpoint, superglue):
             ia, ib = np.nonzero(sel)[0], m0[sel]
             cands[(i, j)] = (ia, ib, kps[i][ia], kps[j][ib])
     return kps, cands
+
+
+def shipped_sp_sg(ckpt_dir: str, topk: int, device):
+    """The trained SuperPoint (descriptor 128, ``topk`` keypoints,
+    threshold 0) and SuperGlue (descriptor 128, K4 on) of ``ckpt_dir``'s
+    ``superpoint`` and ``superglue`` stores, read without orbax."""
+    sp_kw = dict(max_keypoints=topk, keypoint_threshold=0.0,
+                 descriptor_dim=128)
+    sp = build_superpoint(device, **sp_kw)
+    sp.load_state_dict(convert_superpoint_params(read_checkpoint(
+        os.path.abspath(os.path.join(ckpt_dir, "superpoint"))), **sp_kw))
+    sg = build_superglue(device, cuda_sinkhorn=True, **SHIPPED_SG)
+    sg.load_state_dict(convert_superglue_params(read_checkpoint(
+        os.path.abspath(os.path.join(ckpt_dir, "superglue"))), **SHIPPED_SG))
+    return sp, sg
+
+
+def shipped_loftr(path: str, device):
+    """The trained LoFTR of the store at ``path`` (the shipped widths)."""
+    lf = build_loftr(device, **SHIPPED_LOFTR)
+    lf.load_state_dict(convert_loftr_params(
+        read_checkpoint(os.path.abspath(path)), **SHIPPED_LOFTR))
+    return lf
 
 
 def candidates_loftr(images: np.ndarray, edges, loftr):
@@ -491,13 +524,6 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="where matching, pose and BA run")
     args = ap.parse_args(argv)
-    if args.matcher != "sift_nn":
-        raise SystemExit(
-            f"--matcher {args.matcher} needs trained weights on the port, "
-            "and the trained checkpoints cannot reach the card's machine yet "
-            "(ROADMAP.md queue 1, item 2); candidates_sp_sg and "
-            "candidates_loftr take modules with the caller's parameters")
-
     t0 = time.time()
     log(f"rendering {args.n_views}-view rig ({args.hw}^2)...")
     images, K, gt_cams6, _ = render_rig(args.n_views, args.hw, args.seed,
@@ -505,7 +531,15 @@ def main(argv=None):
                                         noise=args.noise)
     n = args.n_views
     edges = edges_within(n, args.max_span)
-    kps, cands = candidates_sift_nn(images, edges, args.topk, args.device)
+    if args.matcher == "sift_nn":
+        kps, cands = candidates_sift_nn(images, edges, args.topk,
+                                        args.device)
+    elif args.matcher == "sp_sg":
+        kps, cands = candidates_sp_sg(images, edges, *shipped_sp_sg(
+            args.ckpt_dir, args.topk, args.device))
+    else:
+        kps, cands = candidates_loftr(images, edges, shipped_loftr(
+            os.path.join(".ckpt_loftr_r5", "loftr"), args.device))
     matches, rel = two_view(cands, K, args.device)
     try:
         init_cams6 = chain_init(kps, matches, rel, K, n, args.device)

@@ -38,7 +38,8 @@ resumed to the same bits. For the public API: D2-Net, R2D2, DISK,
 ASLFeat, COTR and ContextDesc on the card against the CPU, the matchers'
 tie-breaking on CUDA, the ``"SAME"`` convolution at strides 1 and 2 with
 dilations 1, 2 and 4, and ``build_model`` / ``get_matches``'s helper /
-``get_pose`` on the card against the CPU. For the
+``get_pose`` on the card against the CPU, and the trained SuperGlue of
+``build_shipped_model`` on the card against the CPU. For the
 pose path: the eigh kernel against LAPACK (8-point normal matrices, 3x3
 Gram matrices, n = 1 and 16, batch dimensions, zero and repeated
 eigenvalues, the lower triangle, NaN and what it refuses), each n from 1
@@ -1566,6 +1567,27 @@ def test_public_api_on_card_matches_cpu(cuda):
     assert len(sg & sw) >= 0.99 * max(len(sg), len(sw))
     pose = api.get_pose(got, device=cuda)
     assert np.isfinite(pose["H"]).all() and pose["ok"]
+
+
+def test_shipped_superglue_on_card_matches_cpu(cuda):
+    """The trained SuperGlue of ``build_shipped_model`` (read by the port's
+    own reader) on the card against its copy on the CPU at 256² and 512
+    slots, at chip_smoke.py's shipped-phase bounds: matches0 at 0.2 equal
+    by slot on >= 99% of the valid keypoints, the log assignment within
+    1e-4 of max(1, its largest unmasked entry); and JAX's matcher gate on
+    the card (SuperGlue's assignment precision >= NN's)."""
+    import chip_smoke
+
+    cfg = port.PipelineConfig(canvas_hw=(256, 256), oetr_hw=(256, 256))
+    pipe, _ = port.build_shipped_model("superglue", cfg=cfg, device=cuda)
+    gate, first = chip_smoke.shipped_gate(
+        torch, port, pipe.extractor.state_dict(), pipe.match_fn)
+    fields, failed = chip_smoke.shipped_card_vs_cpu(
+        torch, port, pipe.match_fn, *first, 256)
+    print(json.dumps({"gate": gate, "card_vs_cpu": fields}))
+    assert not failed, failed
+    assert gate["superglue_precision"] >= gate["nn_precision"], gate
+    assert fields["matches_thr_0.2"] > 0
 
 
 # --------------------------------------------------------------- sfm ----

@@ -2,8 +2,9 @@
 
 The port must start where only torch is installed: the machine with the
 CUDA card lacks flax and orbax, which the JAX package's models and
-checkpoints need, and h5py and cv2. A child interpreter refuses jax,
-jaxlib, flax, optax, orbax, oetr_tpu, h5py, cv2 and matplotlib, then
+checkpoints need, and h5py, cv2, tensorstore, zstandard, zarr and
+numcodecs. A child interpreter refuses jax, jaxlib, flax, optax, orbax,
+oetr_tpu, h5py, cv2, matplotlib and those four readers, then
 imports every module of the port (the geometry, the evaluation package,
 the h5 utilities, the pair lists, the trainer, the MegaDepth dataset, the
 extractors, matchers and registry, the image service, the public API, the
@@ -15,7 +16,8 @@ and ``chip_smoke``, runs a small forward on the CPU and ``get_matches``'s
 helper below the decode, renders a scene with the generator's renderers,
 bundle-adjusts a small problem, takes a SuperPoint train step, and finds
 that the trainers' cv2 batch functions and the demo programs raise
-ImportError (the demos name cv2).
+ImportError (the demos name cv2). Another child reads the committed
+checkpoints with the port's own reader and builds the shipped pipelines.
 """
 import os
 import re
@@ -30,7 +32,8 @@ CHILD = r'''
 import importlib, pkgutil, sys
 
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "oetr_tpu", "h5py",
-           "cv2", "matplotlib")
+           "cv2", "matplotlib", "tensorstore", "zstandard", "zarr",
+           "numcodecs")
 MUST_LIST = ("oetr_tpu_torch.geometry.ransac",
              "oetr_tpu_torch.geometry.fivepoint",
              "oetr_tpu_torch.geometry.homography",
@@ -67,6 +70,8 @@ MUST_LIST = ("oetr_tpu_torch.geometry.ransac",
              "oetr_tpu_torch.training.contextdesc",
              "oetr_tpu_torch.training.optim", "oetr_tpu_torch.models.fcos",
              "oetr_tpu_torch.interop.torch_convert",
+             "oetr_tpu_torch.interop.zstd", "oetr_tpu_torch.interop.ocdbt",
+             "oetr_tpu_torch.interop.orbax_read",
              "oetr_tpu_torch.parallel", "oetr_tpu_torch.parallel.mesh",
              "oetr_tpu_torch.parallel.multihost",
              "oetr_tpu_torch.parallel.ring_attention",
@@ -180,9 +185,49 @@ def test_port_runs_with_jax_refused():
     assert n_modules >= 63
 
 
+def test_shipped_weights_read_with_readers_refused():
+    """``read_checkpoint`` reads all four committed stores and
+    ``build_shipped_model(device="cpu")`` builds both matchers behind the
+    OETR gate in a child that refuses tensorstore, zstandard, zarr and
+    numcodecs with the rest of ``BLOCKED``."""
+    code = CHILD.split("import numpy as np")[0] + r'''
+import numpy as np
+import oetr_tpu_torch as port
+from oetr_tpu_torch.interop.orbax_read import read_checkpoint
+n = 0
+for rel in (".ckpt_matching_r5/superpoint", ".ckpt_matching_r5/superglue",
+            ".ckpt_loftr_r5/loftr", ".ckpt_oetr_r5/params"):
+    tree = read_checkpoint(rel)
+    leaves = []
+    stack = [tree]
+    while stack:
+        node = stack.pop()
+        for v in node.values():
+            (stack if isinstance(v, dict) else leaves).append(v)
+    assert all(v.dtype == np.float32 for v in leaves)
+    n += len(leaves)
+cfg = port.PipelineConfig(canvas_hw=(64, 64), oetr_hw=(64, 64))
+for matcher in ("superglue", "loftr"):
+    pipe, conf = port.build_shipped_model(matcher, with_overlap=True,
+                                          cfg=cfg, device="cpu")
+    assert conf["overlaper"] == "oetr" and pipe.oetr is not None
+leaked = sorted(m for m in sys.modules
+                if any(m == b or m.startswith(b + ".") for b in BLOCKED))
+assert not leaked, leaked
+print("leaves", n)
+'''
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert int(proc.stdout.split("leaves")[-1]) == 292 + 24 + 273 + 157
+
+
 def test_port_sources_name_no_jax_import():
     pattern = re.compile(r"^\s*(import jax|from jax|import flax|from flax|"
                          r"import optax|import orbax|from orbax|"
+                         r"(import|from) (tensorstore|zstandard|zarr|"
+                         r"numcodecs)\b|"
                          r"from oetr_tpu(\.| import)|import oetr_tpu(\.|\s|$))",
                          re.M)
     # the port's sources, not what a build may have put under _build/

@@ -626,8 +626,9 @@ def test_demo_on_depth_correspondences():
 def test_demo_cli(tmp_path, capsys):
     """``python -m oetr_tpu_torch.sfm.demo`` on the host's SIFT (cv2) at a
     small rig prints the JSON line of scripts/sfm_demo.py's keys, in its
-    order, with the exports written; the learned matchers stop with a
-    message naming ROADMAP's item 2."""
+    order, with the exports written; a learned matcher without its store
+    stops with FileNotFoundError (they run in
+    ``test_torch_port_sfm_learned.py``)."""
     import json
 
     pdemo.main(["--n_views", "6", "--hw", "160", "--arc_deg", "24",
@@ -644,9 +645,9 @@ def test_demo_cli(tmp_path, capsys):
     assert line["colmap_export_ok"] and line["edges_matched"] >= 5
     cams, images, _ = pcm.read_model(str(tmp_path))
     assert len(cams) == len(images) == 6
-    for matcher in ("sp_sg", "loftr"):
-        with pytest.raises(SystemExit, match="item 2"):
-            pdemo.main(["--matcher", matcher, "--device", "cpu"])
+    with pytest.raises(FileNotFoundError, match="_METADATA"):
+        pdemo.main(["--matcher", "sp_sg", "--device", "cpu", "--n_views",
+                    "3", "--hw", "160", "--ckpt_dir", str(tmp_path / "no")])
 
 
 def test_demo_learned_matcher_candidates():
