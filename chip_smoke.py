@@ -49,15 +49,14 @@ paths with seeded random weights:
     ``den + eps`` op, as in JAX);
   * ``dense``: the dense pipeline (OETR in bf16 on 640x640 copies, heatmap
     boxes, gate, crops onto 832x832, that LoFTR in f32) on 4 scene pairs
-    with OETR's switches on (K2, K3, their launches also counted in a
-    trace, and every output of theirs in one OETR pass held to the plain
-    version on the same inputs) against off; ``dense_retry``: one call
-    whose low-match pairs take the full-image retry;
+    with OETR's switches on (K2, K3, every output of theirs in one OETR
+    pass held to the plain version on the same inputs) against off
+    (the path's rate and traced launches are ``trained``'s, with trained
+    weights); ``dense_retry``: one call whose low-match pairs take the
+    full-image retry;
   * ``scenes``: the port's scene generator on the card (8 pairs of 832x832,
     bench stage 5's settings), its ground-truth boxes against the geometry
-    path on the CPU, then bench stage 5's pattern on them: the sparse
-    pipeline (descriptor 128, keypoint threshold 0, K2, K3, K4 on) with the
-    < 30 matches retry;
+    path on the CPU (stage 5's pipeline on such pairs is ``trained``'s);
   * ``pose``: two-view pose (``estimate_pose`` with JAX's defaults: 512
     hypotheses, 8 LO candidates, the planar fallback) on 8 pairs of 2048
     slots: general scenes (1400 true correspondences, 0.5 px noise, 30%
@@ -69,8 +68,7 @@ paths with seeded random weights:
     (``csrc/small_eigh.cu``, the estimator's null vectors and 3x3 SVDs) on
     every call of the path against LAPACK, its device ms at each distinct
     shape of the path beside torch.linalg.eigh's and the bound, and its
-    total in the traced pose call; the scenes phase's sparse matches scored
-    (pose AUC);
+    total in the traced pose call;
     ms a call, device busy ms, idle share, launches and device -> host
     copies a call (none with the 5-point stage off), and the host 5-point
     stage alone. In float32 the refinement returns its input, as JAX's
@@ -93,7 +91,8 @@ paths with seeded random weights:
     DISK with its brute-force matcher and with SuperGlue (DISK's); LoFTR
     with OETR; COTR (``cotr_match``, 1024 queries on a 256x256 pair); each
     with pairs/s, device time, idle share, the identity check (an image
-    against itself: matched keypoints within 1.5 px) and ``get_pose`` on
+    against itself: matched keypoints within 1.5 px; LoFTR's with the
+    committed ``.ckpt_loftr_r5`` at its own threshold) and ``get_pose`` on
     its matches; each extractor and COTR against the CPU at 256x256; and
     ``get_pose`` against the homography generator's true H;
   * ``shipped``: the trained-weights path: the committed matching stores
@@ -106,6 +105,25 @@ paths with seeded random weights:
     >= 64 matches over 0.2; JAX's matcher gate (256², k 512: SuperGlue's
     assignment precision >= NN's); the trained SuperGlue on the card
     against the CPU; the identity check with the real SuperGlue at 0.2;
+  * ``trained``: the all-trained main path. (a) The OETR and LoFTR
+    stores read by the port's reader (a missing store fails the phase);
+    (b) bench stage 5 with every weight trained: the flagship OETR from
+    ``.ckpt_oetr_r5`` in bf16 with K2 and K3 on (heatmap boxes on bilinear
+    640² copies), SuperPoint (k 2048, descriptor 128, threshold 0) and
+    SuperGlue (descriptor 128, K4 on) from ``.ckpt_matching_r5`` in bf16,
+    fallback 30, on 8 generator pairs of 832² (stage 5's settings):
+    pairs/s, busy ms, idle share, launches, the kernels' calls a call,
+    matches over 0.2, ``used_overlap``, the pairs retried and each pair's
+    box IoU against the generator's GT boxes, and the retry forced on
+    every pair; (c) every K2, K3 and K4 call
+    of that call against its plain version, the switches on against off
+    (boxes, ``used_overlap``, matches on equal crops), the OETR in f32 on
+    the card against the CPU beside the CPU's one-ulp spread; (d)
+    ``build_shipped_model("loftr", with_overlap=True)`` on 4 pairs of 832²
+    (pairs/s, busy ms, idle share, K2 32 and K3 1 CUDA launches in its trace,
+    every K2 and K3 call against its plain version), JAX's LoFTR gate at 256² (>= 100 matches a pair, median
+    endpoint error < 2.5 px) and stage 5's matches scored with
+    ``estimate_pose``, guided and direct (AUC@5/10/20);
   * ``sfm``: reconstruction, in two parts. (a) The SfM demo's rig
     (``oetr_tpu_torch.sfm.demo`` at scripts/sfm_demo.py's defaults: 12
     views of 320², a 45° arc, 30 view pairs), its correspondences from
@@ -332,6 +350,18 @@ def time_ms(torch, fn, reps: int = 10, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def timed_calls(torch, call, reps):
+    """Wall ms of ``reps`` synchronized calls, host clock: the median."""
+    wall = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t)
+    return statistics.median(wall) * 1e3
 
 
 def trace_calls(torch, fn, reps: int, warmup: int = 1, sessions: int = 6,
@@ -1716,21 +1746,10 @@ def run_dense(torch, port, ops, b):
                                  f"(tol {tol}), slots agree {agree}, used "
                                  f"{out['used_overlap']} / "
                                  f"{ref['used_overlap']}")
-        # K2 (two CUDA launches a call) and K3 (statistics, fold, apply)
-        # in a trace of the path.
-        call = lambda: pipe_on(*args)
-        traced = {"linear_encoder_kernel": traced_launches(
-                      torch, call, "linear_encoder_kernel"),
-                  "gn_apply_pool_kernel": traced_launches(
-                      torch, call, "gn_apply_pool_kernel")}
-        if traced != {"linear_encoder_kernel": 32,
-                      "gn_apply_pool_kernel": 1}:
-            raise AssertionError(f"dense: traced launches a call {traced}")
         fields = {
             "pairs": b, "canvas_hw": CANVAS_HW, "oetr_hw": IMAGE_HW,
             "oetr_dtype": "bfloat16", "loftr_dtype": "float32",
             "launches_per_call": {k: n for k, n in launches.items() if n},
-            "cuda_launches_per_call_traced": traced,
             "path_kernels_vs_plain": kernel_errs,
             "oetr_box_max_diff_px": oetr_px,
             "oetr_box_tol_px": BOX_TOL_PX["bfloat16"],
@@ -1742,11 +1761,6 @@ def run_dense(torch, port, ops, b):
             "bbox0": [[round(v, 2) for v in row]
                       for row in out["bbox0"].tolist()],
             "peak_mem_gb_one_call": peak_gb}
-        torch.cuda.reset_peak_memory_stats()
-        fields["pairs_per_s"] = pairs_per_s(torch, pipe_on, args, reps=3)
-        fields["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
-        fields["plain_pairs_per_s"] = pairs_per_s(torch, pipe_off, args,
-                                                  reps=3)
         del pipe_off, oetr_off, raw_on, raw_off
 
         # One call with the reference's rule: < 30 matches -> full image.
@@ -1771,18 +1785,17 @@ def run_dense(torch, port, ops, b):
     return fields, retry, launches
 
 
-def run_scenes(torch, port, ops, b):
-    """The port's scene generator on the card, its ground-truth boxes
-    against ``overlap_bbox_pair`` on the CPU on the same tensors, then bench
-    stage 5's pattern on its pairs (seeded weights). Returns the phase
-    fields, and the pipeline's output with the generator's batch (the pose
-    phase scores its matches)."""
+def run_scenes(torch, port, b):
+    """The port's scene generator on the card (bench stage 5's settings),
+    its ground-truth boxes against ``overlap_bbox_pair`` on the CPU on the
+    same tensors. Stage 5's pipeline on its pairs is the ``trained``
+    phase's. Returns the phase fields."""
     from oetr_tpu_torch import profile_forward as pf
     from oetr_tpu_torch.geometry.overlap import overlap_bbox_pair
 
     gen_ms = time_ms(torch, lambda: pf.scene_pairs(CANVAS_HW, b, 7, DEV),
                      reps=3, warmup=1)
-    args, raw = scene_inputs(b, seed=7)
+    raw = pf.scene_pairs(CANVAS_HW, b, 7, device=DEV)
     names = ("K1", "depth1", "pose1", "crop1", "ratio1", "K2", "depth2",
              "pose2", "crop2", "ratio2")
     box1, _, box2, _, valid = overlap_bbox_pair(*(raw[n].cpu()
@@ -1800,56 +1813,12 @@ def run_scenes(torch, port, ops, b):
             and (levels - levels.round()).abs().max().item() <= 1e-3):
         raise AssertionError(f"scenes: GT boxes equal to the CPU's "
                              f"{gt_equal}, scales {s.tolist()}")
-
-    dt = torch.bfloat16
-    oetr = port.build_oetr(port.oetr_r50_kernels_config("bfloat16"),
-                           device=DEV,
-                           generator=torch.Generator().manual_seed(0))
-    sp = port.build_superpoint(device=DEV, max_keypoints=SPARSE_K,
-                               keypoint_threshold=0.0, descriptor_dim=128,
-                               dtype=dt,
-                               generator=torch.Generator().manual_seed(3))
-    sg = port.build_superglue(device=DEV, descriptor_dim=128, dtype=dt,
-                              cuda_sinkhorn=True,
-                              generator=torch.Generator().manual_seed(4))
-    cfg = port.PipelineConfig(canvas_hw=(CANVAS_HW, CANVAS_HW),
-                              oetr_hw=(IMAGE_HW, IMAGE_HW),
-                              fallback_min_matches=30, box_source="heatmap")
-    pipe = port.SparsePipeline(sp, sg, oetr=oetr, cfg=cfg)
-    with torch.inference_mode():
-        first = pipe._run(*args, use_overlap=True)
-        need = ((first["num_matches"] < 30) & first["used_overlap"]).cpu()
-        n_retry = int(need.sum())
-        reset_counts(ops)
-        out = pipe(*args)
-        torch.cuda.synchronize()
-        launches = launch_counts(ops)
-        want = {name: 0 for name in KERNELS}
-        want.update(linear_encoder_attention=16, groupnorm_relu_maxpool=1,
-                    log_sinkhorn_cuda=1 + -(-n_retry // 2))
-        used = first["used_overlap"].cpu() & ~need
-        if launches != want or not torch.equal(out["used_overlap"].cpu(),
-                                               used):
-            raise AssertionError(f"scenes: launches {launches} != {want}, "
-                                 f"or used_overlap {out['used_overlap']}")
-        rate = pairs_per_s(torch, pipe, args, reps=3)
-    return {"weights": "seeded", "pairs": b, "canvas_hw": CANVAS_HW,
+    return {"pairs": b, "canvas_hw": CANVAS_HW,
             "generator": {**pf.SCENE_KW, "ms": gen_ms,
                           "translated_pairs": int((s == 1.0).sum()),
                           "scale": [round(v, 4) for v in s.tolist()]},
             "gt_boxes_equal_cpu": gt_equal,
-            "overlap_box1": raw["overlap_box1"].tolist(),
-            "descriptor_dim": 128, "keypoints": SPARSE_K,
-            "keypoint_threshold": 0.0, "fallback_min_matches": 30,
-            "launches": {k: n for k, n in launches.items() if n},
-            "matches_per_pair_first_pass": first["num_matches"].tolist(),
-            "matches_per_pair": out["num_matches"].tolist(),
-            "pairs_used_overlap": int(out["used_overlap"].sum()),
-            "pairs_gated": int((~first["used_overlap"]).sum()),
-            "pairs_retried": n_retry,
-            "bbox0": [[round(v, 1) for v in row]
-                      for row in first["bbox0"].tolist()],
-            "pairs_per_s": rate}, {"out": out, "raw": raw}
+            "overlap_box1": raw["overlap_box1"].tolist()}
 
 
 # ------------------------------------------------------------------ pose --
@@ -2030,6 +1999,33 @@ def traced_stats(torch, fn, reps=1, names=(), warmup=1, cpu=True,
                for name in names}}
 
 
+def score_matches(torch, port, out, raw, seed=16):
+    """A sparse pipeline's matches (``out``, keypoints in the canvas frame)
+    scored against the generator's true relative poses (``raw``) with
+    ``estimate_pose`` at JAX's defaults: matches a pair, pairs with a pose,
+    AUC@5/10/20 of max(err_R, err_t) (inf without a pose) and the median
+    errors in degrees."""
+    from oetr_tpu_torch.geometry.overlap import rigid_inverse
+
+    m0 = out["matches0"]
+    valid = m0 > -1
+    k1 = torch.gather(out["keypoints1"].float(), 1,
+                      m0.clamp(min=0)[..., None].expand(-1, -1, 2))
+    res = port.estimate_pose(out["keypoints0"].float(), k1, valid,
+                             raw["K1"], raw["K2"],
+                             torch.Generator(device=DEV).manual_seed(seed))
+    T = raw["pose2"] @ rigid_inverse(raw["pose1"])
+    et, eR = port.pose_error(T, res["R"], res["t"])
+    ok = res["ok"]
+    err = torch.where(ok, torch.maximum(et, eR), float("inf"))
+    median = lambda e: (statistics.median(e[ok].tolist()) if ok.any()
+                        else None)
+    return {"matches_per_pair": valid.sum(-1).tolist(),
+            "pairs_ok": int(ok.sum()),
+            "pose_auc@5/10/20": port.pose_auc(err.tolist(), [5, 10, 20]),
+            "median_err_R_deg": median(eR), "median_err_t_deg": median(et)}
+
+
 def pose_case(torch, port, d, use_5pt, seed, device=None, replay=None,
               linalg=None):
     """estimate_pose with JAX's defaults on the problems ``d`` (on
@@ -2056,21 +2052,21 @@ def pose_case(torch, port, d, use_5pt, seed, device=None, replay=None,
             log if replay is None else replay, routes, stages)
 
 
-def run_pose(torch, port, ops, scenes):
+def run_pose(torch, port, ops):
     """Two-view pose on the card (``estimate_pose`` with JAX's defaults,
     B = 8, N = 2048): general scenes (the ground truth within
     POSE_GT_R_DEG / POSE_GT_T_DEG on the card and on the CPU, no padded
     slot an inlier) and the scene generator's planar pairs, with the
     5-point stage off (the card's default) and on; the card against the
     CPU given the card's eigh and svd3 results on the same inputs and
-    draws (bounded), and against the plain CPU (read); the eigh kernel on every call of the path against LAPACK; the scenes phase's sparse matches scored (pose AUC);
-    times. Returns the phase fields (``failures`` lists the cases out of
+    draws (bounded), and against the plain CPU (read); the eigh kernel on
+    every call of the path against LAPACK; times (stage 5's matches are
+    scored in the ``trained`` phase). Returns the phase fields (``failures`` lists the cases out of
     bounds; the phase goes on to its readings) and the eigh kernel's
     row."""
     from oetr_tpu_torch import profile_forward as pf
     from oetr_tpu_torch.geometry import draws, normalize_keypoints
     from oetr_tpu_torch.geometry.fivepoint import five_point_hypotheses
-    from oetr_tpu_torch.geometry.overlap import rigid_inverse
     from oetr_tpu_torch.geometry.homography import sample_minimal_sets
     from oetr_tpu_torch.pose_parting import parting
 
@@ -2173,29 +2169,6 @@ def run_pose(torch, port, ops, scenes):
                             "read_only": "card_vs_cpu (the plain CPU; the "
                                          "CPU's own spread: pose_parting "
                                          "--spread)"}
-
-        # The scenes phase's sparse matches, against the generator's truth.
-        out, raw = scenes["out"], scenes["raw"]
-        m0 = out["matches0"]
-        valid = m0 > -1
-        k1 = torch.gather(out["keypoints1"].float(), 1,
-                          m0.clamp(min=0)[..., None].expand(-1, -1, 2))
-        reset_counts(ops)
-        res = port.estimate_pose(out["keypoints0"].float(), k1, valid,
-                                 raw["K1"], raw["K2"],
-                                 torch.Generator(device=DEV).manual_seed(16))
-        torch.cuda.synchronize()
-        e2e_launches = launch_counts(ops)
-        T = raw["pose2"] @ rigid_inverse(raw["pose1"])
-        et, eR = port.pose_error(T, res["R"], res["t"])
-        err = torch.where(res["ok"], torch.maximum(et, eR), float("inf"))
-        fields["scene_matches"] = {
-            "matches_per_pair": valid.sum(-1).tolist(),
-            "pairs_ok": int(res["ok"].sum()),
-            "pose_auc@5/10/20": port.pose_auc(err.tolist(), [5, 10, 20]),
-            "launches": {k: n for k, n in e2e_launches.items() if n},
-            "weights": "seeded"}
-        lap("scene_matches")
 
         # Times on the card, B = 8, N = 2048.
         timing = {}
@@ -2692,27 +2665,26 @@ def api_images(torch, hw, seed):
     return [raw[k][0].float().cpu().numpy() for k in ("image1", "image2")]
 
 
-def identity_settings(model):
+def identity_settings(model, trained_loftr=None):
     """The matcher settings the identity check runs with, as (object,
     attribute, value). Seeded SuperGlue's assignment is not dominated by
     each keypoint's own copy (at threshold 0 its mutual argmaxes lie a
     median 3-4.5 px apart on an identical pair, CPU rehearsal at 128²), so
-    the check matches those pipelines' keypoints with NN; seeded LoFTR
-    keeps no match over 0.2, so the check takes its mutual nearest
-    neighbours (threshold 0) with a 1-pixel fine window (its seeded fine
-    soft-argmax spreads over the 5x5 window, +-4 px)."""
+    the check matches those pipelines' keypoints with NN; a LoFTR pipeline
+    takes ``trained_loftr``, the committed ``.ckpt_loftr_r5`` weights at
+    their own threshold (0.2) and fine window (5), as users run it (seeded
+    LoFTR keeps no match over 0.2)."""
     from oetr_tpu_torch.models import registry
 
     pipe = model[0]
     if hasattr(pipe, "loftr"):
-        return [(pipe.loftr, "match_threshold", 0.0),
-                (pipe.loftr, "fine_window", 1)]
+        return [(pipe, "loftr", trained_loftr)]
     if hasattr(pipe.match_fn, "match_threshold"):
         return [(pipe, "match_fn", registry.build("NN", device=DEV))]
     return []
 
 
-def api_case(torch, model, img0, img1, names=()):
+def api_case(torch, model, img0, img1, names=(), trained_loftr=None):
     """One combination through ``get_matches``'s helper below the decode:
     pairs/s (median of API_REPS calls after API_WARMUP), traced device
     time and idle share, keypoints and matches of the pair, the identity
@@ -2738,7 +2710,7 @@ def api_case(torch, model, img0, img1, names=()):
             wall.append(time.perf_counter() - t)
         stats = traced_stats(torch, call, reps=1, names=names, warmup=0,
                              cpu=False)
-        settings = identity_settings(model)
+        settings = identity_settings(model, trained_loftr)
         kept = [getattr(obj, attr) for obj, attr, _ in settings]
         for obj, attr, value in settings:
             setattr(obj, attr, value)
@@ -2764,8 +2736,10 @@ def api_case(torch, model, img0, img1, names=()):
         if "all_valid0" in res else None,
         "matches": int(res["matches"].shape[1]),
         "identity_matches": int(m.shape[1]),
-        "identity_settings": {attr: (value if attr != "match_fn" else "NN")
-                              for _, attr, value in settings},
+        "identity_settings": {attr: "NN" if attr == "match_fn" else {
+            "weights": ".ckpt_loftr_r5",
+            "match_threshold": value.match_threshold,
+            "fine_window": value.fine_window} for _, attr, value in settings},
         "identity_median_px": ident_px,
         "pose_H_finite": bool(np.isfinite(pose["H"]).all()),
         "pose_ok": pose["ok"], "case_s": time.perf_counter() - t0}
@@ -3026,8 +3000,8 @@ def run_api(torch, port, ops):
     superglue_disk and LoFTR combinations also their matcher on the card
     against the CPU on an identity pair (``api_matcher_vs_cpu``; the
     trained SuperGlue's is the shipped phase's; the
-    identity check runs SuperGlue's keypoints through NN and LoFTR at
-    threshold 0). The main path (2) has every K2, K3 and K4 output held
+    identity check runs SuperGlue's keypoints through NN and LoFTR with the
+    committed weights at their own threshold, ``identity_settings``). The main path (2) has every K2, K3 and K4 output held
     to its plain version on the same inputs, and SuperGlue's log
     assignment with K4 against K4 off on the same inputs.
     Returns (fields, the main path's launches)."""
@@ -3178,15 +3152,18 @@ def run_api(torch, port, ops):
         del model
         mark(f"{extractor}+{matcher}")
 
-    # 4. Dense: LoFTR with the overlaper.
+    # 4. Dense: LoFTR with the overlaper; its identity check with the
+    # committed LoFTR (read by build_shipped_model) at its own threshold.
     model = api.build_model("superpoint_aachen", "loftr", "oetr", cfg=cfg,
                             device=DEV)
-    combos["loftr+oetr"], _, f = api_case(torch, model, img0, img1)
+    trained_loftr = api.build_shipped_model("loftr", device=DEV)[0].loftr
+    combos["loftr+oetr"], _, f = api_case(torch, model, img0, img1,
+                                          trained_loftr=trained_loftr)
     failed += f
     matchers_vs_cpu["loftr"], f = api_matcher_vs_cpu(torch, "loftr",
                                                      model[0], small[0])
     failed += f
-    del model
+    del model, trained_loftr
     torch.cuda.empty_cache()
     mark("loftr")
 
@@ -3366,6 +3343,20 @@ def shipped_card_vs_cpu(torch, port, sg, e0, e1, hw):
     return fields, failed
 
 
+def store_stats(tree, path):
+    """Arrays, their bytes and dtypes of a checkpoint tree read from the
+    store at ``path`` (a pathlib.Path), beside the store's bytes on disk."""
+    leaves, stack = [], [tree]
+    while stack:
+        for v in stack.pop().values():
+            (stack if isinstance(v, dict) else leaves).append(v)
+    return {"arrays": len(leaves),
+            "array_bytes": sum(a.nbytes for a in leaves),
+            "bytes_on_disk": sum(f.stat().st_size for f in path.rglob("*")
+                                 if f.is_file()),
+            "dtypes": sorted({str(a.dtype) for a in leaves})}
+
+
 def run_shipped(torch, port, ops, decoder_record):
     """The trained-weights path on the card:
       1. read both matching stores with ``read_checkpoint`` (the port's
@@ -3389,7 +3380,7 @@ def run_shipped(torch, port, ops, decoder_record):
          ``api._match_images``: a scene image against itself, the matched
          keypoints' median distance < IDENTITY_PX, >= SHIPPED_MATCHES_MIN
          matches.
-    Returns (fields, the path's launches)."""
+    Returns (fields, the path's launches, {store: the tree read})."""
     from pathlib import Path
 
     import numpy as np
@@ -3403,25 +3394,16 @@ def run_shipped(torch, port, ops, decoder_record):
     mark = lambda name: split.__setitem__(name, time.perf_counter() - t0)
     failed = []
     root = Path(port.__file__).resolve().parents[1]
-    stores = {}
+    stores, trees = {}, {}
     for name in ("superpoint", "superglue"):
         path = root / ".ckpt_matching_r5" / name
         if not path.is_dir():
             raise AssertionError(f"shipped: store {path} missing (the chip "
                                  "copy must take .ckpt_matching_r5)")
         t = time.perf_counter()
-        tree = read_checkpoint(path)
-        read_s = time.perf_counter() - t
-        leaves, stack = [], [tree]
-        while stack:
-            for v in stack.pop().values():
-                (stack if isinstance(v, dict) else leaves).append(v)
-        stores[name] = {
-            "read_s": read_s, "arrays": len(leaves),
-            "array_bytes": sum(a.nbytes for a in leaves),
-            "bytes_on_disk": sum(f.stat().st_size for f in path.rglob("*")
-                                 if f.is_file()),
-            "dtypes": sorted({str(a.dtype) for a in leaves})}
+        trees[name] = read_checkpoint(path)
+        stores[name] = {"read_s": time.perf_counter() - t,
+                        **store_stats(trees[name], path)}
     mark("read")
 
     t = time.perf_counter()
@@ -3451,13 +3433,7 @@ def run_shipped(torch, port, ops, decoder_record):
             launches = launch_counts(ops)
         out_off = port.SparsePipeline(sp, cap_off, None, cfg)(*args)
         call = lambda: pipe(*args)
-        wall = []
-        for _ in range(SHIPPED_REPS):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            call()
-            torch.cuda.synchronize()
-            wall.append(time.perf_counter() - t)
+        wall_ms = timed_calls(torch, call, SHIPPED_REPS)
         stats = traced_stats(torch, call, reps=1, names=("sinkhorn",),
                              warmup=0, cpu=False)
     want = {name: 0 for name in KERNELS}
@@ -3478,8 +3454,7 @@ def run_shipped(torch, port, ops, decoder_record):
         "k": SHIPPED_SP["max_keypoints"],
         "descriptor_dim": SHIPPED_SG["descriptor_dim"],
         "gnn_layers": sg.gnn_layers, "dtype": "float32",
-        "pairs_per_s": SHIPPED_PAIRS / statistics.median(wall),
-        "wall_ms": statistics.median(wall) * 1e3,
+        "pairs_per_s": SHIPPED_PAIRS / wall_ms * 1e3, "wall_ms": wall_ms,
         "timing": f"median of {SHIPPED_REPS} calls, host clock around a "
                   "synchronized call",
         "device_busy_ms": stats["device_busy_ms"],
@@ -3540,7 +3515,484 @@ def run_shipped(torch, port, ops, decoder_record):
               "matcher_gate": gate, "card_vs_cpu": vs_cpu,
               "identity": identity, "split_s": split,
               "shipped_phase_s": phase_s, "failures": failed}
-    return fields, launches
+    return fields, launches, trees
+
+
+# ---------------------------------------------------------------- trained --
+
+# The all-trained main path: bench stage 5 (bench.py:298-400) with every
+# weight trained. The flagship OETR from .ckpt_oetr_r5/params in bf16 with
+# K2 and K3 on (heatmap boxes on bilinear 640² copies, scales 832/640),
+# SuperPoint (k 2048, descriptor 128, threshold 0) and SuperGlue
+# (descriptor 128, K4 on) from .ckpt_matching_r5 in bf16,
+# fallback_min_matches 30, on 8 generator pairs of 832² with stage 5's
+# settings (profile_forward.SCENE_KW). Then the trained dense path,
+# build_shipped_model("loftr", with_overlap=True), and JAX's LoFTR gate.
+TRAINED_PAIRS = 8
+TRAINED_SEED = 7             # bench.py:380's jax.random.key(7)
+TRAINED_REPS = 3
+TRAINED_MIN_MATCHES = 30     # bench.py:374
+TRAINED_DENSE_PAIRS = 4
+TRAINED_DENSE_SEED = 9
+# The trained OETR in f32 on the card (K2, K3 on, TF32 off) against the
+# port on the CPU on the path's 640² copies of TRAINED_CPU_PAIRS pairs: the
+# tlbr outputs within VARIANT_TLBR_TOL, the heat maps within
+# VARIANT_PROB_RTOL of their largest entry, both box decodes within the f32
+# slice's BOX_TOL_PX. The CPU's own spread under a one-ulp nudge of the
+# images, read on three generator pairs of 640² before the first chip run:
+# tlbr and both boxes 0, heat maps 6.4e-7 to 1.3e-6 of their largest entry
+# (each bound ~75x that); the phase reads it again on the card's inputs.
+TRAINED_CPU_PAIRS = 1
+# tests/test_shipped_loftr_gate.py: 4 held-out generator pairs of 256²
+# (key 991 there, seed 991 here), scale_range (1.0, 2.0), p_translate 0.5;
+# >= 100 valid matches a pair on average, and the median endpoint error
+# against the depth and pose warp (training/loftr.py's
+# warp_cell_centers_batch) < 2.5 px.
+LOFTR_GATE_HW, LOFTR_GATE_PAIRS, LOFTR_GATE_SEED = 256, 4, 991
+LOFTR_GATE_MATCHES = 100
+LOFTR_GATE_MEDIAN_PX = 2.5
+TRAINED_PHASE_S = 20.0
+
+
+def trained_stores(names):
+    """The committed stores ``names`` (keys of ``api.SHIPPED_CKPTS``) read
+    by ``api.shipped_tree`` (the port's reader, as build_shipped_model reads
+    them). Returns ({name: flax tree}, {name: seconds, arrays, bytes}); a
+    missing store fails the phase with its path."""
+    from pathlib import Path
+
+    from oetr_tpu_torch.pipelines import api
+
+    root = Path(api.__file__).resolve().parents[2]
+    trees, stats = {}, {}
+    for name in names:
+        t = time.perf_counter()
+        try:
+            trees[name] = api.shipped_tree(name)
+        except FileNotFoundError as e:
+            raise AssertionError(f"trained: {e} (the chip copy must take "
+                                 "every committed store)") from None
+        stats[name] = {"read_s": time.perf_counter() - t, **store_stats(
+            trees[name], root / api.SHIPPED_CKPTS[name])}
+    return trees, stats
+
+
+def stage5_models(torch, port, trees, dtype_name, kernels=True,
+                  device=None):
+    """bench stage 5's models (bench.py:306-373) from the committed trees,
+    on ``device`` (DEV by default): the flagship OETR
+    (``oetr_r50_kernels_config`` with the switches on, ``oetr_r50_config``
+    off), SuperPoint and SuperGlue at the shipped widths (K4 with the
+    switches), all computing in ``dtype_name``. The parameters stay float32
+    and each op casts them, as flax does."""
+    from oetr_tpu_torch.interop import (convert_flax_params,
+                                        convert_superglue_params,
+                                        convert_superpoint_params)
+    from oetr_tpu_torch.pipelines.api import SHIPPED_SG, SHIPPED_SP
+
+    dev = device or DEV
+    dt = getattr(torch, dtype_name)
+    cfg = (port.oetr_r50_kernels_config(dtype_name) if kernels
+           else port.replace(port.oetr_r50_config(), dtype=dtype_name))
+
+    def load(module, state):
+        module.load_state_dict(state)
+        return module
+
+    return (load(port.build_oetr(cfg, device=dev),
+                 convert_flax_params(trees["oetr"], cfg)),
+            load(port.build_superpoint(device=dev, dtype=dt, **SHIPPED_SP),
+                 convert_superpoint_params(trees["superpoint"],
+                                           **SHIPPED_SP)),
+            load(port.build_superglue(device=dev, dtype=dt,
+                                      cuda_sinkhorn=kernels, **SHIPPED_SG),
+                 convert_superglue_params(trees["superglue"],
+                                          **SHIPPED_SG)))
+
+
+def trained_on_vs_off(torch, port, trees, models, first, first_m0, args):
+    """Stage 5's first pass with every switch on (``first``, its SuperGlue
+    matches ``first_m0``, from ``models``) against the same weights with
+    every switch off on the same arguments: OETR's boxes on the OETR copies
+    within the bf16 BOX_TOL_PX, ``used_overlap`` equal, and on the pairs
+    whose two first passes cropped the same boxes, the same keypoints and
+    ``matches0`` at 0.2 equal on >= MATCH_AGREE_MIN of the valid keypoints;
+    the other pairs' agreement is reported apart. Returns (fields,
+    failures)."""
+    hw = int(args[4].shape[1])
+    off = stage5_models(torch, port, trees, "bfloat16", kernels=False,
+                        device=args[0].device)
+    cap_off = Capture(off[2])
+    pipe_off = pipeline(port, (off[0], models[1], off[2]), cap_off,
+                        TRAINED_MIN_MATCHES)
+    with torch.inference_mode():
+        first_off = pipe_off._run(*args, use_overlap=True)
+        m0_off = cap_off.last["matches0"]
+        raw_on = models[0](args[4], args[5])
+        raw_off = off[0](args[4], args[5])
+    check_outputs(torch, port.oetr_r50_kernels_config("bfloat16"), raw_on,
+                  int(args[4].shape[0]), hw, "trained OETR")
+    oetr_px = box_diff_px(port, raw_on, raw_off, hw)
+    same_crop = ((first["bbox0"] == first_off["bbox0"]).all(-1)
+                 & (first["bbox1"] == first_off["bbox1"]).all(-1)).tolist()
+    failed, agree, apart = [], {}, {}
+    for i, same in enumerate(same_crop):
+        a = match_agreement(first_m0[i], m0_off[i], first["valid0"][i])
+        if not same:
+            apart[i] = a
+            continue
+        agree[i] = a
+        if not torch.equal(first["keypoints0"][i],
+                           first_off["keypoints0"][i]):
+            failed.append(f"trained on vs off: pair {i}'s keypoints differ "
+                          "on equal crops")
+    fields = {
+        "oetr_box_max_diff_px": oetr_px,
+        "oetr_box_tol_px": BOX_TOL_PX["bfloat16"],
+        "used_overlap_equal": torch.equal(first["used_overlap"],
+                                          first_off["used_overlap"]),
+        "pairs_same_crops": sum(same_crop),
+        "matches_agree_thr_0.2_same_crops": agree,
+        "matches_agree_thr_0.2_other_pairs": apart,
+        "agree_min": MATCH_AGREE_MIN,
+        "matches_thr_0.2_off": first_off["num_matches"].tolist()}
+    if not oetr_px <= BOX_TOL_PX["bfloat16"]:
+        failed.append(f"trained OETR on vs off: {oetr_px} px")
+    if not fields["used_overlap_equal"]:
+        failed.append("trained on vs off: used_overlap differs")
+    if any(a < MATCH_AGREE_MIN for a in agree.values()):
+        failed.append(f"trained on vs off: matches agree {agree}")
+    return fields, failed
+
+
+def trained_card_vs_cpu(torch, port, card, o0, o1):
+    """The trained OETR in f32 on the card (``card``, K2 and K3 on) against
+    its copy on the CPU (plain versions) on the OETR copies ``o0``, ``o1``,
+    and the CPU against itself with the images nudged up by one ulp.
+    Returns (fields, failures)."""
+    import copy
+
+    cpu = copy.deepcopy(card).to("cpu")
+    c0, c1 = o0.float().cpu(), o1.float().cpu()
+    ones = torch.ones_like(c0)
+    with torch.inference_mode():
+        a = card(o0.float(), o1.float())
+        r = cpu(c0, c1)
+        nudged = cpu(torch.nextafter(c0, ones), torch.nextafter(c1, ones))
+    hw = tuple(c0.shape[1:3])
+
+    def gaps(x, y):
+        out = {}
+        for key in ("tlbr1", "tlbr2", "prob_map1", "prob_map2",
+                    "pred_bbox1", "pred_bbox2"):
+            d = (x[key].float().cpu() - y[key]).abs().max().item()
+            out[key] = d / y[key].abs().max().item() \
+                if key.startswith("prob") else d
+        hx = port.decode_boxes({k: v.cpu() for k, v in x.items()}, hw, hw,
+                               source="heatmap")
+        hy = port.decode_boxes(y, hw, hw, source="heatmap")
+        out["heatmap_boxes_px"] = max((p - q).abs().max().item()
+                                      for p, q in zip(hx, hy))
+        return out
+
+    tol = lambda key: (VARIANT_PROB_RTOL if key.startswith("prob")
+                       else VARIANT_TLBR_TOL if key.startswith("tlbr")
+                       else BOX_TOL_PX["float32"])
+    fields = {"pairs": int(c0.shape[0]), "dtype": "float32", "hw": hw[0],
+              "card_vs_cpu": gaps(a, r),
+              "cpu_one_ulp_spread": gaps(nudged, r),
+              "tlbr_tol": VARIANT_TLBR_TOL, "prob_rtol": VARIANT_PROB_RTOL,
+              "box_tol_px": BOX_TOL_PX["float32"],
+              "prob_max": r["prob_map1"].max().item()}
+    failed = [f"trained OETR f32 card vs CPU: {key} {v} > {tol(key)}"
+              for key, v in fields["card_vs_cpu"].items() if not v <= tol(key)]
+    return fields, failed
+
+
+def loftr_gate(torch, port, loftr):
+    """JAX's LoFTR gate (tests/test_shipped_loftr_gate.py:27-68) through the
+    port's trained LoFTR on the card. Returns the fields."""
+    import numpy as np
+
+    from oetr_tpu_torch.training.loftr import warp_cell_centers_batch
+
+    b = LOFTR_GATE_PAIRS
+    gen = port.make_device_generator(LOFTR_GATE_HW, b, scale_range=(1.0, 2.0),
+                                     p_translate=0.5, device=DEV)
+    raw = gen(torch.Generator(device=DEV).manual_seed(LOFTR_GATE_SEED))
+    lum = torch.tensor([0.299, 0.587, 0.114], device=DEV)
+    with torch.inference_mode():
+        out = loftr((raw["image1"] @ lum)[..., None],
+                    (raw["image2"] @ lum)[..., None])
+        T = raw["pose2"] @ torch.linalg.inv(raw["pose1"])
+        gt_xy1, gt_ok = warp_cell_centers_batch(
+            out["mkpts0"], raw["depth1"], raw["K1"], T, raw["K2"],
+            depth1=raw["depth2"])
+    valid = out["valid"] & gt_ok
+    err = (out["mkpts1"] - gt_xy1).norm(dim=-1)[valid].cpu().numpy()
+    return {"hw": LOFTR_GATE_HW, "pairs": b, "seed": LOFTR_GATE_SEED,
+            "valid_matches_per_pair": valid.sum(-1).tolist(),
+            "matches_min_mean": LOFTR_GATE_MATCHES,
+            "median_endpoint_px": float(np.median(err)) if len(err) else None,
+            "median_max_px": LOFTR_GATE_MEDIAN_PX,
+            "p90_endpoint_px": (float(np.percentile(err, 90)) if len(err)
+                                else None)}
+
+
+def run_trained(torch, port, ops, matching):
+    """The all-trained main path on the card:
+      (a) the OETR and LoFTR stores read by the port's reader (a missing
+          store fails the phase; no seeded or CPU fallback): seconds,
+          arrays, bytes;
+      (b) bench stage 5 (``stage5_models`` in bf16, K2, K3, K4 on, 832²
+          canvases, 640² OETR copies, fallback 30, heatmap boxes) on
+          TRAINED_PAIRS generator pairs: pairs/s (median of TRAINED_REPS
+          calls), busy ms, idle share and launches of one traced call, the
+          kernels' calls a call (16 / 1 / 1 + one K4 a retry chunk),
+          matches over 0.2 a pair, ``used_overlap``, the pairs retried and
+          each pair's first-pass box IoU against the generator's GT boxes;
+          then the retry forced (fallback one above the most matches a
+          pair reached): K4 1 + one a chunk, no pair left on its crops,
+          each pair's matches equal to its chunk's run alone;
+      (c) every K2, K3 and K4 call of that call against its plain version
+          on the same inputs; the same weights with every switch off:
+          OETR's boxes on the 640² copies within the bf16 16 px,
+          ``used_overlap`` equal, and where both first passes cropped the
+          same boxes, ``matches0`` at 0.2 equal on >= MATCH_AGREE_MIN of
+          the valid keypoints (the other pairs reported apart); the OETR in
+          f32 on the card against the CPU (``trained_card_vs_cpu``, on the
+          dense path's OETR);
+      (d) ``build_shipped_model("loftr", with_overlap=True)`` (its stores
+          handed over from (a)) on TRAINED_DENSE_PAIRS pairs of 832²:
+          pairs/s, busy ms, idle share, K2 32 and K3 1 CUDA launches in its
+          trace, every K2 and K3 call against its plain version; JAX's
+          LoFTR gate (``loftr_gate``); stage 5's
+          matches scored with ``estimate_pose``, guided and direct
+          (``with_overlap=False``) on the same pairs (a reading: 8 pairs
+          are too few to gate an AUC).
+    ``matching``: the SuperPoint and SuperGlue trees the ``shipped`` phase
+    read. Returns (fields, the launches of the stage-5 and dense calls)."""
+    from oetr_tpu_torch import profile_forward as pf
+    from oetr_tpu_torch.geometry.boxes import bbox_overlaps_aligned
+    from oetr_tpu_torch.pipelines import api
+
+    t0 = time.perf_counter()
+    split = {}
+    mark = lambda name: split.__setitem__(name, time.perf_counter() - t0)
+    failed = []
+
+    # (a) The stores.
+    trees, stores = trained_stores(("oetr", "loftr"))
+    trees.update(matching)
+    mark("read")
+
+    # (b) Stage 5, every weight trained.
+    models = stage5_models(torch, port, trees, "bfloat16")
+    cap = Capture(models[2])
+    pipe = pipeline(port, models, cap, TRAINED_MIN_MATCHES)
+    args, raw = scene_inputs(TRAINED_PAIRS, TRAINED_SEED)
+    with torch.inference_mode():
+        # The first pass (OETR, gate, crops, SuperPoint, SuperGlue) alone,
+        # then one stage-5 call with every kernel call recorded.
+        first = pipe._run(*args, use_overlap=True)
+        first_m0 = cap.last["matches0"]
+        need = ((first["num_matches"] < TRAINED_MIN_MATCHES)
+                & first["used_overlap"]).cpu()
+        with recorded_kernel_calls(sinkhorn=True) as calls:
+            reset_counts(ops)
+            out = pipe(*args)
+            torch.cuda.synchronize()
+            launches = launch_counts(ops)
+    n_retry = int(need.sum())
+    chunks = -(-n_retry // pipe.cfg.retry_batch)
+    want = {name: 0 for name in KERNELS}
+    want.update(linear_encoder_attention=16, groupnorm_relu_maxpool=1,
+                log_sinkhorn_cuda=1 + chunks)
+    recorded = {name: len(c) for name, c in calls.items()}
+    if launches != want or recorded != {
+            "linear_encoder_attention": 16, "groupnorm_relu_maxpool": 1,
+            "log_optimal_transport": 1 + chunks}:
+        raise AssertionError(f"trained stage 5: launches {launches} != "
+                             f"{want}, recorded calls {recorded}")
+    used_want = first["used_overlap"].cpu() & ~need
+    if not torch.equal(out["used_overlap"].cpu(), used_want):
+        failed.append(f"trained stage 5: used_overlap {out['used_overlap']}"
+                      f" after the retry, not {used_want}")
+    path_kernels = recorded_kernel_errors(torch, ops, calls,
+                                          path="trained stage 5")
+    del calls
+    mark("stage5")
+    with torch.inference_mode():
+        wall_ms = timed_calls(torch, lambda: pipe(*args), TRAINED_REPS)
+        stats = traced_stats(torch, lambda: pipe(*args), reps=1, names=(
+            "linear_encoder_kernel", "gn_apply_pool_kernel", "sinkhorn"),
+                             warmup=0, cpu=False)
+    gt0, gt1 = raw["overlap_box1"].float(), raw["overlap_box2"].float()
+    iou = torch.stack([bbox_overlaps_aligned(first["bbox0"], gt0),
+                       bbox_overlaps_aligned(first["bbox1"], gt1)], -1)
+    stage5 = {
+        "pairs": TRAINED_PAIRS, "canvas_hw": CANVAS_HW, "oetr_hw": IMAGE_HW,
+        "dtype": "bfloat16", "keypoints": models[1].max_keypoints,
+        "descriptor_dim": models[2].descriptor_dim,
+        "keypoint_threshold": models[1].keypoint_threshold,
+        "fallback_min_matches": TRAINED_MIN_MATCHES,
+        "generator": {**pf.SCENE_KW, "seed": TRAINED_SEED,
+                      "scale": [round(v, 4) for v in raw["scale"].tolist()]},
+        "pairs_per_s": TRAINED_PAIRS / wall_ms * 1e3, "wall_ms": wall_ms,
+        "timing": f"median of {TRAINED_REPS} calls, host clock around a "
+                  "synchronized call",
+        "device_busy_ms": stats["device_busy_ms"],
+        "idle_share": stats["idle_share"],
+        "traced_wall_ms": stats["wall_ms"],
+        "launches_per_call_traced": stats["launches_per_call"],
+        "cuda_launches_per_call_traced": {
+            k: stats[f"{k}_per_call"] for k in (
+                "linear_encoder_kernel", "gn_apply_pool_kernel",
+                "sinkhorn")},
+        "device_ms_by_category": stats["device_ms_by_category"],
+        "kernel_calls": {k: n for k, n in launches.items() if n},
+        "kernel_outputs_vs_plain": path_kernels,
+        "matches_thr_0.2_first_pass": first["num_matches"].tolist(),
+        "matches_thr_0.2": out["num_matches"].tolist(),
+        "used_overlap_first_pass": first["used_overlap"].tolist(),
+        "used_overlap": out["used_overlap"].tolist(),
+        "pairs_retried": n_retry, "retry_chunks": chunks,
+        "box_iou_first_pass": [[round(v, 4) for v in p]
+                               for p in iou.tolist()],
+        "gt_overlap_valid": raw["overlap_valid"].tolist(),
+        "bbox0_first_pass": [[round(v, 1) for v in p]
+                             for p in first["bbox0"].tolist()],
+        "gt_box1": raw["overlap_box1"].tolist()}
+    mark("stage5_timed")
+
+    # The retry forced with the trained weights: fallback_min_matches one
+    # above the most matches a pair reached, so every pair that took its
+    # crops is re-run on the full images in chunks of retry_batch (the last
+    # padded with the first pair), each pair's result scattered back: equal
+    # to its chunk's run alone. (Against one direct call on all 8 pairs the
+    # counts move by a few matches: bf16 rounds with the batch's size.)
+    forced_min = int(first["num_matches"].max()) + 1
+    forced_pipe = pipeline(port, models, models[2], forced_min)
+    idx = first["used_overlap"].nonzero().flatten()
+    r = pipe.cfg.retry_batch
+    padded = torch.cat([idx, idx[:1].repeat((-len(idx)) % r)])
+    with torch.inference_mode():
+        reset_counts(ops)
+        forced_out = forced_pipe(*args)
+        torch.cuda.synchronize()
+        forced_launches = launch_counts(ops)
+        alone = [pipe._run(*(a[padded[c:c + r]] for a in args[:4]))
+                 for c in range(0, len(padded), r)]
+    chunk_m0 = torch.cat([c["matches0"] for c in alone])[:len(idx)]
+    forced = {"fallback_min_matches": forced_min, "pairs_retried": len(idx),
+              "kernel_calls": {k: n for k, n in forced_launches.items()
+                               if n},
+              "matches_thr_0.2": forced_out["num_matches"].tolist(),
+              "scattered_equal_chunks": torch.equal(
+                  forced_out["matches0"][idx], chunk_m0)}
+    if (forced_launches != dict(want, log_sinkhorn_cuda=1 + len(alone))
+            or forced_out["used_overlap"].any()
+            or not forced["scattered_equal_chunks"]):
+        failed.append(f"trained forced retry: {forced}")
+    del forced_pipe, forced_out, alone
+    mark("forced_retry")
+
+    # (c) The same weights with every switch off (the f32 card vs CPU check
+    # comes after the dense path, whose OETR it takes).
+    on_off, f = trained_on_vs_off(torch, port, trees, models, first,
+                                  first_m0, args)
+    failed += f
+    mark("on_vs_off")
+    # (d) The trained dense path, JAX's LoFTR gate, stage 5's poses.
+    read = api.shipped_tree
+    api.shipped_tree = lambda name, ckpt_root=None: trees[name]
+    try:
+        dense, _ = api.build_shipped_model("loftr", with_overlap=True,
+                                           device=DEV)
+    finally:
+        api.shipped_tree = read
+    dargs, _ = scene_inputs(TRAINED_DENSE_PAIRS, TRAINED_DENSE_SEED)
+    with torch.inference_mode():
+        dense(*dargs)       # cuDNN picks LoFTR's convolutions at 832²
+        with recorded_kernel_calls() as dcalls:
+            reset_counts(ops)
+            dout = dense(*dargs)
+            torch.cuda.synchronize()
+            dense_launches = launch_counts(ops)
+        dense_want = {name: 0 for name in KERNELS}
+        dense_want.update(linear_encoder_attention=16,
+                          groupnorm_relu_maxpool=1)
+        if dense_launches != dense_want:
+            raise AssertionError(f"trained dense: launches {dense_launches}"
+                                 f" != {dense_want}")
+        dense_kernels = recorded_kernel_errors(torch, ops, dcalls,
+                                               path="trained dense")
+        del dcalls
+        dense_ms = timed_calls(torch, lambda: dense(*dargs), TRAINED_REPS)
+        dstats = traced_stats(torch, lambda: dense(*dargs), reps=1, names=(
+            "linear_encoder_kernel", "gn_apply_pool_kernel"), warmup=0,
+                              cpu=False)
+    # K2 is two CUDA launches a call, K3 three (statistics, fold, apply).
+    traced = {k: dstats[f"{k}_per_call"] for k in (
+        "linear_encoder_kernel", "gn_apply_pool_kernel")}
+    if traced != {"linear_encoder_kernel": 32, "gn_apply_pool_kernel": 1}:
+        failed.append(f"trained dense: traced launches a call {traced}")
+    dense_fields = {
+        "pairs": TRAINED_DENSE_PAIRS, "canvas_hw": CANVAS_HW,
+        "oetr_hw": IMAGE_HW, "dtype": "float32",
+        "config": {k: getattr(dense.cfg, k) for k in (
+            "fallback_min_matches", "retry_batch", "box_source")},
+        "pairs_per_s": TRAINED_DENSE_PAIRS / dense_ms * 1e3,
+        "wall_ms": dense_ms,
+        "device_busy_ms": dstats["device_busy_ms"],
+        "idle_share": dstats["idle_share"],
+        "launches_per_call_traced": dstats["launches_per_call"],
+        "cuda_launches_per_call_traced": traced,
+        "device_ms_by_category": dstats["device_ms_by_category"],
+        "kernel_calls": {k: n for k, n in dense_launches.items() if n},
+        "kernel_outputs_vs_plain": dense_kernels,
+        "matches_per_pair": dout["num_matches"].tolist(),
+        "used_overlap": dout["used_overlap"].tolist()}
+    mark("dense")
+    # The dense path's OETR is the trained flagship in f32 (K2, K3 on).
+    vs_cpu, f = trained_card_vs_cpu(torch, port, dense.oetr,
+                                    args[4][:TRAINED_CPU_PAIRS],
+                                    args[5][:TRAINED_CPU_PAIRS])
+    failed += f
+    mark("card_vs_cpu")
+    gate = loftr_gate(torch, port, dense.loftr)
+    n_valid = gate["valid_matches_per_pair"]
+    if not (sum(n_valid) >= LOFTR_GATE_MATCHES * len(n_valid)
+            and gate["median_endpoint_px"] is not None
+            and gate["median_endpoint_px"] < LOFTR_GATE_MEDIAN_PX):
+        failed.append(f"trained LoFTR gate: {gate}")
+    del dense, dout, dargs
+    mark("loftr_gate")
+    with torch.inference_mode():
+        direct = pipe(*args, with_overlap=False)
+        reset_counts(ops)
+        poses = {"guided": score_matches(torch, port, out, raw),
+                 "direct": score_matches(torch, port, direct, raw)}
+        torch.cuda.synchronize()
+    poses["eigh_launches"] = launch_counts(ops)["eigh"]
+    mark("pose")
+
+    phase_s = time.perf_counter() - t0
+    if phase_s > TRAINED_PHASE_S:
+        failed.append(f"trained phase took {phase_s:.1f} s > "
+                      f"{TRAINED_PHASE_S}")
+    total = collections.Counter(launches)
+    total.update(dense_launches)
+    fields = {"weights": {"oetr": ".ckpt_oetr_r5/params",
+                          "superpoint": ".ckpt_matching_r5/superpoint",
+                          "superglue": ".ckpt_matching_r5/superglue",
+                          "loftr": ".ckpt_loftr_r5/loftr"},
+              "stores": stores, "stage5": stage5, "forced_retry": forced,
+              "on_vs_off": on_off,
+              "oetr_f32_card_vs_cpu": vs_cpu, "dense": dense_fields,
+              "loftr_gate": gate, "pose": poses, "split_s": split,
+              "trained_phase_s": phase_s, "failures": failed}
+    return fields, dict(total)
 
 
 # -------------------------------------------------------------------- sfm --
@@ -4984,14 +5436,14 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     kind = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
+    # One query; its first two fields are the line that
+    # ``--query-gpu=name,power.limit --format=csv,noheader`` prints.
+    query = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit,clocks.max.sm",
          "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=30, check=True).stdout.strip().splitlines()[0]
-    sm_mhz = float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm",
-         "--format=csv,noheader,nounits"], capture_output=True, text=True,
-        timeout=30, check=True).stdout.strip().splitlines()[0])
+        timeout=30, check=True).stdout.strip().splitlines()[0].split(", ")
+    smi = ", ".join(query[:2])
+    sm_mhz = float(query[2].split()[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     sfu_per_s = SFU_PER_CLK_PER_SM * sms * sm_mhz * 1e6
     phase("device", name=kind, nvidia_smi=smi,
@@ -5130,16 +5582,15 @@ def main() -> int:
     phase("dense_retry", **retry)
     torch.cuda.empty_cache()
 
-    # Path 7, the scene generator and bench stage 5's pattern on its pairs.
-    fields, scenes = run_scenes(torch, port, ops, SCENE_PAIRS)
-    phase("scenes", **fields)
+    # Path 7, the scene generator (stage 5's pattern on its pairs is the
+    # trained phase's).
+    phase("scenes", **run_scenes(torch, port, SCENE_PAIRS))
 
     # Path 8, two-view pose: the estimator on general and planar scenes,
-    # the card against the CPU, then the scenes' matches scored.
-    fields, eigh_row = run_pose(torch, port, ops, scenes)
+    # the card against the CPU.
+    fields, eigh_row = run_pose(torch, port, ops)
     phase("pose", **fields)
     failed = [f"pose: {f}" for f in fields["failures"]]
-    del scenes
     torch.cuda.empty_cache()
 
     # Path 9, OETR training: the flagship's train step in f32 through K2
@@ -5159,10 +5610,19 @@ def main() -> int:
     # Path 10b, the trained-weights path: the committed matching stores
     # read by the port's own reader, build_shipped_model("superglue") with
     # K4 on trained scores, JAX's matcher gate, the card against the CPU.
-    fields, shipped_launches = run_shipped(torch, port, ops,
-                                           zstd.decoder_record())
+    fields, shipped_launches, matching = run_shipped(
+        torch, port, ops, zstd.decoder_record())
     phase("shipped", **fields)
     failed += [f"shipped: {f}" for f in fields["failures"]]
+    torch.cuda.empty_cache()
+
+    # Path 10c, the all-trained main path: bench stage 5 with the trained
+    # OETR (K2, K3), SuperPoint and SuperGlue (K4) in bf16, the trained
+    # dense pipeline, JAX's LoFTR gate and stage 5's matches scored.
+    fields, trained_launches = run_trained(torch, port, ops, matching)
+    phase("trained", **fields)
+    failed += [f"trained: {f}" for f in fields["failures"]]
+    del matching
     torch.cuda.empty_cache()
 
     # Path 11, reconstruction: the SfM demo's rig (per-edge pose, the chain,
@@ -5239,6 +5699,7 @@ def main() -> int:
                                      ("train", train_launches[name]),
                                      ("api", api_launches[name]),
                                      ("shipped", shipped_launches[name]),
+                                     ("trained", trained_launches[name]),
                                      ("demos", demo_launches[name]),
                                      ("variants", variant_launches[name]),
                                      ("multi", multi_launches[name]))

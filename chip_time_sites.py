@@ -27,7 +27,10 @@ import chip_smoke as cs  # noqa: E402
 HELPERS = ("time_ms", "device_ms", "traced_stats", "pairs_per_s",
            "traced_launches", "card_vs_cpu", "trace_calls", "api_case",
            "api_vs_cpu", "api_matcher_vs_cpu", "pose_case", "eigh_by_shape",
-           "mt_row", "demo_timing", "recorded_kernel_errors")
+           "mt_row", "demo_timing", "recorded_kernel_errors",
+           "trained_stores", "timed_calls",
+           "trained_on_vs_off", "trained_card_vs_cpu", "loftr_gate",
+           "score_matches")
 
 
 def main() -> int:

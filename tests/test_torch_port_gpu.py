@@ -61,7 +61,11 @@ following FSDP's gathers) against one process at 160² under cuDNN's
 deterministic algorithms and at 64² under its defaults, ring attention.
 For the demo programs: one step of each train phase (train_demo's OETR
 with K2 and K3, train_matching_demo's SuperPoint and SuperGlue,
-train_loftr_demo's LoFTR) on the card against the CPU.
+train_loftr_demo's LoFTR) on the card against the CPU. For the all-trained
+path (the committed OETR, SuperPoint and SuperGlue at 256²): every K2 and
+K3 call of the trained OETR in bf16 against its plain version, the f32
+OETR on the card against the CPU, and stage 5 with every switch on
+against off.
 """
 import json
 
@@ -2325,3 +2329,79 @@ def test_demo_train_step_card_vs_cpu(cuda, name):
         firm = ((g > max(0.1 * g.max().item(), 1e-6))
                 & (g > 10 * (card_g[k] - p.grad).abs()))
         assert (diff[firm] <= 0.1 * lr).all(), k
+
+
+# ------------------------------------------------- the all-trained path ----
+
+def _trained_trees():
+    from oetr_tpu_torch.pipelines.api import shipped_tree
+
+    return {n: shipped_tree(n) for n in ("oetr", "superpoint", "superglue")}
+
+
+def _trained_stage5(cuda, monkeypatch, trees):
+    """chip_smoke.py's stage 5 at 256² (canvas and OETR copies) on 2 scene
+    pairs from the card's generator, every switch on: (models, first pass,
+    its SuperGlue matches, the arguments)."""
+    import chip_smoke
+
+    monkeypatch.setattr(chip_smoke, "CANVAS_HW", 256)
+    monkeypatch.setattr(chip_smoke, "IMAGE_HW", 256)
+    models = chip_smoke.stage5_models(torch, port, trees, "bfloat16",
+                                      device=cuda)
+    cap = chip_smoke.Capture(models[2])
+    pipe = chip_smoke.pipeline(port, models, cap, 30)
+    args, _ = chip_smoke.scene_inputs(2, seed=7)
+    with torch.inference_mode():
+        first = pipe._run(*args, use_overlap=True)
+    return models, first, cap.last["matches0"], args
+
+
+def test_trained_oetr_kernel_calls_match_plain(cuda, monkeypatch):
+    """The trained flagship OETR in bf16 on the card at 256², inside stage
+    5's first pass: K2 16 calls and K3 1, every call's output against its
+    plain version on the same inputs at the kernel checks' bounds."""
+    import chip_smoke
+
+    trees = _trained_trees()
+    models, _, _, args = _trained_stage5(cuda, monkeypatch, trees)
+    with torch.inference_mode(), chip_smoke.recorded_kernel_calls() as calls:
+        models[0](args[4], args[5])
+    errs = chip_smoke.recorded_kernel_errors(torch, ops, calls, "trained")
+    print(json.dumps(errs))
+    assert {k: v["calls"] for k, v in errs.items()} == {
+        "linear_encoder_attention": 16, "groupnorm_relu_maxpool": 1}
+
+
+def test_trained_oetr_f32_card_matches_cpu(cuda, monkeypatch):
+    """The trained OETR in f32 (TF32 off) on the card against the port on
+    the CPU on 2 scene pairs of 256², at chip_smoke.py's trained-phase
+    bounds, beside the CPU's own spread under a one-ulp nudge."""
+    import chip_smoke
+    from oetr_tpu_torch.interop import convert_flax_params
+
+    trees = _trained_trees()
+    _, _, _, args = _trained_stage5(cuda, monkeypatch, trees)
+    cfg = port.oetr_r50_kernels_config("float32")
+    card = port.build_oetr(cfg, device=cuda)
+    card.load_state_dict(convert_flax_params(trees["oetr"], cfg))
+    fields, failed = chip_smoke.trained_card_vs_cpu(torch, port, card,
+                                                    args[4], args[5])
+    print(json.dumps(fields))
+    assert not failed, failed
+
+
+def test_trained_stage5_switches_on_vs_off(cuda, monkeypatch):
+    """Stage 5 with the trained weights on 2 pairs of 256², every switch on
+    against off: OETR's boxes within the bf16 16 px, used_overlap equal,
+    and matches0 at 0.2 equal on >= 99% of the valid keypoints where both
+    first passes cropped the same boxes."""
+    import chip_smoke
+
+    trees = _trained_trees()
+    models, first, m0, args = _trained_stage5(cuda, monkeypatch, trees)
+    fields, failed = chip_smoke.trained_on_vs_off(torch, port, trees,
+                                                  models, first, m0, args)
+    print(json.dumps(fields))
+    assert not failed, failed
+    assert fields["pairs_same_crops"] >= 1
