@@ -80,8 +80,14 @@ paths with seeded random weights:
     plain version; the losses, gradient norm and gradients of a step with
     the kernels on against off (dropout off); a step with every loss
     switch on; ms a step, pairs/s, peak memory, traced K2 and K3 launches
-    and device -> host copies (none) a step; and a checkpoint resumed to
-    the same bits;
+    and device -> host copies (none) a step; and a checkpoint in JAX's
+    orbax ``TrainState`` layout (its bytes, the seconds to write and to
+    read, its ``_METADATA``'s OCDBT and zarr v2 flags, its tree held to
+    optax AdamW's layout by ``load_checkpoint``) resumed to the
+    same bits; ``export_params`` on it (the params store equal to the
+    model); and ``probe_heatmap_boxes``'s box half on the read-back state
+    (8 generator pairs at 640², K2 16 and K3 1, each call against its
+    plain version; mIoU rows against the generator's GT boxes);
   * ``api``: the public matching API (``build_model``, ``get_matches``'s
     helper below the image decode, ``get_pose``) at 832x832 canvases and
     640x640 OETR passes, one pair a call, f32, seeded weights: SuperPoint +
@@ -160,8 +166,10 @@ paths with seeded random weights:
     with the fused stem (K3) and ``'linear:cuda'`` (K2), its recall table
     before and after on 8 pairs; ``train_matching_demo --device_data``:
     SuperPoint (corner teacher, 32 x 128²), SuperGlue on its keypoints (8
-    pairs x 512 at 256², its batch made on the card), its ``evaluate`` on
-    8 pairs with K4 on (the SIFT rows need cv2: not run); and
+    pairs x 512 at 256², its batch made on the card), its segment state
+    written in JAX's orbax layout and read back into a fresh SuperGlue
+    (bit-equal), whose ``evaluate`` runs 8 pairs with K4 on (the SIFT rows
+    need cv2: not run); and
     ``train_loftr_demo``'s LoFTR (fine loss, 4 pairs of 256²) with its
     ``loftr`` row: ms a step, peak memory, a traced step (no device -> host
     copy), each program's JSON fields, and every K2, K3 and K4 call of the
@@ -2245,8 +2253,13 @@ def run_train(torch, port, ops):
     and K3's CUDA launches a step, device -> host copies (none), busy ms
     by kind of kernel, idle share. (1), (2), (3) and (5) use cuDNN's
     deterministic algorithms. (5) A
-    checkpoint saved after step 2 and loaded into a fresh state: its step 3
-    equals the uninterrupted step 3, bit for bit. Every loss finite."""
+    checkpoint saved after step 2, in JAX's orbax TrainState layout, and
+    loaded into a fresh state: its step 3 equals the uninterrupted step 3,
+    bit for bit; the bytes and the seconds to write and to read; then
+    ``export_params`` on its directory (the params store read back equal
+    to the loaded model) and ``probe_heatmap_boxes``'s box half on the
+    read-back state (``probe_state``). Every loss finite. Returns (fields,
+    the main path's launches, the probe's launches)."""
     import tempfile
 
     from oetr_tpu_torch.training import (create_train_state,
@@ -2395,26 +2408,122 @@ def run_train(torch, port, ops):
         return step(st, batches[i], gen(90 + i))[0]
 
     a = fresh(cfg_on, 3)
-    for i in range(3):
-        a = run(a, i)
-    bst = fresh(cfg_on, 3)
     for i in range(2):
-        bst = run(bst, i)
+        a = run(a, i)
     with tempfile.TemporaryDirectory() as tmp:
-        save_checkpoint(tmp, bst)
-        del bst
-        c = run(load_checkpoint(tmp, 2, fresh(cfg_on, 4)), 2)
-    sa, sc = a.model.state_dict(), c.model.state_dict()
-    equal = all(torch.equal(sa[k], sc[k]) for k in sa)
-    diff = max((sa[k] - sc[k]).abs().max().item() for k in sa)
-    if not (equal and a.step == c.step == 3):
-        raise AssertionError(f"train resume: bit-equal {equal}, max diff "
-                             f"{diff}, steps {a.step} / {c.step}")
-    fields["resume"] = {"saved_at_step": 2, "compared_at_step": 3,
-                        "bit_equal": equal, "max_abs_diff": diff}
-    del a, c, sa, sc
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = save_checkpoint(tmp, a)
+        write_s = time.perf_counter() - t0
+        a = run(a, 2)                     # the uninterrupted step 3
+        layout = jax_layout(path)
+        t0 = time.perf_counter()
+        loaded = load_checkpoint(tmp, 2, fresh(cfg_on, 4))
+        torch.cuda.synchronize()
+        read_s = time.perf_counter() - t0
+        saved = {k: v.clone() for k, v in loaded.model.state_dict().items()}
+        c = run(loaded, 2)
+        sa, sc = a.model.state_dict(), c.model.state_dict()
+        equal = all(torch.equal(sa[k], sc[k]) for k in sa)
+        diff = max((sa[k] - sc[k]).abs().max().item() for k in sa)
+        if not (equal and a.step == c.step == 3):
+            raise AssertionError(f"train resume: bit-equal {equal}, max "
+                                 f"diff {diff}, steps {a.step} / {c.step}")
+        # load_checkpoint held the tree to optax AdamW's layout.
+        fields["resume"] = {"layout": "JAX's orbax TrainState", **layout,
+                            "write_s": write_s, "read_s": read_s,
+                            "saved_at_step": 2, "compared_at_step": 3,
+                            "bit_equal": equal, "max_abs_diff": diff}
+        del a, c, sa, sc, loaded
+        fields["export_params"], fields["probe"], probe_launches = \
+            probe_state(torch, port, ops, tmp, saved, cfg_on, batches[0],
+                        want)
     torch.cuda.empty_cache()
-    return fields, launches
+    return fields, launches, probe_launches
+
+
+def jax_layout(path):
+    """What a checkpoint directory holds: its bytes and files, and the
+    ``_METADATA`` flags of JAX's orbax layout (OCDBT on, zarr v2); raises
+    where they are others. Its tree's optax AdamW layout is
+    ``load_checkpoint``'s check (``train.ADAMW_LAYOUT``)."""
+    from pathlib import Path
+
+    meta = json.loads((Path(path) / "_METADATA").read_text())
+    checks = {"use_ocdbt": meta.get("use_ocdbt") is True,
+              "zarr2": meta.get("use_zarr3") is False}
+    if not all(checks.values()):
+        raise AssertionError(f"checkpoint layout {path}: {checks}")
+    files = [f for f in Path(path).rglob("*") if f.is_file()]
+    return {"bytes": sum(f.stat().st_size for f in files),
+            "files": len(files), "leaves": len(meta["tree_metadata"]),
+            "metadata": checks}
+
+
+def probe_state(torch, port, ops, ckpt_dir, saved, cfg, raw, want):
+    """On a flagship train state in JAX's layout (``{ckpt_dir}/step_2``,
+    ``saved`` its model's tensors): ``export_params`` and its store read
+    back equal to the model; then ``probe_heatmap_boxes``'s box half: the
+    state read into the probe's model (K2 and K3 on, f32), its forward on
+    the 8 pairs of ``raw`` with the launch counts read around it (K2 16,
+    K3 1; each call against its plain version), the mIoU rows against
+    their GT boxes. Returns (export fields, probe fields, launches)."""
+    import os
+    from pathlib import Path
+
+    import numpy as np
+
+    from oetr_tpu_torch.interop import convert_flax_params, read_checkpoint
+    from oetr_tpu_torch.scripts import export_params
+    from oetr_tpu_torch.scripts import probe_heatmap_boxes as probe
+
+    out_dir = os.path.join(ckpt_dir, "export")
+    t0 = time.perf_counter()
+    step, store, n = export_params.export(
+        ckpt_dir, out_dir, export_params.parse_args([ckpt_dir, out_dir]))
+    export_s = time.perf_counter() - t0
+    exported = convert_flax_params(read_checkpoint(store), cfg)
+    equal = sorted(exported) == sorted(saved) and all(
+        torch.equal(exported[k], saved[k].cpu()) for k in saved)
+    if not (equal and step == 2):
+        raise AssertionError(f"export_params: step {step}, store equal to "
+                             f"the model {equal}")
+    export = {"step": step, "params": n, "seconds": export_s,
+              "store_bytes": sum(f.stat().st_size for f in
+                                 Path(store).rglob("*") if f.is_file()),
+              "equal_to_model": equal}
+
+    t0 = time.perf_counter()
+    args = probe.parse_args(["--ckpt_dir", ckpt_dir, "--step", "2",
+                             "--data_dir", ckpt_dir, "--hw", str(IMAGE_HW),
+                             "--depth", "50", "--d_model", "256",
+                             "--layers", "4", "--device", DEV])
+    model = probe.load_model(args, DEV)
+    load_s = time.perf_counter() - t0
+    state = model.state_dict()
+    if not all(torch.equal(state[k], saved[k]) for k in saved):
+        raise AssertionError("probe: the model read back differs from the "
+                             "state saved")
+    img1, img2 = (raw[k].cpu().numpy() for k in ("image1", "image2"))
+    gt1, gt2 = (raw[k].cpu().numpy().astype(np.float64)
+                for k in ("overlap_box1", "overlap_box2"))
+    reset_counts(ops)
+    with recorded_kernel_calls() as calls:
+        out = probe.forward(model, img1, img2)
+        torch.cuda.synchronize()
+    launches = launch_counts(ops)
+    if launches != want:
+        raise AssertionError(f"probe launches {launches} != {want}")
+    with torch.no_grad():
+        checks = recorded_kernel_errors(torch, ops, calls, "probe")
+    rows, best_q, best = probe.box_rows(out, gt1, gt2, IMAGE_HW)
+    if not all(np.isfinite(v) for r in rows.values() for v in r.values()):
+        raise AssertionError(f"probe rows not finite: {rows}")
+    return export, {"pairs": len(img1), "image_hw": IMAGE_HW,
+                    "dtype": "float32", "load_s": load_s,
+                    "launches": {k: n for k, n in launches.items() if n},
+                    "kernels_vs_plain": checks, "best_q": best_q,
+                    "best_miou": best, "rows": rows}, launches
 
 
 
@@ -4019,6 +4128,10 @@ SFM_REPROJ_PX = 0.05
 BAL_CAMS, BAL_POINTS, BAL_OBS = 16, 22106, 83718
 BAL_ITERS, BAL_CG_ITERS, BAL_HUBER = 15, 40, 4.0
 SFM_REPS = 2
+# The traced call's LM steps: a trace of all 15 (~31k launches) took ~15 s
+# of host time to read. Its fields are a 3-step call's; ``ba_trace_steps.py``
+# holds them against a traced 15-step call's.
+BAL_TRACE_ITERS = 3
 # The CPU's BA runs in a child process beside part (a), on 4 of the
 # machine's 8 cores (its index_add_s slow down with more threads).
 CPU_BA_THREADS = 4
@@ -4268,9 +4381,10 @@ def cpu_ba_result(torch, child, path):
 
 def run_sfm_bal(torch):
     """Part (b) on the card: ``bundle_adjust`` at Dubrovnik-16's counts:
-    ms a call and a step, traced busy ms, idle share, launches and device
-    -> host copies (none allowed) a call, peak memory, a second run against
-    the first. Returns (fields, the first run's result, the problem's true
+    ms a call and a step, and from a traced call of BAL_TRACE_ITERS LM
+    steps busy ms, idle share, launches and device -> host copies (none
+    allowed) a call and a step; peak memory, a second run against the
+    first. Returns (fields, the first run's result, the problem's true
     cameras and initial ones)."""
     from oetr_tpu_torch.sfm import bundle_adjust
 
@@ -4285,7 +4399,9 @@ def run_sfm_bal(torch):
     peak = torch.cuda.max_memory_allocated()
     again = call()                      # the second
     ms = time_ms(torch, call, reps=SFM_REPS, warmup=0)
-    stats = traced_stats(torch, call, reps=1, warmup=0, cpu=False)
+    stats = traced_stats(torch, lambda: bundle_adjust(
+        *on_card, **dict(kw, iters=BAL_TRACE_ITERS)), reps=1, warmup=0,
+        cpu=False)
     if stats["dtoh_copies_per_call"] != 0:
         raise AssertionError(f"bundle_adjust: device -> host copies {stats}")
     fields = {
@@ -4296,10 +4412,15 @@ def run_sfm_bal(torch):
         "ms_per_call": ms, "ms_per_lm_step": ms / BAL_ITERS,
         "timing": f"median of {SFM_REPS} CUDA-event calls after 2 "
                   f"warm-ups",
-        **{k: stats[k] for k in ("wall_ms", "device_busy_ms", "idle_share",
-                                 "launches_per_call", "dtoh_copies_per_call",
-                                 "device_ms_by_category")},
-        "launches_per_lm_step": stats["launches_per_call"] / BAL_ITERS,
+        f"traced_call_{BAL_TRACE_ITERS}_lm_steps": {
+            k: stats[k] for k in ("wall_ms", "device_busy_ms", "idle_share",
+                                  "launches_per_call",
+                                  "dtoh_copies_per_call",
+                                  "device_ms_by_category")},
+        f"busy_ms_per_lm_step_of_{BAL_TRACE_ITERS}": stats["device_busy_ms"]
+        / BAL_TRACE_ITERS,
+        f"launches_per_lm_step_of_{BAL_TRACE_ITERS}":
+        stats["launches_per_call"] / BAL_TRACE_ITERS,
         "peak_memory_bytes": peak,
         "card_vs_card_cams_max_abs": float(
             (card["cams"] - again["cams"]).abs().max())}
@@ -4929,6 +5050,45 @@ def finite_metrics(metrics) -> dict:
     return {k: v.item() for k, v in metrics.items()}
 
 
+def demo_state_round_trip(torch, md, common, args, sg, opt, sched, step):
+    """The matching demo's SuperGlue segment state written in JAX's orbax
+    layout (``common.saver``) and read (``common.restore``) into a fresh
+    SuperGlue and optimizer: (the fresh SuperGlue, fields). Raises unless
+    the parameters, Adam's moments and steps, the schedule and the step
+    come back bit-equal."""
+    import os
+    import tempfile
+    from pathlib import Path
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "superglue_state")
+        t0 = time.perf_counter()
+        common.saver(path, sg, opt, sched)(step)
+        write_s = time.perf_counter() - t0
+        nbytes = sum(f.stat().st_size for f in Path(path).rglob("*")
+                     if f.is_file())
+        back = md.build_sg(args, DEV, torch.Generator().manual_seed(12))
+        opt2, sched2 = common.adam(back, args.sg_lr, args.sg_steps)
+        t0 = time.perf_counter()
+        got = common.restore(path, back, opt2, sched2)
+        torch.cuda.synchronize()
+        read_s = time.perf_counter() - t0
+    mine = dict(sg.named_parameters())
+    same = got == step and sched2.count == sched.count
+    for name, p in back.named_parameters():
+        a, b = opt2.state[p], opt.state[mine[name]]
+        same &= torch.equal(p, mine[name]) and all(
+            torch.equal(a[k], b[k]) for k in ("step", "exp_avg",
+                                               "exp_avg_sq"))
+    if not same:
+        raise AssertionError("demos: SuperGlue's segment state read back "
+                             "differs from the state written")
+    return back, {"layout": "JAX's orbax (EmptyState, (ScaleByAdamState, "
+                  "ScaleByScheduleState))", "bytes": nbytes,
+                  "write_s": write_s, "read_s": read_s, "step": got,
+                  "bit_equal": same}
+
+
 def run_demos(torch, port, ops, launches):
     """The demo programs (``python -m oetr_tpu_torch.scripts.*``) on the
     card, f32, seeded weights, through their own phase functions on the
@@ -5036,6 +5196,10 @@ def run_demos(torch, port, ops, launches):
 
         sg_step()
         sg_timing = demo_timing(torch, sg_step)
+        # Its segment state in JAX's layout, read back into a fresh
+        # SuperGlue and optimizer: what the evaluate below runs.
+        sg, sg_state = demo_state_round_trip(torch, md, common, args, sg,
+                                             opt, sched, len(sg_metrics))
         sg.eval()
         sg.cuda_sinkhorn = True
         k4_before = ops.log_sinkhorn_cuda.launches
@@ -5055,7 +5219,8 @@ def run_demos(torch, port, ops, launches):
                "superpoint": {"metrics_step1": finite_metrics(
                    sp_metrics[0]), **sp_timing},
                "superglue": {"metrics_step1": finite_metrics(
-                   sg_metrics[0]), **sg_timing},
+                   sg_metrics[0]), **sg_timing,
+                   "segment_state": sg_state},
                "json": {**fields, "sift_nn": "not run: needs cv2",
                         "repeatability@3px": dict(
                             fields["repeatability@3px"],
@@ -5594,8 +5759,9 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # Path 9, OETR training: the flagship's train step in f32 through K2
-    # and K3 (their backward: autograd of the plain functions).
-    fields, train_launches = run_train(torch, port, ops)
+    # and K3 (their backward: autograd of the plain functions), its state
+    # in JAX's layout; then the probe's box half on that state (path 9b).
+    fields, train_launches, probe_launches = run_train(torch, port, ops)
     phase("train", **fields)
     torch.cuda.empty_cache()
 
@@ -5697,6 +5863,7 @@ def main() -> int:
         by_path = {p: n for p, n in ((path, launches[name]),
                                      ("dense", dense_launches[name]),
                                      ("train", train_launches[name]),
+                                     ("probe", probe_launches[name]),
                                      ("api", api_launches[name]),
                                      ("shipped", shipped_launches[name]),
                                      ("trained", trained_launches[name]),

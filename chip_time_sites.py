@@ -30,7 +30,7 @@ HELPERS = ("time_ms", "device_ms", "traced_stats", "pairs_per_s",
            "mt_row", "demo_timing", "recorded_kernel_errors",
            "trained_stores", "timed_calls",
            "trained_on_vs_off", "trained_card_vs_cpu", "loftr_gate",
-           "score_matches")
+           "score_matches", "probe_state", "demo_state_round_trip")
 
 
 def main() -> int:

@@ -7,6 +7,12 @@ conv ``kernel`` HWIO -> ``weight`` OIHW, Dense ``kernel`` [in, out] ->
 ``weight``, ``bias``, FrozenBatchNorm's ``mean`` and ``var``,
 ``query_embed1/2`` and SuperGlue's scalar ``bin_score`` as they are. The fused kernels' modules use the plain branches' names, so one map
 serves both switches. Every leaf is used once and every parameter set.
+
+``to_flax(state, model)`` is the inverse: the port's state_dict (or any
+tree of tensors keyed by its parameter names, e.g. Adam's moments) -> the
+flax tree, each leaf's kind read from the module that owns it (``Conv``,
+``Dense``, a norm), so ``to_flax(convert_flax_params(p, cfg),
+build_oetr(cfg, device="meta")) == p`` bit for bit.
 """
 from __future__ import annotations
 
@@ -21,9 +27,11 @@ from ..models.cotr import build_cotr
 from ..models.d2net import build_d2net
 from ..models.disk import build_disk
 from ..models.fcos import build_fcos_head
+from ..models.layers import Conv, Dense, GroupNorm, LayerNorm
 from ..models.loftr import build_loftr
 from ..models.oetr import PatchEmbed, build_oetr
 from ..models.r2d2 import build_r2d2
+from ..models.resnet import FrozenBatchNorm, FusedGNPool
 from ..models.sift_based import build_contextdesc, build_contextdesc_augmenter
 from ..models.superglue import build_superglue
 from ..models.superpoint import build_superpoint, build_superpoint_net
@@ -58,11 +66,12 @@ def _convert_leaf(path: tuple[str, ...], arr: np.ndarray):
 
 
 def _float32_cpu(arr) -> torch.Tensor:
-    if isinstance(arr, torch.Tensor):
-        return arr.detach().to(device="cpu", dtype=torch.float32).clone()
-    # (ascontiguousarray makes a 0-d leaf 1-d: reshape it back)
-    return torch.tensor(np.ascontiguousarray(arr).reshape(arr.shape),
-                        dtype=torch.float32)
+    """A contiguous float32 CPU copy (torch's copy: threaded)."""
+    if not isinstance(arr, torch.Tensor):
+        arr = np.asarray(arr)
+        arr = torch.from_numpy(arr if arr.flags.writeable else arr.copy())
+    return arr.detach().to(device="cpu", dtype=torch.float32, copy=True,
+                           memory_format=torch.contiguous_format)
 
 
 def checked_state(items, model) -> dict:
@@ -100,6 +109,13 @@ def _state_dict(tree: Mapping, model) -> dict:
 
 def _unwrap(params: Mapping) -> Mapping:
     return params["params"] if "params" in params else params
+
+
+def flax_state_dict(tree: Mapping, model) -> dict:
+    """The strict state_dict of ``model`` (any port module; the meta device
+    will do) from its flax tree, with or without the ``"params"`` key:
+    float32 CPU tensors. Raises as ``convert_flax_params`` does."""
+    return _state_dict(_unwrap(tree), model)
 
 
 def convert_flax_params(params: Mapping, cfg: OETRConfig) -> dict:
@@ -194,3 +210,60 @@ def _module_converter(cls):
 convert_patchembed_params = _module_converter(PatchEmbed)
 convert_channelattention_params = _module_converter(ChannelAttention)
 convert_spatialattention_params = _module_converter(SpatialAttention)
+
+
+# ------------------------------------------------------- port -> flax --
+
+_NORMS = (LayerNorm, GroupNorm, FrozenBatchNorm, FusedGNPool)
+
+
+def _flax_leaf(module, name: str, leaf: str, arr: torch.Tensor):
+    """(flax leaf name, tensor view) of parameter ``leaf`` of ``module``."""
+    if leaf == "weight" and isinstance(module, Conv) and arr.ndim == 4:
+        return "kernel", arr.permute(2, 3, 1, 0)
+    if leaf == "weight" and isinstance(module, Dense) and arr.ndim == 2:
+        return "kernel", arr.t()
+    if leaf == "weight" and isinstance(module, _NORMS):
+        return "scale", arr
+    if leaf == "bias" or (leaf in ("mean", "var")
+                          and isinstance(module, FrozenBatchNorm)) \
+            or (leaf,) in _AS_IS and "." not in name:
+        return leaf, arr
+    raise KeyError(f"port parameter {name} {tuple(arr.shape)} of "
+                   f"{type(module).__name__}: no rule maps it to a flax leaf")
+
+
+def to_flax(state, model, wrap: bool = True) -> dict:
+    """The flax tree of ``state`` ({port parameter name: tensor or array})
+    for ``model`` (any port module; the meta device will do): float32
+    numpy leaves under ``{"params": ...}`` (the bare tree with ``wrap``
+    False). Every parameter of ``model`` must be in ``state`` exactly
+    once: raises KeyError on a name the model lacks or a parameter left
+    out, ValueError on a shape mismatch."""
+    owners = {}
+    for mname, module in model.named_modules():
+        for leaf, p in module.named_parameters(recurse=False):
+            name = f"{mname}.{leaf}" if mname else leaf
+            owners[name] = (module, leaf, tuple(p.shape))
+    tree: dict = {}
+    for name, t in state.items():
+        if name not in owners:
+            raise KeyError(f"{name} is not a parameter of the port's "
+                           f"{type(model).__name__}")
+        module, leaf, shape = owners[name]
+        if hasattr(t, "full_tensor"):           # a DTensor: the whole one
+            t = t.full_tensor()
+        t = t if isinstance(t, torch.Tensor) else torch.from_numpy(
+            np.array(t, np.float32))
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: {tuple(t.shape)} given, the port's "
+                             f"model has {shape}")
+        key, view = _flax_leaf(module, name, leaf, t.detach())
+        node = tree
+        for part in name.split(".")[:-1]:
+            node = node.setdefault(part, {})
+        node[key] = _float32_cpu(view).numpy()
+    missing = sorted(set(owners) - set(state))
+    if missing:
+        raise KeyError(f"port parameters missing from the state: {missing}")
+    return {"params": tree} if wrap else tree

@@ -20,16 +20,28 @@ compressed here; zarr compressed them (``interop/orbax_read.py``).
 
 ``OcdbtStore(path).keys()`` lists every key in order and ``.read(key)``
 returns a value's bytes. Malformed input raises ValueError.
+
+``write_store(path, items)`` writes a one-version database of its own: the
+manifest, one data file ``d/<hex>`` with the values longer than
+``MAX_INLINE_VALUE_BYTES`` and then the B-tree's nodes, leaves first, each
+node at most ``MAX_DECODED_NODE_BYTES`` (a tree of interior nodes above the
+leaves where one node would pass it); the two are tensorstore's defaults,
+which the committed stores' manifests record. Every record is uncompressed
+(compression 0), since the port has no zstd encoder, and the manifest's
+config says so.
 """
 from __future__ import annotations
 
+import os
 import struct
+import time
 from pathlib import Path
 
 from . import zstd
 
 MANIFEST_MAGIC = 0x0CDB3A2A
 NODE_MAGIC = 0x0CDB20DE
+_NO_ROOT = 2 ** 64 - 1      # a version's root length where it has none
 
 
 class _Reader:
@@ -169,7 +181,7 @@ def parse_manifest(body: bytes) -> dict:
     fid, off, length, nkeys, ntree, nind = (r.varints(n) for _ in range(6))
     time = r.u64s(n)
     versions = [{"generation": gen[i], "root_height": height[i],
-                 "root": None if length[i] == 0 else
+                 "root": None if length[i] in (0, _NO_ROOT) else
                  (_file_id(r, files, fid[i]), off[i], length[i]),
                  "num_keys": nkeys[i], "num_tree_bytes": ntree[i],
                  "num_indirect_value_bytes": nind[i], "commit_time": time[i]}
@@ -204,20 +216,29 @@ class OcdbtStore:
             raise ValueError(f"{mpath}: no version")
         self.version = self.manifest["versions"][-1]
         self._index: dict[bytes, tuple] | None = None
+        self._files: dict[str, Path] = {}
 
     def _file(self, rel: str) -> Path:
-        p = (self.root / rel).resolve()
-        if self.root.resolve() not in p.parents:
-            raise ValueError(f"data file {rel} outside the database")
-        return p
+        if rel not in self._files:
+            p = (self.root / rel).resolve()
+            if self.root.resolve() not in p.parents:
+                raise ValueError(f"data file {rel} outside the database")
+            self._files[rel] = p
+        return self._files[rel]
 
-    def _bytes(self, rel: str, offset: int, length: int) -> bytes:
+    def _bytes(self, rel: str, offset: int, length: int, into=None):
+        """``length`` bytes at ``offset`` of a data file, or read into the
+        writable buffer ``into`` of that length."""
         with open(self._file(rel), "rb") as f:
             f.seek(offset)
-            data = f.read(length)
-        if len(data) != length:
+            if into is None:
+                data = f.read(length)
+                got = len(data)
+            else:
+                data, got = into, f.readinto(into)
+        if got != length:
             raise ValueError(f"{rel}: {length} bytes at {offset} wanted, "
-                             f"{len(data)} there")
+                             f"{got} there")
         return data
 
     def _walk(self, ref, height: int, prefix: bytes, out: dict):
@@ -277,12 +298,223 @@ class OcdbtStore:
         return (key.encode() if isinstance(key, str) else key) in \
             self._entries()
 
-    def read(self, key) -> bytes:
-        """The value of ``key`` (str or bytes); KeyError where absent."""
+    def _entry(self, key):
         k = key.encode() if isinstance(key, str) else bytes(key)
         entry = self._entries().get(k)
         if entry is None:
             raise KeyError(key)
+        return entry
+
+    def read(self, key) -> bytes:
+        """The value of ``key`` (str or bytes); KeyError where absent."""
+        entry = self._entry(key)
         if entry[0] == "inline":
             return entry[1]
         return self._bytes(*entry[1:])
+
+    def size(self, key) -> int:
+        """The length of ``key``'s value."""
+        entry = self._entry(key)
+        return len(entry[1]) if entry[0] == "inline" else entry[3]
+
+    def read_into(self, key, buf) -> None:
+        """The value of ``key`` into the writable buffer ``buf`` of its
+        length (``size(key)``)."""
+        entry = self._entry(key)
+        view = memoryview(buf).cast("B")
+        if len(view) != self.size(key):
+            raise ValueError(f"{key}: {self.size(key)} bytes, a buffer of "
+                             f"{len(view)}")
+        if entry[0] == "inline":
+            view[:] = entry[1]
+        else:
+            self._bytes(*entry[1:], into=view)
+
+
+# ----------------------------------------------------------------- writer --
+
+def _uvarint(n: int) -> bytes:
+    out = bytearray()
+    while True:
+        b = n & 0x7F
+        n >>= 7
+        if n:
+            out.append(b | 0x80)
+        else:
+            out.append(b)
+            return bytes(out)
+
+
+def _uvarints(values) -> bytes:
+    return b"".join(_uvarint(v) for v in values)
+
+
+def _common_prefix(a: bytes, b: bytes) -> int:
+    n = min(len(a), len(b))
+    i = 0
+    while i < n and a[i] == b[i]:
+        i += 1
+    return i
+
+
+def write_record(magic: int, body: bytes) -> bytes:
+    """A manifest or node record around ``body``: magic, length, format
+    version 0, compression 0, the body and its crc32c."""
+    head = _uvarint(0) + _uvarint(0)
+    length = 12 + len(head) + len(body) + 4
+    data = struct.pack(">I", magic) + struct.pack("<Q", length) + head + body
+    return data + struct.pack("<I", zstd.crc32c(data))
+
+
+def _file_table(paths: list[str]) -> bytes:
+    raw = [p.encode() for p in paths]
+    prefix = [_common_prefix(raw[i - 1], raw[i]) for i in range(1, len(raw))]
+    suffix = [raw[i][(prefix[i - 1] if i else 0):] for i in range(len(raw))]
+    return (_uvarint(len(raw)) + _uvarints(prefix)
+            + _uvarints(len(s) for s in suffix)
+            + _uvarints(0 for _ in raw) + b"".join(suffix))
+
+
+def _key_columns(keys: list[bytes], common: list[int] | None) -> bytes:
+    prefix = [_common_prefix(keys[i - 1], keys[i])
+              for i in range(1, len(keys))]
+    suffix = [keys[i][(prefix[i - 1] if i else 0):] for i in range(len(keys))]
+    out = _uvarint(len(keys)) + _uvarints(prefix) + _uvarints(
+        len(s) for s in suffix)
+    if common is not None:
+        out += _uvarints(common)
+    return out + b"".join(suffix)
+
+
+def _leaf_body(keys, entries, data_file: str) -> bytes:
+    """entries: ("inline", bytes) or ("file", offset, length)."""
+    indirect = [e for e in entries if e[0] == "file"]
+    body = bytes([0]) + _file_table([data_file] if indirect else [])
+    body += _key_columns(keys, None)
+    body += _uvarints(len(e[1]) if e[0] == "inline" else e[2]
+                      for e in entries)
+    body += bytes(int(e[0] == "file") for e in entries)
+    body += _uvarints(0 for _ in indirect) + _uvarints(e[1] for e in indirect)
+    return body + b"".join(bytes(e[1]) for e in entries
+                           if e[0] == "inline")
+
+
+def _interior_body(height, keys, common, children, data_file) -> bytes:
+    """children: (offset, length, num_keys, tree_bytes, indirect_bytes)."""
+    body = bytes([height]) + _file_table([data_file])
+    body += _key_columns(keys, common)
+    body += _uvarints(0 for _ in children)
+    for col in range(5):
+        body += _uvarints(c[col] for c in children)
+    return body
+
+
+def _groups(costs: list[int], limit: int) -> list[tuple[int, int]]:
+    """Consecutive [start, stop) runs whose costs sum to at most ``limit``
+    (one entry at least each)."""
+    out, start, total = [], 0, 0
+    for i, c in enumerate(costs):
+        if i > start and total + c > limit:
+            out.append((start, i))
+            start, total = i, 0
+        total += c
+    out.append((start, len(costs)))
+    return out
+
+
+# Upper bound of a node's bytes besides its entries: header, height, a
+# one-file table with a 34-byte path, the count, the crc.
+_NODE_OVERHEAD = 80
+
+# The writer's config, as the manifest records it.
+MAX_INLINE_VALUE_BYTES = 1024
+MAX_DECODED_NODE_BYTES = 100_000_000
+
+
+def write_store(path, items) -> None:
+    """Write the OCDBT database of ``items`` ((key, value) pairs, keys str
+    or bytes, each once, values any bytes-like object) into the empty or
+    absent directory ``path``: one version, uncompressed records, values
+    above ``MAX_INLINE_VALUE_BYTES`` out of line. Raises ValueError on a
+    repeated key or on a node limit too small for one entry."""
+    max_inline_value_bytes = MAX_INLINE_VALUE_BYTES
+    max_decoded_node_bytes = MAX_DECODED_NODE_BYTES
+    root = Path(path)
+    pairs = sorted(((k.encode() if isinstance(k, str) else bytes(k),
+                     memoryview(v).cast("B")) for k, v in items),
+                   key=lambda kv: kv[0])
+    for a, b in zip(pairs, pairs[1:]):
+        if a[0] == b[0]:
+            raise ValueError(f"key {a[0]!r} given twice")
+    (root / "d").mkdir(parents=True, exist_ok=True)
+    data_file = f"d/{os.urandom(16).hex()}"
+    offset = indirect_bytes = tree_bytes = 0
+    with open(root / data_file, "wb") as f:
+        def put(blob: bytes) -> tuple[int, int]:
+            nonlocal offset
+            f.write(blob)
+            offset += len(blob)
+            return offset - len(blob), len(blob)
+
+        entries, costs = [], []
+        for key, value in pairs:
+            if len(value) > max_inline_value_bytes:
+                entries.append(("file", *put(value)))
+                indirect_bytes += len(value)
+                cost = len(key) + 40
+            else:
+                entries.append(("inline", value))
+                cost = len(key) + len(value) + 30
+            if cost + _NODE_OVERHEAD > max_decoded_node_bytes:
+                raise ValueError(f"max_decoded_node_bytes "
+                                 f"{max_decoded_node_bytes} cannot hold key "
+                                 f"{key!r}")
+            costs.append(cost)
+        keys = [k for k, _ in pairs]
+        limit = max_decoded_node_bytes - _NODE_OVERHEAD
+        # Each level: (first key, last key, the keys' common prefix, the
+        # node's offset, length and subtree statistics).
+        # A node's keys omit the prefix its parent's entry names; the
+        # root's keep theirs (the manifest names no prefix).
+        level, height = [], 0
+        groups = _groups(costs, limit) if pairs else []
+        for a, b in groups:
+            cp = (_common_prefix(keys[a], keys[b - 1]) if len(groups) > 1
+                  else 0)
+            body = _leaf_body([k[cp:] for k in keys[a:b]], entries[a:b],
+                              data_file)
+            ref = put(write_record(NODE_MAGIC, body))
+            tree_bytes += ref[1]
+            nind = sum(e[2] for e in entries[a:b] if e[0] == "file")
+            level.append((keys[a], keys[b - 1], cp,
+                          (*ref, b - a, ref[1], nind)))
+        while len(level) > 1:
+            height += 1
+            costs = [len(first) + 70 for first, *_ in level]
+            nxt = []
+            groups = _groups(costs, limit)
+            for a, b in groups:
+                group = level[a:b]
+                cp = (_common_prefix(group[0][0], group[-1][1])
+                      if len(groups) > 1 else 0)
+                body = _interior_body(
+                    height, [g[0][cp:] for g in group],
+                    [g[2] - cp for g in group], [g[3] for g in group],
+                    data_file)
+                ref = put(write_record(NODE_MAGIC, body))
+                tree_bytes += ref[1]
+                stats = [sum(g[3][i] for g in group) for i in (2, 3, 4)]
+                nxt.append((group[0][0], group[-1][1], cp,
+                            (*ref, stats[0], stats[1] + ref[1], stats[2])))
+            level = nxt
+        root_ref = level[0][3] if level else None
+    body = os.urandom(16) + _uvarint(0) + _uvarint(max_inline_value_bytes)
+    body += _uvarint(max_decoded_node_bytes) + bytes([4]) + _uvarint(0)
+    # (no root: tensorstore's empty path at offset and length 2^64 - 1)
+    body += _file_table([data_file] if root_ref else [""])
+    ref = root_ref or (_NO_ROOT, _NO_ROOT)
+    body += _uvarint(1) + _uvarint(1) + bytes([height])
+    body += _uvarints([0, ref[0], ref[1], len(pairs), tree_bytes,
+                       indirect_bytes])
+    body += struct.pack("<Q", time.time_ns()) + _uvarint(0)
+    (root / "manifest.ocdbt").write_bytes(write_record(MANIFEST_MAGIC, body))

@@ -9,11 +9,15 @@ under key ``params.conv1a.kernel/.zarray`` and each chunk under
 ``params.conv1a.kernel/<i>.<j>...`` (``0`` for a scalar). The chunks are
 zstd frames (``interop/zstd.py``).
 
-The result is the nested dict of numpy arrays that
-``orbax.checkpoint.StandardCheckpointer().restore(path, template)`` gives
-(as numpy), so ``interop/from_flax.py``'s converters take it as it is.
-A dtype, compressor, filter, key kind or layout this reader does not know
-raises ValueError rather than being guessed at.
+The result is the tree that
+``orbax.checkpoint.StandardCheckpointer().restore(path)`` gives (as
+numpy): mapping keys (orbax's ``key_type`` 2) as dicts, sequence indices
+(1: optax's state tuples) as lists, leaves saved as ``None`` (an optax
+``EmptyState``; ``value_type "None"``, ``skip_deserialize``) as ``None``,
+arrays as numpy arrays; so ``interop/from_flax.py``'s converters take its
+parameter trees as they are. A dtype, compressor, filter, key kind, value
+type or layout this reader does not know raises ValueError rather than
+being guessed at.
 """
 from __future__ import annotations
 
@@ -27,7 +31,7 @@ import numpy as np
 from . import zstd
 from .ocdbt import OcdbtStore
 
-_DICT_KEY = 2           # orbax's key_type of a mapping key
+_SEQUENCE_KEY, _DICT_KEY = 1, 2     # orbax's key_types
 _ARRAY_VALUES = ("jax.Array", "np.ndarray")
 
 
@@ -72,6 +76,11 @@ def read_array(store: OcdbtStore, name: str) -> np.ndarray:
 
     chunk_bytes = math.prod(chunks) * dtype.itemsize
     out = np.empty(shape, dtype)
+    one = f"{name}/{'.'.join('0' * len(shape)) or '0'}"
+    if (comp is None and order == "C" and chunks == shape
+            and one in store and store.size(one) == chunk_bytes):
+        store.read_into(one, out.reshape(-1).view(np.uint8))
+        return out         # one uncompressed chunk: read in place
     grid = [range(-(-s // c)) for s, c in zip(shape, chunks)]
     for idx in itertools.product(*grid):
         key = f"{name}/{'.'.join(map(str, idx)) if idx else '0'}"
@@ -90,9 +99,26 @@ def read_array(store: OcdbtStore, name: str) -> np.ndarray:
     return out
 
 
+def _lists(node):
+    """The tree with each node keyed by sequence indices as a list."""
+    if isinstance(node, _Seq):
+        if set(node) != {str(i) for i in range(len(node))}:
+            raise ValueError(f"sequence indices {sorted(node)} are not "
+                             f"0 .. {len(node) - 1}")
+        return [_lists(node[str(i)]) for i in range(len(node))]
+    if isinstance(node, dict):
+        return {k: _lists(node[k]) for k in sorted(node)}
+    return node
+
+
+class _Seq(dict):
+    """A node keyed by sequence indices, made a list at the end."""
+
+
 def read_checkpoint(path) -> dict:
     """The tree of an orbax checkpoint directory written with OCDBT and
-    zarr v2: nested dicts of numpy arrays, keyed as ``_METADATA`` says."""
+    zarr v2: nested dicts (and lists) of numpy arrays and ``None``, keyed
+    as ``_METADATA`` says."""
     path = Path(path)
     meta_path = path / "_METADATA"
     if not meta_path.is_file():
@@ -103,24 +129,39 @@ def read_checkpoint(path) -> dict:
     if not meta.get("use_ocdbt", False):
         raise ValueError(f"{path}: not an OCDBT checkpoint")
     store = OcdbtStore(path)
-    tree: dict = {}
+    tree = None
     for entry in meta["tree_metadata"].values():
         keys = entry["key_metadata"]
         value = entry["value_metadata"]
         where = f"{path}: leaf {[k['key'] for k in keys]}"
-        if any(k["key_type"] != _DICT_KEY for k in keys):
-            raise ValueError(f"{where}: only mapping keys are supported")
-        if value["value_type"] not in _ARRAY_VALUES or \
-                value.get("skip_deserialize"):
+        kinds = [k["key_type"] for k in keys]
+        if not keys or any(t not in (_SEQUENCE_KEY, _DICT_KEY)
+                           for t in kinds):
+            raise ValueError(f"{where}: key types {kinds}: only mapping "
+                             "keys and sequence indices are supported")
+        names = [str(k["key"]) for k in keys]
+        if value["value_type"] == "None" and value.get("skip_deserialize"):
+            arr = None
+        elif value["value_type"] in _ARRAY_VALUES and \
+                not value.get("skip_deserialize"):
+            arr = read_array(store, ".".join(names))
+            if list(arr.shape) != list(value.get("write_shape", arr.shape)):
+                raise ValueError(f"{where}: shape {arr.shape} differs from "
+                                 f"the metadata's {value['write_shape']}")
+        else:
             raise ValueError(f"{where}: value type {value['value_type']} "
                              "unknown")
-        names = [str(k["key"]) for k in keys]
-        arr = read_array(store, ".".join(names))
-        if list(arr.shape) != list(value.get("write_shape", arr.shape)):
-            raise ValueError(f"{where}: shape {arr.shape} differs from the "
-                             f"metadata's {value['write_shape']}")
+        if tree is None:
+            tree = _Seq() if kinds[0] == _SEQUENCE_KEY else {}
         node = tree
-        for k in names[:-1]:
-            node = node.setdefault(k, {})
+        for k, kind in zip([None, *names[:-1]], kinds):
+            if k is not None:
+                node = node.setdefault(k, _Seq() if kind == _SEQUENCE_KEY
+                                       else {})
+            if isinstance(node, _Seq) != (kind == _SEQUENCE_KEY):
+                raise ValueError(f"{where}: a node keyed both by mapping "
+                                 "keys and by sequence indices")
+        if names[-1] in node:
+            raise ValueError(f"{where}: given twice")
         node[names[-1]] = arr
-    return tree
+    return _lists({} if tree is None else tree)

@@ -26,7 +26,8 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 def sine_position_encoding(d_model: int, max_shape: tuple[int, int],
                            legacy: bool = True, device=None) -> torch.Tensor:
-    """2-D sine positional encoding table [H, W, C] (float32).
+    """2-D sine positional encoding table [H, W, C] (float32, contiguous:
+    a token grid of the table's whole size reaches K2 as it is).
 
     ``legacy=True`` keeps the reference's div_term expression, whose
     floor-division collapses the frequency spectrum:
@@ -48,7 +49,7 @@ def sine_position_encoding(d_model: int, max_shape: tuple[int, int],
     pe[1::4] = torch.cos(x_pos * div_term)
     pe[2::4] = torch.sin(y_pos * div_term)
     pe[3::4] = torch.cos(y_pos * div_term)
-    return pe.permute(1, 2, 0)
+    return pe.permute(1, 2, 0).contiguous()
 
 
 def detr_position_embedding(mask: torch.Tensor, d_model: int,

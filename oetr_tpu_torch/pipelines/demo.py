@@ -4,8 +4,9 @@ Usage:
   python -m oetr_tpu_torch.pipelines.demo --pairs pairs.txt --data /imgs \\
       --checkpoint ckpt_dir --step 0 --out viz/ [--device cpu]
 
-Loads an OETR checkpoint written by the port's trainer
-(``training/train.py::save_checkpoint``), predicts the overlap boxes of
+Loads an OETR train state, ``{checkpoint}/step_{step}`` in JAX's orbax
+layout as JAX's trainer or the port's writes it
+(``training/train.py::load_checkpoint``), predicts the overlap boxes of
 each pair and draws them (and the ground truth, when the pair line has
 it) side by side. Reading and drawing need cv2.
 """

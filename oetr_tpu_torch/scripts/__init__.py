@@ -14,11 +14,17 @@ asked), and prints the JSON line the JAX script prints:
   ``eval_demo``            SIFT -> NN -> RANSAC -> pose AUC
   ``overlap_ab_demo``      OETR on scale-difference pairs, then direct,
                            OETR-guided and GT-guided matching
+  ``probe_heatmap_boxes``  a trained state's boxes from the heat map
+                           against the tlbr head's (mIoU), ``--full`` the
+                           pose A/B
+  ``sweep_decode``         the heat-map decode's (q, pad) grid by pose AUC
+  ``export_params``        a full train state's params-only store
 
 Their phases are functions that take their weights and their items, so a
 caller can feed other weights or the on-device generator's pairs; ``main``
-only wires them together. Checkpoints are torch files (``--ckpt_dir``);
-the JAX scripts' orbax directories are not read. cv2 is needed for the
+only wires them together. Checkpoints (``--ckpt_dir``, ``step_N``) are
+JAX's orbax directories, read and written by the port's own code, so the
+port and the JAX scripts resume each other's runs. cv2 is needed for the
 host scene writer, the dataset reads, the host texture pairs and every
 SIFT row, as in JAX; where a chosen flag needs it and it is missing,
 ``main`` stops before any training with an ImportError naming cv2.

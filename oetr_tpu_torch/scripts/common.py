@@ -1,7 +1,15 @@
 """What the demo programs share: the log, the cv2 check, grayscale copies of
 a dataset item, the SIFT + NN row, the pose-AUC row with its bootstrap
-spread, per-step generators, the matching trainers' optimiser, state files
-that survive a kill and the segments that re-execute a program."""
+spread, per-step generators, the matching trainers' optimiser, states that
+survive a kill and the segments that re-execute a program.
+
+States are JAX's scripts' orbax directories (``interop.write_checkpoint``,
+``read_checkpoint``), so the port's demos and JAX's read each other's
+``--ckpt_dir``: a phase's final parameters are its flax tree (``{"params":
+...}``), its segment state ``{"params", "opt", "step"}`` with ``opt`` the
+state of optax's ``chain(clip_by_global_norm, adam(schedule))``:
+``(EmptyState(), (ScaleByAdamState(count, mu, nu),
+ScaleByScheduleState(count)))`` (``training/jax_state.py``)."""
 from __future__ import annotations
 
 import hashlib
@@ -12,9 +20,14 @@ import numpy as np
 import torch
 
 from ..evalx.metrics import pose_auc
+from ..interop.orbax_read import read_checkpoint
+from ..interop.orbax_write import write_checkpoint
 from ..evalx.twoview import validation_error
 from ..models.matchers import nearest_neighbor_match
 from ..models.sift_based import sift_keypoints
+from ..interop.from_flax import to_flax
+from ..training.jax_state import (adam_tree, check_layout, full_state_dicts,
+                                  load_adam, load_params)
 from ..training.optim import piecewise_constant_schedule
 from ..training.train import StepScheduler
 
@@ -140,30 +153,34 @@ def step_generator(base: int, it: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(step_seed(base, it))
 
 
-def save_state(path: str, **state) -> None:
-    """``torch.save(state)`` to ``path`` so that a kill at any point leaves
-    either the old or the new file: save to ``path.new``, move the old one
-    to ``path.old``, rename, then drop ``path.old``."""
-    new, old = path + ".new", path + ".old"
-    torch.save(state, new)
-    if os.path.exists(old):
-        os.remove(old)
-    if os.path.exists(path):
-        os.rename(path, old)
-    os.rename(new, path)
-    if os.path.exists(old):
-        os.remove(old)
-
-
 def load_state(path: str) -> dict | None:
-    """The state ``save_state`` wrote at ``path`` (recovered from
-    ``path.old`` after a kill between its renames), or None."""
+    """The tree ``write_checkpoint`` (or JAX's script) wrote at ``path``
+    (recovered from ``path.old`` after a kill between its renames), or
+    None."""
     if not os.path.exists(path) and os.path.exists(path + ".old"):
         log(f"recovering {os.path.basename(path)} from .old")
         os.rename(path + ".old", path)
     if not os.path.exists(path):
         return None
-    return torch.load(path, map_location="cpu", weights_only=True)
+    return read_checkpoint(path)
+
+
+def load_final(path: str | None, model) -> bool:
+    """Load the final parameters at ``path`` into ``model`` where they
+    exist."""
+    tree = load_state(path) if path else None
+    if tree is None:
+        return False
+    log(f"restoring {os.path.basename(path)}")
+    load_params(model, tree)
+    return True
+
+
+def save_final(path: str | None, model) -> None:
+    """The model's parameters to ``path`` (its flax tree) unless there is
+    one already, as JAX's ``maybe_save``."""
+    if path and not os.path.exists(path):
+        write_checkpoint(path, to_flax(model.state_dict(), model))
 
 
 def reexec(module: str, argv: list[str]) -> None:
@@ -182,26 +199,35 @@ def adam(model, lr: float, steps: int):
         lr, {int(steps * 0.7): 0.1}))
 
 
+# optax.chain(clip_by_global_norm(1.0), adam(schedule))'s state.
+SEGMENT_LAYOUT = {"params": ..., "step": None,
+                  "opt": ["empty", [{"count": None, "mu": ..., "nu": ...},
+                                    {"count": None}]]}
+
+
 def restore(path: str | None, model, opt, sched) -> int:
     """Load a segment state into the model, optimizer and schedule; the
     step it was saved at (0 where there is none)."""
-    state = load_state(path) if path else None
-    if state is None:
+    tree = load_state(path) if path else None
+    if tree is None:
         return 0
     log(f"restoring segment state {os.path.basename(path)}")
-    model.load_state_dict(state["model"])
-    opt.load_state_dict(state["optimizer"])
-    sched.load_state_dict(state["scheduler"])
-    return int(state["step"])
+    check_layout(tree, SEGMENT_LAYOUT, f"{path}: segment state")
+    load_params(model, tree["params"])
+    load_adam(model, opt, tree["opt"][1][0])
+    sched.load_state_dict({"count": int(tree["opt"][1][1]["count"])})
+    return int(tree["step"])
 
 
 def saver(path: str | None, model, opt, sched):
     """``save(step)``: the segment state to ``path`` (no-op without one)."""
     def save(step: int) -> None:
         if path:
-            save_state(path, step=step, model=model.state_dict(),
-                       optimizer=opt.state_dict(),
-                       scheduler=sched.state_dict())
+            model_sd, optim_sd = full_state_dicts(model, opt)
+            write_checkpoint(path, {
+                "params": to_flax(model_sd, model), "step": np.int32(step),
+                "opt": [None, [adam_tree(model, optim_sd),
+                               {"count": np.int32(sched.count)}]]})
     return save
 
 

@@ -13,9 +13,10 @@ port (``scripts/overlap_ab_demo.py``).
      scored by pose AUC with a bootstrap spread.
 
 ``--ckpt_dir`` saves and resumes the whole train state with
-``training/train.py``'s ``save_checkpoint`` (``step_N`` torch files);
-JAX's orbax directories are not read. Prints one JSON line, the JAX
-script's (``--skip_eval``: the short segment line).
+``training/train.py``'s ``save_checkpoint``: ``step_N`` in JAX's orbax
+layout, so JAX's script resumes the port's run and the port JAX's. Prints
+one JSON line, the JAX script's (``--skip_eval``: the short segment
+line).
 
     python -m oetr_tpu_torch.scripts.overlap_ab_demo [--steps 700]
 

@@ -12,10 +12,9 @@ pairs come from a ``torch.Generator`` seeded from the step, so a resumed
 run draws what an uninterrupted one draws.
 
 ``--ckpt_dir`` keeps the final parameters (``loftr``) and the segment
-state (``loftr_state``) as torch files with
-``training/train.py::save_checkpoint``'s keys; ``--max_steps_per_segment``
-saves the state and re-executes the program. Prints one JSON line, the JAX
-script's.
+state (``loftr_state``) in JAX's orbax layout (``common.py``), which JAX's
+script reads and writes too; ``--max_steps_per_segment`` saves the state
+and re-executes the program. Prints one JSON line, the JAX script's.
 
     python -m oetr_tpu_torch.scripts.train_loftr_demo [--steps 6000]
 
@@ -36,8 +35,8 @@ from ..data.device_synth import make_device_generator
 from ..models.loftr import build_loftr
 from ..training.loftr import make_loftr_train_step, warp_cell_centers_batch
 from ..training.superglue import gt_matches_batch
-from .common import (LUM, Segments, adam, auc_row, gray_of, load_state, log,
-                     pose_errors, require_cv2, restore, save_state, saver,
+from .common import (LUM, Segments, adam, auc_row, gray_of, load_final, log,
+                     pose_errors, require_cv2, restore, save_final, saver,
                      sift_nn, step_generator)
 
 MODULE = "oetr_tpu_torch.scripts.train_loftr_demo"
@@ -195,11 +194,7 @@ def run(args, argv: list[str], base: str | None = None) -> dict:
         os.makedirs(args.ckpt_dir, exist_ok=True)
         final = os.path.join(args.ckpt_dir, "loftr")
         state_path = os.path.join(args.ckpt_dir, "loftr_state")
-    saved = load_state(final) if final else None
-    if saved is not None:
-        log("restoring final loftr params")
-        model.load_state_dict(saved["model"])
-    elif args.steps > 0:
+    if not load_final(final, model) and args.steps > 0:
         opt, sched = adam(model, args.lr, args.steps)
         start = restore(state_path, model, opt, sched)
         # JAX's script segments only with a checkpoint directory.
@@ -208,8 +203,7 @@ def run(args, argv: list[str], base: str | None = None) -> dict:
         train_loftr(model, opt, sched, args, device_batches(args, device),
                     start, segments=segments,
                     save=saver(state_path, model, opt, sched), t0=t0)
-        if final and not os.path.exists(final):
-            save_state(final, step=args.steps, model=model.state_dict())
+        save_final(final, model)
 
     items = val_items(base or tempfile.mkdtemp(prefix="oetr_loftr_"), args)
     rows = evaluate(model, items, device)

@@ -24,11 +24,12 @@ an uninterrupted one draws. On resume of the host SuperPoint path the
 numpy stream is reseeded with 1000 + the step, as JAX's script does.
 
 ``--ckpt_dir`` keeps the final parameters (``superpoint``, ``superglue``)
-and the segment state (``superpoint_state``, ``superglue_state``) as torch
-files with ``training/train.py::save_checkpoint``'s keys; a finished
-phase is restored instead of trained. ``--max_steps_per_segment`` saves
-the state and re-executes the program after that many steps. Prints one
-JSON line, the JAX script's.
+and the segment state (``superpoint_state``, ``superglue_state``) in JAX's
+orbax layout (``common.py``), so JAX's script, its
+``build_shipped_model`` and the port's read what this program trains and
+the other way round; a finished phase is restored instead of trained.
+``--max_steps_per_segment`` saves the state and re-executes the program
+after that many steps. Prints one JSON line, the JAX script's.
 
     python -m oetr_tpu_torch.scripts.train_matching_demo [--device_data]
 
@@ -59,8 +60,8 @@ from ..training.superpoint import (corners_to_cell_labels,
                                    make_superpoint_joint_train_step,
                                    random_homography, synthetic_shapes_batch)
 from .common import (LUM, Segments, adam, auc_row, gray_of, gray_u8,
-                     index_pairs, load_state, log, nn_matches0, pose_errors,
-                     relative_pose, require_cv2, restore, save_state, saver,
+                     index_pairs, load_final, log, nn_matches0, pose_errors,
+                     relative_pose, require_cv2, restore, save_final, saver,
                      sift_nn, step_generator)
 
 MODULE = "oetr_tpu_torch.scripts.train_matching_demo"
@@ -502,23 +503,6 @@ def scene_datasets(base: str, args):
     return tuple(out)
 
 
-def final_params(args, name: str, model) -> bool:
-    """Load ``{ckpt_dir}/{name}`` into ``model`` where it exists."""
-    state = load_state(os.path.join(args.ckpt_dir, name)) \
-        if args.ckpt_dir else None
-    if state is None:
-        return False
-    log(f"restoring {name}")
-    model.load_state_dict(state["model"])
-    return True
-
-
-def save_final(args, name: str, model, steps: int) -> None:
-    path = os.path.join(args.ckpt_dir, name) if args.ckpt_dir else ""
-    if path and not os.path.exists(path):
-        save_state(path, step=steps, model=model.state_dict())
-
-
 def run(args, argv: list[str], base: str | None = None) -> dict:
     """The whole program; ``base`` holds the scenes (a fresh temporary
     directory when None). Returns the JSON line."""
@@ -532,7 +516,7 @@ def run(args, argv: list[str], base: str | None = None) -> dict:
     segments = Segments(args.max_steps_per_segment, argv, MODULE)
 
     net = build_superpoint_net(device=device, descriptor_dim=args.desc_dim)
-    if not final_params(args, "superpoint", net) and args.sp_steps > 0:
+    if not load_final(state_path("superpoint"), net) and args.sp_steps > 0:
         if args.device_data:
             pair_batch = device_pair_batch(args.sp_hw, args.sp_batch, device)
         else:
@@ -547,14 +531,14 @@ def run(args, argv: list[str], base: str | None = None) -> dict:
         train_superpoint(net, opt, sched, args, rng, pair_batch, start,
                          segments=segments, save=saver(path, net, opt, sched),
                          t0=t0)
-        save_final(args, "superpoint", net, args.sp_steps)
+        save_final(state_path("superpoint"), net)
     sp = extractor(net, args)
 
     log("generating scene pairs for SG training/eval...")
     base = base or tempfile.mkdtemp(prefix="oetr_matchdemo_")
     train_ds, val_ds = scene_datasets(base, args)
     sg = build_sg(args, device)
-    if not final_params(args, "superglue", sg) and args.sg_steps > 0:
+    if not load_final(state_path("superglue"), sg) and args.sg_steps > 0:
         sg.train()
         if args.device_data:
             opt, sched = adam(sg, args.sg_lr, args.sg_steps)
@@ -574,7 +558,7 @@ def run(args, argv: list[str], base: str | None = None) -> dict:
                             sg_host_batches(feats, rng, args.sg_batch,
                                             args.hw, device),
                             args.sg_steps, t0=t0)
-        save_final(args, "superglue", sg, args.sg_steps)
+        save_final(state_path("superglue"), sg)
     sg.eval()
 
     items = [val_ds[i] for i in range(len(val_ds))]

@@ -5,9 +5,16 @@ parameter decayed) under optax's piecewise-constant schedule: the rate is
 multiplied by ``lr_gamma`` once the optimizer's step count reaches each
 milestone epoch times ``steps_per_epoch``; the schedule steps once per
 optimizer step. torch's decoupled decay p·(1 - lr·wd) is optax's
-``add_decayed_weights`` scaled by -lr. Checkpoints hold the full state
-(step, model, optimizer, schedule) under ``{dir}/step_{N}``, the names of
-JAX's orbax directories, so a run resumes exactly.
+``add_decayed_weights`` scaled by -lr.
+
+Checkpoints are JAX's: ``{dir}/step_{N}`` is the orbax directory of JAX's
+``TrainState`` (``interop.write_checkpoint``), with ``step`` (int32),
+``params`` (the flax tree) and ``opt_state``, optax AdamW's
+``(ScaleByAdamState(count, mu, nu), EmptyState(),
+ScaleByScheduleState(count))`` (``jax_state.py``: torch's ``exp_avg`` and
+``exp_avg_sq`` as mu and nu, the schedule's count). A run resumes exactly,
+in the port or in JAX, and a JAX run resumes here. A ``step_N`` file is
+the port's earlier torch checkpoint, and is still read.
 
 Over several ranks, ``shard_train_state`` lays the model out on a mesh
 (``parallel.shard_model``: DDP over 'data', Megatron splits over 'model',
@@ -22,14 +29,20 @@ from __future__ import annotations
 import os
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from ..config import OETRConfig, TrainConfig
+from ..interop.orbax_read import read_checkpoint
+from ..interop.orbax_write import write_checkpoint
 from ..models.oetr import OETR, build_oetr
 from .losses import (aux_match_loss, cycle_overlap_loss, difficulty_weights,
                      heatmap_ce_loss, oetr_losses, size_loss, total_loss)
 from ..parallel.data import global_batch, loss_scale, sum_metrics
+from ..interop.from_flax import to_flax
+from .jax_state import (adam_tree, check_layout, full_state_dicts, load_adam,
+                        load_params)
 from .optim import apply_update, piecewise_constant_schedule
 
 
@@ -246,56 +259,75 @@ def batch_to(batch: dict, device) -> dict:
     return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
 
 
-def _state_options(**kw):
-    from torch.distributed.checkpoint.state_dict import StateDictOptions
-    return StateDictOptions(full_state_dict=True, **kw)
+# optax.adamw's state: scale_by_adam, add_decayed_weights, the schedule.
+ADAMW_LAYOUT = {"step": None, "params": ...,
+                "opt_state": [{"count": None, "mu": ..., "nu": ...},
+                              "empty", {"count": None}]}
+
+
+def train_state_tree(state: TrainState) -> dict | None:
+    """The state as JAX's ``TrainState`` tree (numpy leaves; ``None`` for
+    optax's ``EmptyState``). Every rank calls it (the gathers are
+    collective); under a process group ranks other than 0 get None."""
+    model_sd, optim_sd = full_state_dicts(state.model, state.optimizer)
+    if dist.is_initialized() and dist.get_rank() != 0:
+        return None
+    return {"step": np.int32(state.step),
+            "params": to_flax(model_sd, state.model),
+            "opt_state": [adam_tree(state.model, optim_sd), None,
+                          {"count": np.int32(state.scheduler.count)}]}
 
 
 def save_checkpoint(ckpt_dir: str, state: TrainState,
                     step: int | None = None) -> str:
-    """The full state (step, model, optimizer, schedule) to
-    ``{ckpt_dir}/step_{step}`` (the state's step by default); the path.
-    The model and optimizer are whole (``torch.distributed.checkpoint``'s
-    full state dicts, the optimizer's keyed by parameter name) whatever
-    the layout; every rank calls it (the gathers are collective) and rank
-    0 writes."""
-    from torch.distributed.checkpoint.state_dict import (
-        get_model_state_dict, get_optimizer_state_dict)
-
+    """The full state to ``{ckpt_dir}/step_{step}`` (the state's step by
+    default) in JAX's layout (module docstring), replacing one there; the
+    path. Whole whatever the layout: every rank calls it and rank 0
+    writes."""
     step = state.step if step is None else step
     path = os.path.join(ckpt_dir, f"step_{step}")
-    opts = _state_options(cpu_offload=True)
-    model_sd = get_model_state_dict(state.model, options=opts)
-    optim_sd = get_optimizer_state_dict(state.model, state.optimizer,
-                                        options=opts)
-    if not dist.is_initialized() or dist.get_rank() == 0:
+    tree = train_state_tree(state)
+    if tree is not None:
         os.makedirs(ckpt_dir, exist_ok=True)
-        torch.save({"step": state.step, "model": model_sd,
-                    "optimizer": optim_sd,
-                    "scheduler": state.scheduler.state_dict()},
-                   path + ".tmp")
-        os.replace(path + ".tmp", path)
+        write_checkpoint(path, tree)
     if dist.is_initialized():
         dist.barrier()
     return path
 
 
+def _load_torch_checkpoint(path: str, target: TrainState) -> TrainState:
+    from torch.distributed.checkpoint.state_dict import (
+        StateDictOptions, set_model_state_dict, set_optimizer_state_dict)
+
+    opts = StateDictOptions(full_state_dict=True)
+    saved = torch.load(path, map_location="cpu", weights_only=True)
+    set_model_state_dict(target.model, saved["model"], options=opts)
+    set_optimizer_state_dict(target.model, target.optimizer,
+                             saved["optimizer"], options=opts)
+    target.scheduler.load_state_dict(saved["scheduler"])
+    target.step = int(saved["step"])
+    return target
+
+
 def load_checkpoint(ckpt_dir: str, step: int,
                     target: TrainState) -> TrainState:
     """``target`` (a state of the same configuration, on any layout) with
-    the state saved under ``{ckpt_dir}/step_{step}`` loaded into it; every
-    rank reads the file."""
-    from torch.distributed.checkpoint.state_dict import (
-        set_model_state_dict, set_optimizer_state_dict)
-
-    saved = torch.load(os.path.join(ckpt_dir, f"step_{step}"),
-                       map_location="cpu", weights_only=True)
-    set_model_state_dict(target.model, saved["model"],
-                         options=_state_options())
-    set_optimizer_state_dict(target.model, target.optimizer,
-                             saved["optimizer"], options=_state_options())
-    target.scheduler.load_state_dict(saved["scheduler"])
-    target.step = int(saved["step"])
+    the state saved under ``{ckpt_dir}/step_{step}`` loaded into it: JAX's
+    ``TrainState`` directory, written by JAX's trainer or the port's, or
+    the port's earlier torch file. Every rank reads it. Raises ValueError
+    on an optimizer state other than optax AdamW's, KeyError or
+    ValueError on a parameter tree that lacks a leaf, has one the model
+    lacks, or a wrong shape."""
+    path = os.path.join(ckpt_dir, f"step_{step}")
+    if os.path.isfile(path):
+        return _load_torch_checkpoint(path, target)
+    tree = read_checkpoint(path)
+    check_layout(tree, ADAMW_LAYOUT, f"{path}: TrainState")
+    load_params(target.model, tree["params"])
+    load_adam(target.model, target.optimizer, tree["opt_state"][0])
+    target.scheduler.load_state_dict(
+        {"count": int(tree["opt_state"][2]["count"])})
+    target.step = int(tree["step"])
     return target
 
 

@@ -339,8 +339,9 @@ def test_loftr_resume_equals_uninterrupted(runs):
     opt, sched = adam(model, args.lr, args.steps)
     loftr_demo.train_loftr(model, opt, sched, args,
                            loftr_demo.device_batches(args, "cpu"))
-    _equal_states(load_state(str(runs["port_loftr"] / "loftr"))["model"],
-                  model.state_dict())
+    _equal_states(interop.convert_loftr_params(
+        load_state(str(runs["port_loftr"] / "loftr")), **LOFTR_KW),
+        model.state_dict())
 
 
 def test_matching_resume_reseeds_as_jax(runs):
@@ -365,10 +366,11 @@ def test_matching_resume_reseeds_as_jax(runs):
                                match_demo.device_sg_batches(sp, args, "cpu"),
                                args.sg_steps)
     ckpt = runs["port_match"]
-    _equal_states(load_state(str(ckpt / "superpoint"))["model"],
-                  net.state_dict())
-    _equal_states(load_state(str(ckpt / "superglue"))["model"],
-                  sg.state_dict())
+    _equal_states(interop.convert_superpoint_net_params(
+        load_state(str(ckpt / "superpoint")), descriptor_dim=32),
+        net.state_dict())
+    _equal_states(interop.convert_superglue_params(
+        load_state(str(ckpt / "superglue")), **SG_KW), sg.state_dict())
 
 
 @pytest.mark.parametrize("demo", [match_demo, loftr_demo])

@@ -33,8 +33,9 @@ differentiates, K2's reaching its f32 weights and a positional encoding
 with a batch of 1, K4 refusing a gradient, inference keeping the launch
 path, and a small OETR backward with the switches on against off; the
 train step with the switches on against off, a bf16 step renewing K2's
-cached bf16 weights, no device -> host copy in a step, and a checkpoint
-resumed to the same bits. For the public API: D2-Net, R2D2, DISK,
+cached bf16 weights, no device -> host copy in a step, a checkpoint in
+JAX's orbax layout resumed to the same bits, and ``probe_heatmap_boxes``'s
+box half on such a state, every K2 and K3 call against its plain version. For the public API: D2-Net, R2D2, DISK,
 ASLFeat, COTR and ContextDesc on the card against the CPU, the matchers'
 tie-breaking on CUDA, the ``"SAME"`` convolution at strides 1 and 2 with
 dilations 1, 2 and 4, and ``build_model`` / ``get_matches``'s helper /
@@ -912,6 +913,50 @@ def test_train_checkpoint_resume_on_card(cuda, tmp_path):
     sa, sc = a.model.state_dict(), c.model.state_dict()
     for k in sa:
         assert torch.equal(sa[k], sc[k]), k
+    # The state went through JAX's orbax TrainState layout.
+    import chip_smoke
+    layout = chip_smoke.jax_layout(str(tmp_path / "step_2"))
+    assert all(layout["metadata"].values())
+
+
+def test_probe_box_half_kernel_calls_match_plain(cuda, tmp_path):
+    """``probe_heatmap_boxes``'s box half on the card on a state saved in
+    JAX's layout: the model read back, K2 4 and K3 1 calls in its forward
+    on 2 generator pairs, each against its plain version on the same
+    inputs (chip_smoke.py's recorder, at the kernel checks' bounds), and
+    finite mIoU rows."""
+    import chip_smoke
+    from oetr_tpu_torch.scripts import probe_heatmap_boxes as probe
+    from oetr_tpu_torch.scripts.overlap_ab_demo import model_config
+    from oetr_tpu_torch.training import create_train_state, save_checkpoint
+
+    args = probe.parse_args(["--ckpt_dir", str(tmp_path), "--step", "0",
+                             "--data_dir", str(tmp_path), "--hw", "160",
+                             "--d_model", "64", "--layers", "1",
+                             "--device", "cuda"])
+    _, state = create_train_state(
+        model_config(args, fused_stem=True, attention="linear:cuda"),
+        port.TrainConfig(), torch.Generator().manual_seed(3), device=cuda)
+    save_checkpoint(str(tmp_path), state)
+    model = probe.load_model(args, cuda)
+    for k, v in state.model.state_dict().items():
+        assert torch.equal(model.state_dict()[k], v), k
+    raw = _train_batch(cuda, b=2, seed=4)
+    before = {k: getattr(ops, k).launches for k in
+              ("linear_encoder_attention", "groupnorm_relu_maxpool")}
+    with chip_smoke.recorded_kernel_calls() as calls:
+        out = probe.forward(model, raw["image1"].cpu().numpy(),
+                            raw["image2"].cpu().numpy())
+    got = {k: getattr(ops, k).launches - n for k, n in before.items()}
+    assert got == {"linear_encoder_attention": 4,
+                   "groupnorm_relu_maxpool": 1}
+    errs = chip_smoke.recorded_kernel_errors(torch, ops, calls, "probe")
+    assert {k: v["calls"] for k, v in errs.items()} == got
+    gt = [raw[k].cpu().numpy().astype("float64")
+          for k in ("overlap_box1", "overlap_box2")]
+    rows, best_q, _ = probe.box_rows(out, *gt, 160)
+    assert best_q in probe.QS
+    assert all(0.0 <= v <= 1.0 for r in rows.values() for v in r.values())
 
 
 # ------------------------------------------- LoFTR, dense pipeline, scenes --

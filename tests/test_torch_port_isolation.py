@@ -72,6 +72,9 @@ MUST_LIST = ("oetr_tpu_torch.geometry.ransac",
              "oetr_tpu_torch.interop.torch_convert",
              "oetr_tpu_torch.interop.zstd", "oetr_tpu_torch.interop.ocdbt",
              "oetr_tpu_torch.interop.orbax_read",
+             "oetr_tpu_torch.interop.orbax_write",
+             "oetr_tpu_torch.interop.from_flax",
+             "oetr_tpu_torch.training.jax_state",
              "oetr_tpu_torch.parallel", "oetr_tpu_torch.parallel.mesh",
              "oetr_tpu_torch.parallel.multihost",
              "oetr_tpu_torch.parallel.ring_attention",
@@ -82,7 +85,10 @@ MUST_LIST = ("oetr_tpu_torch.geometry.ransac",
              "oetr_tpu_torch.scripts.train_matching_demo",
              "oetr_tpu_torch.scripts.train_loftr_demo",
              "oetr_tpu_torch.scripts.eval_demo",
-             "oetr_tpu_torch.scripts.overlap_ab_demo")
+             "oetr_tpu_torch.scripts.overlap_ab_demo",
+             "oetr_tpu_torch.scripts.probe_heatmap_boxes",
+             "oetr_tpu_torch.scripts.sweep_decode",
+             "oetr_tpu_torch.scripts.export_params")
 
 
 class Refuse:
@@ -235,11 +241,26 @@ def test_port_sources_name_no_jax_import():
                    if "_build" not in f.relative_to(PORT).parts)
     files += [ROOT / "chip_smoke.py", ROOT / "pose_timing.py",
               ROOT / "sfm_spread.py", ROOT / "chip_time_sites.py",
+              ROOT / "ba_trace_steps.py",
               ROOT / "tests" / "torch_port_ranks.py"]
     assert len(files) >= 13
     offenders = [str(f.relative_to(ROOT)) for f in files
                  if pattern.search(f.read_text())]
     assert not offenders, offenders
+
+
+def test_ba_trace_steps_needs_a_card(monkeypatch, capsys, tmp_path):
+    """Without a CUDA card the BA trace script exits 1 and writes
+    nothing."""
+    import torch
+
+    import ba_trace_steps
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    out = tmp_path / "out.json"
+    assert ba_trace_steps.main(["--out", str(out)]) == 1
+    assert "no CUDA card" in capsys.readouterr().err
+    assert not out.exists()
 
 
 def test_refusing_finder_lets_the_port_through():

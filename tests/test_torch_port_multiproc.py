@@ -128,12 +128,29 @@ def test_matching_steps_data_parallel_match_one_process(runs, trainer):
                     (trainer, r), norm=False)
 
 
+def _saved(ckpt_dir, step):
+    """The checkpoint ``{ckpt_dir}/step_{step}`` (JAX's TrainState layout)
+    as the port's state dicts, keyed by parameter name."""
+    from oetr_tpu_torch.interop import flax_state_dict, read_checkpoint
+
+    tree = read_checkpoint(os.path.join(ckpt_dir, f"step_{step}"))
+    model = port.build_oetr(ranks.oetr_cfg("linear:cuda"), device="meta")
+    adam = tree["opt_state"][0]
+    mu, nu = (flax_state_dict(adam[k], model) for k in ("mu", "nu"))
+    count = torch.tensor(float(adam["count"]))
+    return {"step": int(tree["step"]),
+            "model": flax_state_dict(tree["params"], model),
+            "optimizer": {"state": {k: {"exp_avg": mu[k], "exp_avg_sq": nu[k],
+                                        "step": count} for k in mu}},
+            "scheduler": {"count": int(tree["opt_state"][2]["count"])}}
+
+
 def test_checkpoint_crosses_layouts_bit_equal(runs):
     """A one-process checkpoint loaded on 2 FSDP ranks gathers back to the
     same bits; the checkpoint those ranks write after a step loads into
     one process bit for bit, and holds the one-process step's values."""
     tmp, _, _, _ = runs
-    a = torch.load(os.path.join(tmp, "ckpt_a", "step_1"), weights_only=True)
+    a = _saved(os.path.join(tmp, "ckpt_a"), 1)
     loaded = torch.load(os.path.join(tmp, "loaded.pt"), weights_only=True)
     assert torch.load(os.path.join(tmp, "k2_cache_dropped.pt"))
     for k, v in a["model"].items():
@@ -144,7 +161,7 @@ def test_checkpoint_crosses_layouts_bit_equal(runs):
                                st[kk]), (k, kk)
 
     b_path = os.path.join(tmp, "ckpt_b")
-    b = torch.load(os.path.join(b_path, "step_2"), weights_only=True)
+    b = _saved(b_path, 2)
     assert b["step"] == 2 and b["scheduler"]["count"] == 2
     one = ptr.load_checkpoint(b_path, 2, ranks.oetr_state("linear:cuda",
                                                           dropout=True))

@@ -49,7 +49,7 @@ from oetr_tpu.training import train as jt
 from oetr_tpu.training import validation as jv
 from oetr_tpu_torch.data import megadepth as pmd
 from oetr_tpu_torch.geometry import boxes as pb
-from oetr_tpu_torch.interop import convert_flax_params
+from oetr_tpu_torch.interop import convert_flax_params, read_checkpoint
 from oetr_tpu_torch.models.transformer import Dropout
 from oetr_tpu_torch.training import losses as pl
 from oetr_tpu_torch.training import train as ptr
@@ -707,8 +707,8 @@ def test_cli_trains_resumes_and_reexecs(scene, tmp_path):
     assert "resumed from step 3 (epoch 1, it 1)" in log
     assert "epoch 1 checkpointed at step 4" in log
     assert sorted(os.listdir(ckpt)) == ["step_2", "step_3", "step_4"]
-    saved = torch.load(os.path.join(ckpt, "step_4"), weights_only=True)
-    assert saved["step"] == 4 and saved["scheduler"]["count"] == 4
+    saved = read_checkpoint(os.path.join(ckpt, "step_4"))
+    assert saved["step"] == 4 and saved["opt_state"][2]["count"] == 4
     assert os.listdir(tmp_path / "tb")
 
 
