@@ -130,6 +130,23 @@ paths with seeded random weights:
     every K2 and K3 call against its plain version), JAX's LoFTR gate at 256² (>= 100 matches a pair, median
     endpoint error < 2.5 px) and stage 5's matches scored with
     ``estimate_pose``, guided and direct (AUC@5/10/20);
+  * ``evaluate``: the file-based paths. A child process writes, with the
+    port's own writers (its JPEG encoder, HDF5 writer and PPM writer; no
+    cv2 or h5py), 8 pairs of ``generate_scene_3d`` at 640² in MegaDepth's
+    layout, the same renders in IMC's (calibration h5, covisibility keys)
+    and an HPatches sequence of 6 PPMs from the homography generator's
+    draws, while the card runs the phases before; then
+    ``scripts/evaluate.py``'s MegaDepth, IMC and HPatches flows run on
+    those files with the ``trained`` phase's stage-5 models (the port's
+    decoders reading every image, its HDF5 subset writing and reading the
+    results): every K2, K3 and K4 call against its plain version, every
+    eigh call of the MegaDepth and IMC flows' pose scoring against LAPACK,
+    the launches, the h5 results read back equal to the pipeline's outputs,
+    >= 64 matches a pair, AUC@5/10/20, precision, matching score, mAA@10
+    and MMA (read), the harness's pairs/s with the host's decode, the
+    codec's ms an image and its digests against the CPU's (cv2's bytes and
+    pixels), and one ``MegaDepthPairsDataset`` batch's GT boxes against
+    ``overlap_bbox_np`` on the generator's geometry;
   * ``sfm``: reconstruction, in two parts. (a) The SfM demo's rig
     (``oetr_tpu_torch.sfm.demo`` at scripts/sfm_demo.py's defaults: 12
     views of 320², a 45° arc, 30 view pairs), its correspondences from
@@ -206,6 +223,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import io
 import json
 import math
 import re
@@ -2742,7 +2760,10 @@ def run_multi(torch, port, ops):
 
 # -------------------------------------------------------------------- api --
 
-API_WARMUP, API_REPS = 1, 2
+# One timed call a combination after one warm-up (the evaluate phase took
+# the second call's seconds): its traced call reads busy ms and idle share
+# beside it.
+API_WARMUP, API_REPS = 1, 1
 API_SMALL_HW = 256           # card against CPU, per extractor and COTR
 API_COTR_HW = 256            # COTR's pair (its paper's input size)
 API_COTR_QUERIES = 1024
@@ -2793,10 +2814,12 @@ def identity_settings(model, trained_loftr=None):
     return []
 
 
-def api_case(torch, model, img0, img1, names=(), trained_loftr=None):
+def api_case(torch, model, img0, img1, names=(), trained_loftr=None,
+             traced=True):
     """One combination through ``get_matches``'s helper below the decode:
-    pairs/s (median of API_REPS calls after API_WARMUP), traced device
-    time and idle share, keypoints and matches of the pair, the identity
+    pairs/s (median of API_REPS calls after API_WARMUP), with ``traced``
+    the device time and idle share of a traced call, keypoints and matches
+    of the pair, the identity
     check (img0 against itself, with ``identity_settings``: the matched
     keypoints' median distance in the original frame), and ``get_pose``
     on the pair's matches. Returns (fields, the pair's result,
@@ -2818,7 +2841,7 @@ def api_case(torch, model, img0, img1, names=(), trained_loftr=None):
             torch.cuda.synchronize()
             wall.append(time.perf_counter() - t)
         stats = traced_stats(torch, call, reps=1, names=names, warmup=0,
-                             cpu=False)
+                             cpu=False) if traced else {}
         settings = identity_settings(model, trained_loftr)
         kept = [getattr(obj, attr) for obj, attr, _ in settings]
         for obj, attr, value in settings:
@@ -2834,11 +2857,9 @@ def api_case(torch, model, img0, img1, names=(), trained_loftr=None):
     fields = {
         "pairs_per_s": 1.0 / statistics.median(wall),
         "wall_ms": statistics.median(wall) * 1e3,
-        "device_busy_ms": stats["device_busy_ms"],
-        "idle_share": stats["idle_share"],
-        "launches_per_call": stats["launches_per_call"],
-        "dtoh_copies_per_call": stats["dtoh_copies_per_call"],
-        "device_ms_by_category": stats["device_ms_by_category"],
+        **{k: stats.get(k) for k in (
+            "device_busy_ms", "idle_share", "launches_per_call",
+            "dtoh_copies_per_call", "device_ms_by_category")},
         **{k: v for k, v in stats.items() if k.endswith("_per_call")
            and k not in ("launches_per_call", "dtoh_copies_per_call")},
         "keypoints": [int(res[f"all_valid{s}"].sum()) for s in "01"]
@@ -3104,8 +3125,9 @@ def run_api(torch, port, ops):
       6. ``get_pose`` (homography, similarity) on matches from the
          homography pair generator's true H with 30% outliers;
       7. the keypoint selection's tie-breaking top-k against torch.topk.
-    Each combination: pairs/s, traced device ms and idle share, keypoints
-    and matches, the identity check and get_pose on its own matches; the
+    Each combination: pairs/s, keypoints and matches, the identity check
+    and get_pose on its own matches, and but for 3's the traced device ms
+    and idle share of a call; the
     superglue_disk and LoFTR combinations also their matcher on the card
     against the CPU on an identity pair (``api_matcher_vs_cpu``; the
     trained SuperGlue's is the shipped phase's; the
@@ -3243,12 +3265,13 @@ def run_api(torch, port, ops):
     mark("registry_kernels")
 
     # 3. The other extractors and matchers; each extractor on the card
-    # against the CPU.
+    # against the CPU. They are not traced: the evaluate phase took those
+    # seconds (PERF.md §5 keeps the busy ms and idle shares read before).
     vs_cpu = fields["card_vs_cpu"] = {}
     for extractor, matcher in API_NN_COMBOS:
         model = api.build_model(extractor, matcher, cfg=cfg, device=DEV)
         key = f"{extractor}+{matcher}"
-        combos[key], _, f = api_case(torch, model, img0, img1)
+        combos[key], _, f = api_case(torch, model, img0, img1, traced=False)
         failed += f
         if extractor not in vs_cpu or matcher in ("NN", "disk"):
             vs_cpu[extractor], f = api_vs_cpu(torch, extractor, matcher,
@@ -4101,6 +4124,473 @@ def run_trained(torch, port, ops, matching):
               "oetr_f32_card_vs_cpu": vs_cpu, "dense": dense_fields,
               "loftr_gate": gate, "pose": poses, "split_s": split,
               "trained_phase_s": phase_s, "failures": failed}
+    return fields, dict(total), models
+
+
+# --------------------------------------------------------------- evaluate --
+
+# The file-based paths: the evaluation harnesses of
+# ``oetr_tpu_torch/scripts/evaluate.py`` on files the port's own writers
+# made (JPEG, PPM and HDF5, no cv2 or h5py), read back by its own
+# decoders, on the trained stage-5 pipeline of the ``trained`` phase. The
+# generator's textures are capped at EVAL_MAX_TEX pixels a side (its
+# default 1536 takes ~4 s a pair on the host; the images stay 640²), and
+# its viewpoint changes are mild: the committed matcher weights, trained
+# on the planar device generator's pairs, kept 41.6 matches a pair at the
+# generator's defaults (rotation 12°, tilt 8°, scale 1-1.8; the H100, bf16,
+# 8 pairs) and 24 at 6°, 4°, 1-1.4, against 167 at these settings (the CPU
+# in f32, 3 pairs; PERF.md §6).
+EVAL_PAIRS = 8
+EVAL_HW = 640
+EVAL_SEED = 31
+EVAL_MAX_TEX = 512
+EVAL_SCENE_KW = dict(image_hw=EVAL_HW, seed=EVAL_SEED, max_tex=EVAL_MAX_TEX,
+                     rot_deg=3.0, tilt_deg=2.0, scale_range=(1.0, 1.1),
+                     trans_frac=0.15, illum_range=(0.9, 1.1))
+EVAL_HP_IMAGES = 6           # HPatches: 1.ppm and its 5 warps
+EVAL_MATCHES_MIN = 64        # matches a pair on average, each flow
+EVAL_OVERLAP = 0.1           # the IMC covisibility keys' threshold
+# The codec on the card's host against what cv2 gives here
+# (tests/test_torch_port_fileio.py derives and confirms them): the probe
+# image (integers only, so the same pixels on any machine) encoded and
+# decoded back; the first scene image's render (numpy float rendering,
+# which may differ in a last bit between CPUs), its JPEG bytes and their
+# decode, gated where the render is the same.
+CODEC_PROBE_SEED = 5
+CODEC_DIGESTS = {
+    "probe_bytes":
+        "bdb1aec4f453ed01a7a96ad1544eaed1600c8a4cc965dde1af6ceef19807670f",
+    "probe_pixels":
+        "4618d1da89df99519819b4863967a3b7bd685b85fb9f185c84ca09869e30e985",
+    "scene_render":
+        "296276faac68b1b47c83a742cd8c40608c790b1f741ff79c2ddcee7eef4b8fec",
+    "scene_bytes":
+        "223928c2f3bf068fb8b1849fdbb25fe6b2c281e4a2e0840376734d905f0d1565",
+    "scene_pixels":
+        "7262ac26aef6e86a7a8e4df261035cd8298396a490d2ba69e7e8696841ba8c70"}
+
+
+def codec_probe_image():
+    """[123, 197, 3] uint8 RGB from integer arithmetic and PCG64 draws:
+    ramps, a checkerboard and noise, odd sizes for the codec's edges."""
+    import numpy as np
+
+    rng = np.random.default_rng(CODEC_PROBE_SEED)
+    yy, xx = np.mgrid[0:123, 0:197]
+    ramp = np.stack([(3 * xx + yy) % 256, (xx * yy // 7) % 256,
+                     (5 * yy + 2 * xx) % 256], -1)
+    board = ((xx // 9 + yy // 7) % 2 * 90)[..., None]
+    noise = rng.integers(-20, 21, (123, 197, 3))
+    return np.clip(ramp // 2 + board + noise + 20, 0, 255).astype(np.uint8)
+
+
+def write_eval_data(root, n_pairs=EVAL_PAIRS, hw=EVAL_HW):
+    """The three harnesses' file trees under ``root``, written by the
+    port's own writers alone (its JPEG encoder, HDF5 writer and PPM
+    writer):
+      * MegaDepth layout: ``generate_scene_3d`` (``EVAL_SCENE_KW`` at
+        ``hw``) into ``mega/scene0`` (JPEGs, depth h5, the 10-field
+        training pairs) and the evaluation pair list ``mega_pairs.txt``
+        (names, K0, K1, T_0to1);
+      * IMC layout from the same renders: ``phototourism-val/scene0/
+        set_100`` with the images, one ``calibration_<name>.h5`` (K, R, T)
+        an image and the covisibility keys ``keys-th-0.1.npy``, and
+        ``imc_scenes.txt``;
+      * HPatches layout: ``hpatches/v_gen`` with 1.ppm, its 5 warps by the
+        homography generator's draws (on the CPU) and ``H_1_<i>``.
+    Returns a summary: paths, seconds, the first render's digest and an
+    npz of the first two pairs' rendered depths (the loader's check)."""
+    import hashlib
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from oetr_tpu_torch.data import device_synth as ds
+    from oetr_tpu_torch.data import jpeg, synthetic
+    from oetr_tpu_torch.data.pairs import load_pairs
+    from oetr_tpu_torch.utils import hdf5
+
+    t0 = time.perf_counter()
+    torch.set_num_threads(1)
+    mega = os.path.join(root, "mega", "scene0")
+    renders = []
+    render = synthetic._render_planes
+
+    def recorded(*args, **kwargs):
+        out = render(*args, **kwargs)
+        renders.append(out)
+        return out
+
+    synthetic._render_planes = recorded
+    try:
+        train_pairs = synthetic.generate_scene_3d(
+            mega, n_pairs=n_pairs, **dict(EVAL_SCENE_KW, image_hw=hw))
+    finally:
+        synthetic._render_planes = render
+    t_scene = time.perf_counter() - t0
+    recs = load_pairs(train_pairs)
+    fmt = lambda a: " ".join(str(x) for x in np.asarray(a).reshape(-1))
+    mega_pairs = os.path.join(root, "mega_pairs.txt")
+    with open(mega_pairs, "w") as f:
+        for r in recs:
+            T = r.pose2 @ np.linalg.inv(r.pose1)
+            f.write(f"mega/scene0/{r.image_path1} mega/scene0/"
+                    f"{r.image_path2} {fmt(r.K1)} {fmt(r.K2)} {fmt(T)}\n")
+
+    imc = os.path.join(root, "phototourism-val", "scene0", "set_100")
+    for sub in ("images", "calibration", "new-vis-pairs"):
+        os.makedirs(os.path.join(imc, sub), exist_ok=True)
+    keys = []
+    for r in recs:
+        names = []
+        for img, K, pose in ((r.image_path1, r.K1, r.pose1),
+                             (r.image_path2, r.K2, r.pose2)):
+            name = os.path.basename(img)[:-4]
+            names.append(name)
+            shutil.copyfile(os.path.join(mega, img),
+                            os.path.join(imc, "images", f"{name}.jpg"))
+            with hdf5.File(os.path.join(imc, "calibration",
+                                        f"calibration_{name}.h5"), "w") as c:
+                c.create_dataset("K", data=K)
+                c.create_dataset("R", data=pose[:3, :3])
+                c.create_dataset("T", data=pose[:3, 3])
+        keys.append("-".join(names))
+    np.save(os.path.join(imc, "new-vis-pairs", f"keys-th-{EVAL_OVERLAP}.npy"),
+            np.array(keys))
+    imc_scenes = os.path.join(root, "imc_scenes.txt")
+    with open(imc_scenes, "w") as f:
+        f.write("phototourism-val/scene0 jpg\n")
+
+    hp = os.path.join(root, "hpatches", "v_gen")
+    os.makedirs(hp, exist_ok=True)
+    g = torch.Generator().manual_seed(EVAL_SEED)
+    tex = ds._texture(ds.draw_texture(g, 1, hw, hw), hw, hw)[0]
+    gray = 0.299 * tex[..., 0] + 0.587 * tex[..., 1] + 0.114 * tex[..., 2]
+    H = ds.random_homography_device(g, EVAL_HP_IMAGES - 1, hw)
+    warped, _ = ds.warp_gray(gray.expand(EVAL_HP_IMAGES - 1, hw, hw), H, hw)
+    u8 = lambda t: np.repeat(np.clip(np.rint(t.numpy() * 255), 0, 255)
+                             .astype(np.uint8).reshape(hw, hw, 1), 3, 2)
+    jpeg.imwrite_pnm(os.path.join(hp, "1.ppm"), u8(gray))
+    for i in range(2, EVAL_HP_IMAGES + 1):
+        jpeg.imwrite_pnm(os.path.join(hp, f"{i}.ppm"), u8(warped[i - 2]))
+        np.savetxt(os.path.join(hp, f"H_1_{i}"), H[i - 2].double().numpy())
+
+    depths = os.path.join(root, "render_depths.npz")
+    np.savez(depths, **{f"d{k}": renders[k][1] for k in range(4)})
+    return {"root": root, "mega_pairs": mega_pairs,
+            "train_pairs": train_pairs, "imc_scenes": imc_scenes,
+            "hpatches": os.path.join(root, "hpatches"), "depths": depths,
+            "render_digest": hashlib.sha256(
+                renders[0][0].tobytes()).hexdigest(),
+            "scene_s": t_scene, "seconds": time.perf_counter() - t0}
+
+
+EVAL_WRITER_CHILD = """
+import json, sys
+import chip_smoke as cs
+print(json.dumps(cs.write_eval_data(sys.argv[1])))
+"""
+
+
+def start_eval_writer():
+    """A child process that writes the evaluate phase's files
+    (``write_eval_data``) into a fresh temporary directory on one thread
+    while the card runs the earlier phases. The directory is removed and
+    the child stopped at exit."""
+    import shutil
+    import tempfile
+
+    out = tempfile.mkdtemp(prefix="oetr_eval_")
+    one = {k: "1" for k in ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS",
+                            "MKL_NUM_THREADS")}
+    return start_child(EVAL_WRITER_CHILD, out, env=one,
+                       cleanup=lambda: shutil.rmtree(out, ignore_errors=True))
+
+
+def eval_writer_result(child):
+    """``write_eval_data``'s summary from ``start_eval_writer``'s child;
+    raises if it failed."""
+    out, _ = child.communicate(timeout=300)
+    if child.returncode != 0:
+        raise RuntimeError(f"the evaluate phase's writer failed:\n"
+                           f"{out[-4000:]}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+@contextlib.contextmanager
+def recorded_batches():
+    """Records every batch ``run_benchmark`` hands the pipeline and its
+    output, as [(batch, output), ...]."""
+    from oetr_tpu_torch.pipelines import runner
+
+    seen = []
+    run = runner.run_batch
+
+    def call(pipeline, batch, with_overlap=True):
+        out = run(pipeline, batch, with_overlap)
+        seen.append((batch, out))
+        return out
+
+    runner.run_batch = call
+    try:
+        yield seen
+    finally:
+        runner.run_batch = run
+
+
+def results_equal_outputs(pairs_file, results, pairwise, seen):
+    """The h5 results ``run_benchmark`` wrote, read back by the port's
+    reader, against ``pair_result`` of the pipeline outputs it wrote them
+    from: keypoints and matches equal, each pair (an image's keypoints,
+    where they are keyed by image, from the pair that wrote them).
+    Returns the count of pairs that differ."""
+    import numpy as np
+
+    from oetr_tpu_torch.data.pairs import load_eval_pairs
+    from oetr_tpu_torch.pipelines import runner
+    from oetr_tpu_torch.utils.h5io import SceneResults, stem
+
+    pairs = load_eval_pairs(pairs_file)
+    scenes, first, bad, i = {}, set(), 0, 0
+    for batch, out in seen:
+        for b in range(len(batch["scale_to_orig0"])):
+            p = pairs[i]
+            i += 1
+            k0, k1, m, _, _, _ = runner.pair_result(
+                out, b, batch["scale_to_orig0"][b],
+                batch["scale_to_orig1"][b])
+            scene = runner._scene_of(p.name0)
+            if scene not in scenes:
+                scenes[scene] = SceneResults(results, scene, pairwise)
+            g0, g1, gm, _, _ = scenes[scene].pair(p.name0, p.name1)
+            same = np.array_equal(gm, m)
+            for name, got, want in ((p.name0, g0, k0), (p.name1, g1, k1)):
+                if pairwise or stem(name) not in first:
+                    same &= np.array_equal(got, want)
+                    first.add(stem(name))
+            bad += not same
+    for r in scenes.values():
+        r.close()
+    if i != len(pairs):
+        raise AssertionError(f"{pairs_file}: {i} pairs run of {len(pairs)}")
+    return bad
+
+
+def run_evaluate(torch, port, ops, models, written):
+    """The file-based paths on the card, on ``write_eval_data``'s trees
+    (``written``, made by the host meanwhile) with the trained stage-5
+    models of the ``trained`` phase (``models``: the flagship OETR in bf16
+    with K2 and K3, SuperPoint k 2048 and SuperGlue d 128 in bf16 with K4,
+    832² canvases, 640² OETR copies, fallback 30, resize_max 1024):
+      * the codec's digests against CODEC_DIGESTS (the probe always; the
+        first scene image's bytes and pixels where its render is the
+        CPU's); decode and encode ms an image on the 16 scene JPEGs;
+      * ``scripts/evaluate.py``'s three flows, each with every K2, K3 and
+        K4 call recorded and held against its plain version, and in the
+        MegaDepth and IMC flows every eigh call of their pose scoring
+        (``estimate_pose`` a pair, [N, 2], 5-point stage on) against
+        LAPACK (``eigh_errors``), the launches (K2 16 and K3 1 a batch
+        with the overlaper, K4 one a batch plus one a retry chunk, eigh
+        one a recorded call), the h5 results read back equal to the
+        pipeline's ``pair_result``s, >= EVAL_MATCHES_MIN matches a pair,
+        their metrics (read, not gated) and the harness's pairs/s with
+        the host's decode and h5 writing;
+      * one ``MegaDepthPairsDataset`` batch from the files: its GT boxes
+        equal ``overlap_bbox_np`` on the generator's poses and rendered
+        depths.
+    Returns (fields, the launches of the flows)."""
+    import hashlib
+    import os
+
+    import numpy as np
+
+    from oetr_tpu_torch.data import jpeg
+    from oetr_tpu_torch.data.gt import overlap_bbox_np
+    from oetr_tpu_torch.data.megadepth import MegaDepthPairsDataset
+    from oetr_tpu_torch.data.pairs import load_pairs
+    from oetr_tpu_torch.evalx.datasets import generate_imc_pairs
+    from oetr_tpu_torch.scripts import evaluate
+
+    t0 = time.perf_counter()
+    failed = []
+    sha = lambda b: hashlib.sha256(b).hexdigest()
+    root = written["root"]
+
+    # The codec: digests, then ms an image.
+    probe = jpeg.encode_jpeg(codec_probe_image())
+    first = os.path.join(root, "mega", "scene0", "imgs", "a0.jpg")
+    with open(first, "rb") as f:
+        first_bytes = f.read()
+    digests = {"probe_bytes": sha(probe),
+               "probe_pixels": sha(jpeg.decode_jpeg(probe).tobytes()),
+               "scene_render": written["render_digest"],
+               "scene_bytes": sha(first_bytes),
+               "scene_pixels": sha(jpeg.decode_jpeg(first_bytes).tobytes())}
+    render_same = digests["scene_render"] == CODEC_DIGESTS["scene_render"]
+    gated = ("probe_bytes", "probe_pixels") + (
+        ("scene_bytes", "scene_pixels") if render_same else ())
+    for k in gated:
+        if digests[k] != CODEC_DIGESTS[k]:
+            failed.append(f"evaluate codec: {k} {digests[k]} != "
+                          f"{CODEC_DIGESTS[k]}")
+    files = sorted(os.path.join(root, "mega", "scene0", "imgs", n)
+                   for n in os.listdir(os.path.join(root, "mega", "scene0",
+                                                    "imgs")))
+    blobs = [open(p, "rb").read() for p in files]
+    t = time.perf_counter()
+    decoded = [jpeg.decode_jpeg(b) for b in blobs]
+    decode_ms = (time.perf_counter() - t) * 1e3 / len(blobs)
+    t = time.perf_counter()
+    for d in decoded:
+        jpeg.encode_jpeg(d)
+    encode_ms = (time.perf_counter() - t) * 1e3 / len(blobs)
+    codec = {"library": jpeg.codec_record(), "digests": digests,
+             "gated": list(gated),
+             "render_same_as_cpu": render_same, "images": len(blobs),
+             "hw": list(decoded[0].shape), "decode_ms_per_image": decode_ms,
+             "encode_ms_per_image": encode_ms}
+
+    # The flows.
+    imc_pairs = os.path.join(root, "imc_pairs.txt")
+    n_imc = generate_imc_pairs(written["imc_scenes"], root, imc_pairs,
+                               EVAL_OVERLAP)
+    if n_imc != EVAL_PAIRS:
+        failed.append(f"evaluate imc: {n_imc} pairs generated")
+    oetr, sp, sg = models
+    pipe = pipeline(port, models, sg, TRAINED_MIN_MATCHES)
+    plain_pipe = pipeline(port, (None, sp, sg), sg, TRAINED_MIN_MATCHES)
+    results = os.path.join(root, "results")
+    bench_s = {}
+    run_benchmark = evaluate.run_benchmark
+
+    def timed_run(*args, **kwargs):
+        t = time.perf_counter()
+        out = run_benchmark(*args, **kwargs)
+        torch.cuda.synchronize()
+        bench_s["run_benchmark"] = time.perf_counter() - t
+        return out
+
+    printed = io.StringIO()
+    flows = {
+        "megadepth": (lambda: evaluate.megadepth_flow(
+            pipe, written["mega_pairs"], root,
+            os.path.join(results, "megadepth"), device=DEV),
+            written["mega_pairs"], os.path.join(results, "megadepth"),
+            True, True),
+        "imc": (lambda: evaluate.imc_flow(
+            pipe, imc_pairs, root, os.path.join(results, "imc"),
+            device=DEV),
+            imc_pairs, os.path.join(results, "imc"), True, True),
+        "hpatches": (lambda: evaluate.hpatches_flow(
+            plain_pipe, written["hpatches"], os.path.join(results,
+                                                          "hpatches")),
+            os.path.join(results, "hpatches", "hpatches_pairs.txt"),
+            os.path.join(results, "hpatches"), False, False)}
+    fields_by_flow, total = {}, collections.Counter()
+    evaluate.run_benchmark = timed_run
+    try:
+        for name, (flow, pairs_file, res_dir, pairwise, guided) in \
+                flows.items():
+            t = time.perf_counter()
+            with torch.inference_mode(), \
+                    contextlib.ExitStack() as stack:
+                calls = stack.enter_context(recorded_kernel_calls(
+                    sinkhorn=True))
+                eigh_calls = stack.enter_context(recorded_eigh_inputs())
+                seen = stack.enter_context(recorded_batches())
+                stack.enter_context(contextlib.redirect_stdout(printed))
+                reset_counts(ops)
+                metrics = flow()
+                torch.cuda.synchronize()
+                launches = launch_counts(ops)
+            flow_s = time.perf_counter() - t
+            batches = len(seen)
+            recorded = {k: len(v) for k, v in calls.items()}
+            want = {"linear_encoder_attention": 16 * batches if guided
+                    else 0,
+                    "groupnorm_relu_maxpool": batches if guided else 0}
+            k4 = recorded.get("log_optimal_transport", 0)
+            # The pose harnesses score every pair with estimate_pose, one
+            # pair a call (5-point stage on); HPatches scores none.
+            posed = name != "hpatches"
+            # An empty batch launches nothing (the wrapper returns first).
+            eigh_calls = [a for a in eigh_calls if a.numel()]
+            if ({k: launches[k] for k in want} != want
+                    or launches["log_sinkhorn_cuda"] != k4 or k4 < batches
+                    or {k: recorded.get(k, 0) for k in want} != want
+                    or launches["eigh"] != len(eigh_calls)
+                    or bool(eigh_calls) != posed):
+                failed.append(f"evaluate {name}: launches {launches}, "
+                              f"recorded calls {recorded}, "
+                              f"{len(eigh_calls)} eigh calls, {batches} "
+                              "batches")
+            kernels = recorded_kernel_errors(torch, ops, calls,
+                                             path=f"evaluate {name}")
+            with torch.inference_mode():
+                eigh_check = eigh_errors(torch, ops, eigh_calls) \
+                    if eigh_calls else None
+            del calls, eigh_calls
+            differ = results_equal_outputs(pairs_file, res_dir, pairwise,
+                                           seen)
+            del seen
+            if differ:
+                failed.append(f"evaluate {name}: {differ} pairs' h5 "
+                              "results differ from the pipeline's")
+            run = metrics["run"]
+            if run["matches_per_pair"] < EVAL_MATCHES_MIN:
+                failed.append(f"evaluate {name}: {run['matches_per_pair']}"
+                              f" matches a pair < {EVAL_MATCHES_MIN}")
+            total.update(launches)
+            fields_by_flow[name] = {
+                **metrics, "batches": batches,
+                "pairs_per_s": run["num_pairs"] / bench_s["run_benchmark"],
+                "run_benchmark_s": bench_s["run_benchmark"],
+                "flow_s": flow_s,
+                "kernel_calls": {k: n for k, n in launches.items() if n},
+                "kernel_outputs_vs_plain": kernels,
+                "eigh_vs_lapack": eigh_check,
+                "h5_pairs_differing": differ}
+    finally:
+        evaluate.run_benchmark = run_benchmark
+    torch.cuda.empty_cache()
+
+    # One loader batch from the files against the generator's geometry.
+    dset = MegaDepthPairsDataset(
+        os.path.join(root, "mega", "scene0"), written["train_pairs"],
+        image_size=(EVAL_HW, EVAL_HW), train=False)
+    batch = next(dset.batches(2, geometry=True))
+    recs = load_pairs(written["train_pairs"])
+    boxes_equal = True
+    with np.load(written["depths"]) as d:
+        for i in range(2):
+            r = recs[i]
+            b1, _, b2, _, valid = overlap_bbox_np(
+                r.K1, d[f"d{2 * i}"], r.pose1, np.zeros(2, int), (1.0, 1.0),
+                r.K2, d[f"d{2 * i + 1}"], r.pose2, np.zeros(2, int),
+                (1.0, 1.0))
+            boxes_equal &= (
+                np.array_equal(batch["overlap_box1"][i],
+                               b1.astype(np.float32))
+                and np.array_equal(batch["overlap_box2"][i],
+                                   b2.astype(np.float32))
+                and bool(batch["overlap_valid"][i]) == bool(valid))
+    if not boxes_equal:
+        failed.append("evaluate loader: GT boxes differ from "
+                      "overlap_bbox_np on the generator's geometry")
+    loader = {"pairs": 2, "image_size": EVAL_HW, "boxes_equal": boxes_equal,
+              "overlap_box1": batch["overlap_box1"].tolist(),
+              "overlap_valid": batch["overlap_valid"].tolist()}
+
+    fields = {"pairs": EVAL_PAIRS, "hw": EVAL_HW, "canvas_hw": CANVAS_HW,
+              "oetr_hw": IMAGE_HW, "dtype": "bfloat16",
+              "fallback_min_matches": TRAINED_MIN_MATCHES,
+              "writer": {k: written[k] for k in ("scene_s", "seconds")},
+              "codec": codec, "flows": fields_by_flow,
+              "printed": printed.getvalue().splitlines(),
+              "loader": loader, "phase_body_s": time.perf_counter() - t0,
+              "failures": failed}
     return fields, dict(total)
 
 
@@ -4342,20 +4832,18 @@ np.savez(path, cams=r["cams"].numpy(), pts=r["pts"].numpy(),
 """
 
 
-def start_cpu_ba():
-    """A child process for the port's BA of ``bal_problem()`` on the CPU
-    (not a thread: torch's forward-AD levels are global to a process). It
-    imports torch, the port and torch._dynamo and builds the problem at
-    once (started while nvcc builds), then waits for an npz path on its
-    stdin before it computes; the sfm phase sends the path and runs the
-    card meanwhile. Stopped at exit if it is still running."""
+def start_child(code, *args, stdin=False, env=None, cleanup=None):
+    """A child interpreter running ``code`` (with ``args``) from the
+    checkout's root, the port importable, its output piped; stopped at exit
+    if it is still running, and ``cleanup`` called then."""
     import atexit
     import os
 
     root = os.path.dirname(os.path.abspath(__file__))
-    env = dict(os.environ, PYTHONPATH=root)
-    child = subprocess.Popen([sys.executable, "-c", CPU_BA_CHILD], cwd=root,
-                             env=env, stdin=subprocess.PIPE,
+    env = dict(os.environ, PYTHONPATH=root, **(env or {}))
+    child = subprocess.Popen([sys.executable, "-c", code, *args], cwd=root,
+                             env=env,
+                             stdin=subprocess.PIPE if stdin else None,
                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                              text=True)
 
@@ -4363,9 +4851,21 @@ def start_cpu_ba():
         if child.poll() is None:
             child.kill()
             child.wait()
+        if cleanup is not None:
+            cleanup()
 
     atexit.register(stop)
     return child
+
+
+def start_cpu_ba():
+    """A child process for the port's BA of ``bal_problem()`` on the CPU
+    (not a thread: torch's forward-AD levels are global to a process). It
+    imports torch, the port and torch._dynamo and builds the problem at
+    once (started while nvcc builds), then waits for an npz path on its
+    stdin before it computes; the sfm phase sends the path and runs the
+    card meanwhile."""
+    return start_child(CPU_BA_CHILD, stdin=True)
 
 
 def cpu_ba_result(torch, child, path):
@@ -5631,6 +6131,9 @@ def main() -> int:
     _, record = load_library()
     dynamo.join()
     decoder.join()
+    # The evaluate phase's files, written by the host while the card runs
+    # the phases before it.
+    eval_writer = start_eval_writer()
     phase("build", so=record["so"], built=record["built"],
           steps_s=record["steps_s"],
           tensor_core_kernels=tensor_core_resources(record["resources"]),
@@ -5785,10 +6288,22 @@ def main() -> int:
     # Path 10c, the all-trained main path: bench stage 5 with the trained
     # OETR (K2, K3), SuperPoint and SuperGlue (K4) in bf16, the trained
     # dense pipeline, JAX's LoFTR gate and stage 5's matches scored.
-    fields, trained_launches = run_trained(torch, port, ops, matching)
+    fields, trained_launches, stage5 = run_trained(torch, port, ops,
+                                                   matching)
     phase("trained", **fields)
     failed += [f"trained: {f}" for f in fields["failures"]]
     del matching
+    torch.cuda.empty_cache()
+
+    # Path 10d, the file-based paths: scripts/evaluate.py's MegaDepth, IMC
+    # and HPatches flows on files the port's own writers made (JPEG, PPM,
+    # HDF5; the host wrote them meanwhile) and its decoders read back, on
+    # the trained stage-5 models; one MegaDepth loader batch.
+    eval_fields, eval_launches = run_evaluate(
+        torch, port, ops, stage5, eval_writer_result(eval_writer))
+    phase("evaluate", **eval_fields)
+    failed += [f"evaluate: {f}" for f in eval_fields["failures"]]
+    del stage5
     torch.cuda.empty_cache()
 
     # Path 11, reconstruction: the SfM demo's rig (per-edge pose, the chain,
@@ -5867,6 +6382,7 @@ def main() -> int:
                                      ("api", api_launches[name]),
                                      ("shipped", shipped_launches[name]),
                                      ("trained", trained_launches[name]),
+                                     ("evaluate", eval_launches[name]),
                                      ("demos", demo_launches[name]),
                                      ("variants", variant_launches[name]),
                                      ("multi", multi_launches[name]))
@@ -5886,8 +6402,12 @@ def main() -> int:
     table.append({"name": "eigh", "route": "cuda",
                   "source": "oetr_tpu_torch/csrc/small_eigh.cu",
                   "replaces": "oetr_tpu/geometry/ransac.py:52",
-                  "launches": eigh_row["launches"] + sfm_eigh["launches"],
-                  "max_abs_err": eigh_row["max_abs_err"],
+                  "launches": eigh_row["launches"] + sfm_eigh["launches"]
+                  + eval_launches["eigh"],
+                  "max_abs_err": max([eigh_row["max_abs_err"]] + [
+                      f["eigh_vs_lapack"]["max_abs_err"]
+                      for f in eval_fields["flows"].values()
+                      if f["eigh_vs_lapack"]]),
                   "ms": eigh_row["kernel_ms"],
                   "plain_ms": eigh_row["plain_ms"],
                   "bound_ms": eigh_row["bound_ms"],
@@ -5899,7 +6419,8 @@ def main() -> int:
                   + sfm_eigh["by_shape"],
                   "traced_pose_device_ms": eigh_row["traced_pose_device_ms"],
                   "launches_by_path": {"pose": eigh_row["launches"],
-                                       "sfm": sfm_eigh["launches"]},
+                                       "sfm": sfm_eigh["launches"],
+                                       "evaluate": eval_launches["eigh"]},
                   "sfm_launches_4x4": sfm_eigh["launches_4x4"],
                   "also_replaces": "oetr_tpu/sfm/ba.py:247 (triangulation, "
                                    "n = 4)"})

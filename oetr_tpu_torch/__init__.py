@@ -22,9 +22,10 @@ Entry points (``build_oetr``, ``build_superpoint``,
 ``build_fcos_head``, ``build_model``, ``models.registry.build``, ``get_pose``,
 the modules and pipelines they feed, and the generators of
 ``make_device_generator`` and ``make_homography_pair_generator``) run on
-the card unless the caller passes ``device="cpu"``; reading images and
-drawing need cv2 and matplotlib, the h5 results h5py, each imported where
-it is used. ``reconstruct`` runs on the card unless the caller passes
+the card unless the caller passes ``device="cpu"``; images (JPEG, PNG,
+PPM) and the h5 results are read and written with the port's own code
+(``data/jpeg.py``, ``utils/hdf5.py``); drawing needs cv2 and matplotlib,
+imported where it is used. ``reconstruct`` runs on the card unless the caller passes
 ``device="cpu"``; ``estimate_pose``, ``bundle_adjust``,
 ``triangulate_points`` and the other geometry functions run where their
 tensors lie;

@@ -3,16 +3,18 @@ aspect-resize, pad to static canvases.
 
 Every image becomes (a) a full-resolution canvas padded to the bucket
 shape with its valid (h, w), and (b) a copy at the OETR pass's size with
-the scale back to the full-resolution frame. Only ``read_image`` needs
-cv2 (imported inside it); the resizes are ``resize_area``, numpy's copy of
-``cv2.resize(..., interpolation=cv2.INTER_AREA)``, so that the rest runs
-where cv2 is not installed.
+the scale back to the full-resolution frame. Nothing here needs cv2:
+``read_image`` reads through the port's own decoders (``data/jpeg.py``),
+which give ``cv2.imread``'s pixels, and the resizes are ``resize_area``,
+numpy's copy of ``cv2.resize(..., interpolation=cv2.INTER_AREA)``.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
 import numpy as np
+
+from .jpeg import imread
 
 
 @dataclass
@@ -26,17 +28,11 @@ class PreparedImage:
 
 
 def read_image(path: str, grayscale: bool = False) -> np.ndarray:
-    """cv2 read -> RGB float32 [H, W, 3] in [0, 1] (a grayscale read is
-    repeated over the 3 channels). Raises ImportError without cv2."""
-    import cv2
-
-    flag = cv2.IMREAD_GRAYSCALE if grayscale else cv2.IMREAD_COLOR
-    img = cv2.imread(path, flag)
-    if img is None:
-        raise FileNotFoundError(path)
-    if not grayscale:
-        img = cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
-    else:
+    """An image file (JPEG, PNG, PPM/PGM) -> RGB float32 [H, W, 3] in
+    [0, 1], as cv2 reads it (a grayscale read is repeated over the 3
+    channels). Raises FileNotFoundError for a missing file."""
+    img = imread(path, grayscale)
+    if grayscale:
         img = img[..., None].repeat(3, -1)
     return img.astype(np.float32) / 255.0
 

@@ -9,9 +9,11 @@ ground-truth overlap boxes and masks computed online (``data/gt.py``), and
 fixed-shape numpy batches for the train step. It draws from numpy's global
 random state as JAX's does, so the same seed gives the same samples.
 
-cv2 and h5py are imported where an image or a depth map is read, not with
-the module: the package imports where they are not installed (the card's
-machine, which trains on the device generator instead).
+Images and masks are read with the port's own decoders (``data/jpeg.py``,
+``cv2.imread``'s pixels), resized with its copies of cv2's INTER_LINEAR
+and INTER_NEAREST, and the depth maps read with its HDF5 subset
+(``utils/hdf5.py``): nothing needs cv2 or h5py, so the loader runs on the
+machine with the CUDA card.
 """
 from __future__ import annotations
 
@@ -20,23 +22,24 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from ..utils import hdf5
 from .gt import overlap_bbox_np
+from .jpeg import imread, resize_linear_u8, resize_nearest
 from .pairs import PairRecord, load_pairs
 
 
 def resize_dataset(img: np.ndarray, image_size: tuple[int, int],
                    depth: bool = False):
     """Aspect-preserving resize, the short side to image_size[0] (nearest
-    for depth maps, bilinear otherwise): (resized, (ratio_x, ratio_y))."""
-    import cv2
-
+    for depth maps and masks, cv2's uint8 bilinear otherwise): (resized,
+    (ratio_x, ratio_y))."""
     h, w = img.shape[:2]
-    interp = cv2.INTER_NEAREST if depth else cv2.INTER_LINEAR
     if w > h:
         new_w, new_h = int(image_size[0] / h * w), image_size[0]
     else:
         new_w, new_h = image_size[0], int(image_size[0] * h / w)
-    out = cv2.resize(img, (new_w, new_h), interpolation=interp)
+    resize = resize_nearest if depth else resize_linear_u8
+    out = resize(img, (new_w, new_h))
     return out, (new_w / w, new_h / h)       # (ratio_x, ratio_y)
 
 
@@ -113,17 +116,14 @@ class MegaDepthPairsDataset:
         return len(self.dataset)
 
     def _read_depth(self, rel: str) -> np.ndarray:
-        import h5py
-        with h5py.File(os.path.join(self.base_path, rel), "r") as f:
+        with hdf5.File(os.path.join(self.base_path, rel), "r") as f:
             return np.array(f["/depth"])
 
     def __getitem__(self, idx: int) -> dict:
-        import cv2
-
         sp = self.dataset[idx]
         rec = sp.record
-        image1 = cv2.imread(os.path.join(self.base_path, rec.image_path1))
-        image2 = cv2.imread(os.path.join(self.base_path, rec.image_path2))
+        image1 = imread(os.path.join(self.base_path, rec.image_path1))
+        image2 = imread(os.path.join(self.base_path, rec.image_path2))
         depth1 = self._read_depth(rec.depth_path1)
         depth2 = self._read_depth(rec.depth_path2)
 
@@ -153,9 +153,9 @@ class MegaDepthPairsDataset:
                     self.base_path,
                     rel.replace("images", "masks").replace("imgs", "masks")
                     .replace(".jpg", ".png").replace(".JPG", ".png"))
-                m = cv2.imread(p, cv2.IMREAD_GRAYSCALE)
-                if m is None:
+                if not os.path.isfile(p):
                     return np.zeros(self.image_size, np.float32)
+                m = imread(p, grayscale=True)
                 m, _ = resize_dataset(m, self.image_size, depth=True)
                 m = m[crop[0]:crop[0] + self.image_size[0],
                       crop[1]:crop[1] + self.image_size[1]]
@@ -166,8 +166,8 @@ class MegaDepthPairsDataset:
 
         return {
             **seg,
-            "image1": image1[..., ::-1].astype(np.float32) / 255.0,
-            "image2": image2[..., ::-1].astype(np.float32) / 255.0,
+            "image1": image1.astype(np.float32) / 255.0,
+            "image2": image2.astype(np.float32) / 255.0,
             "depth1": depth1.astype(np.float32),
             "depth2": depth2.astype(np.float32),
             "intrinsics1": rec.K1.astype(np.float32),

@@ -8,7 +8,7 @@ ratio, compute full-image co-visible boxes via the depth warp, keep
 pairs whose box scale difference exceeds a threshold, and emit the
 10-field training pairs txt (``data/pairs.py`` format). Parallelised with
 a process pool like the reference's Pool(6). The depth maps are h5
-files, so ``process_scene`` needs h5py, imported inside it.
+files, read with the port's own HDF5 subset (``utils/hdf5.py``).
 """
 from __future__ import annotations
 
@@ -18,6 +18,7 @@ from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 
+from ..utils import hdf5
 from .gt import overlap_bbox_np
 
 
@@ -70,7 +71,6 @@ def process_scene(scene: str, datasets: str, pairs_per_scene: int = 3000,
     rng = np.random.default_rng(seed)
     rng.shuffle(ids)
 
-    import h5py
     n_kept = 0
     seen: set[str] = set()
     for pair_idx in ids:
@@ -83,9 +83,9 @@ def process_scene(scene: str, datasets: str, pairs_per_scene: int = 3000,
         if key in seen or rkey in seen:
             continue
         seen.add(key)
-        with h5py.File(os.path.join(datasets, depth_paths[i0]), "r") as f:
+        with hdf5.File(os.path.join(datasets, depth_paths[i0]), "r") as f:
             depth0 = np.array(f["/depth"])
-        with h5py.File(os.path.join(datasets, depth_paths[i1]), "r") as f:
+        with hdf5.File(os.path.join(datasets, depth_paths[i1]), "r") as f:
             depth1 = np.array(f["/depth"])
         zeros = np.zeros(2)
         ones = np.ones(2)

@@ -7,18 +7,23 @@ format ``MegaDepthPairsDataset`` parses (jpg images, h5 depth maps, the
 geometry; ``_texture``, ``_rot`` and ``_render_planes`` are the renderers
 they and the SfM demo draw on.
 
-The renderers are numpy alone, so they run where cv2 is missing (the
-machine with the CUDA card): JAX's ``_texture`` blurs its noise with
-``cv2.GaussianBlur`` and ``_render_planes`` samples its textures with
-``cv2.remap``; here ``_gaussian_blur`` and ``_remap_linear`` compute what
-those calls compute. The writers still need cv2 (``imwrite``, ``resize``)
-and h5py, imported inside them, as in JAX.
+Nothing here needs cv2 or h5py, so it all runs on the machine with the
+CUDA card: JAX's ``_texture`` blurs its noise with ``cv2.GaussianBlur``
+and ``_render_planes`` samples its textures with ``cv2.remap``; here
+``_gaussian_blur`` and ``_remap_linear`` compute what those calls compute.
+The writers encode their JPEGs with the port's codec (``data/jpeg.py``:
+``cv2.imwrite``'s bytes), resize with ``resize_linear_u8``
+(``cv2.resize``'s INTER_LINEAR on uint8) and write the depth maps with the
+port's HDF5 writer (``utils/hdf5.py``).
 """
 from __future__ import annotations
 
 import os
 
 import numpy as np
+
+from ..utils import hdf5
+from .jpeg import imwrite_jpeg, resize_linear_u8
 
 
 def _texture(rng: np.random.Generator, h: int, w: int) -> np.ndarray:
@@ -127,11 +132,8 @@ def generate_scene(base: str, n_pairs: int = 64, image_hw: int = 160,
     way.
     """
     rng = np.random.default_rng(seed)
-    import cv2
-
     os.makedirs(os.path.join(base, "imgs"), exist_ok=True)
     os.makedirs(os.path.join(base, "depths"), exist_ok=True)
-    import h5py
 
     hw = image_hw
     K = np.array([[focal, 0, hw / 2], [0, focal, hw / 2], [0, 0, 1.0]])
@@ -167,13 +169,12 @@ def generate_scene(base: str, n_pairs: int = 64, image_hw: int = 160,
             s_eff = hw / c
             ox = int(rng.integers(0, hw - c + 1))
             oy = int(rng.integers(0, hw - c + 1))
-            im2 = cv2.resize(canvas[pad + oy:pad + oy + c,
-                                    pad + ox:pad + ox + c], (hw, hw),
-                             interpolation=cv2.INTER_LINEAR)
+            im2 = resize_linear_u8(canvas[pad + oy:pad + oy + c,
+                                          pad + ox:pad + ox + c], (hw, hw))
             # Pinhole at camera center (cx_w, cy_w, tz), identity R:
             # u2 = s*(u1 - o') requires tz = z(1 - 1/s),
             # c_w = (z/f) * (o' - pp*(1 - 1/s)).
-            # cv2.resize samples output pixel u2 at input (u2+0.5)/s - 0.5,
+            # The resize samples output pixel u2 at input (u2+0.5)/s - 0.5,
             # so the rendered content obeys u2 = s*(u1 - ox) + (s-1)/2 —
             # i.e. an effective offset o' = o - 0.5*(1 - 1/s). Using o'
             # keeps the pose/intrinsics GT sub-0.1px consistent with the
@@ -185,10 +186,10 @@ def generate_scene(base: str, n_pairs: int = 64, image_hw: int = 160,
                 depth_z / focal * (ox - (pp + 0.5) * shrink),
                 depth_z / focal * (oy - (pp + 0.5) * shrink), tz])
             depth2 = depth_z - tz
-        cv2.imwrite(os.path.join(base, "imgs", f"a{i}.jpg"), im1[..., ::-1])
-        cv2.imwrite(os.path.join(base, "imgs", f"b{i}.jpg"), im2[..., ::-1])
+        imwrite_jpeg(os.path.join(base, "imgs", f"a{i}.jpg"), im1)
+        imwrite_jpeg(os.path.join(base, "imgs", f"b{i}.jpg"), im2)
         for nm, dz in ((f"a{i}", depth_z), (f"b{i}", depth2)):
-            with h5py.File(os.path.join(base, "depths", f"{nm}.h5"),
+            with hdf5.File(os.path.join(base, "depths", f"{nm}.h5"),
                            "w") as f:
                 f.create_dataset("/depth", data=np.full((hw, hw), dz,
                                                         np.float32))
@@ -290,9 +291,6 @@ def generate_scene_3d(base: str, n_pairs: int = 64, image_hw: int = 256,
 
     Output tree/pairs format is identical to :func:`generate_scene`.
     """
-    import cv2
-    import h5py
-
     rng = np.random.default_rng(seed)
     os.makedirs(os.path.join(base, "imgs"), exist_ok=True)
     os.makedirs(os.path.join(base, "depths"), exist_ok=True)
@@ -345,10 +343,10 @@ def generate_scene_3d(base: str, n_pairs: int = 64, image_hw: int = 256,
         gain = float(rng.uniform(*illum_range))
         im2 = np.clip(im2.astype(np.float32) * gain, 0, 255).astype(np.uint8)
 
-        cv2.imwrite(os.path.join(base, "imgs", f"a{i}.jpg"), im1[..., ::-1])
-        cv2.imwrite(os.path.join(base, "imgs", f"b{i}.jpg"), im2[..., ::-1])
+        imwrite_jpeg(os.path.join(base, "imgs", f"a{i}.jpg"), im1)
+        imwrite_jpeg(os.path.join(base, "imgs", f"b{i}.jpg"), im2)
         for nm, dm in ((f"a{i}", d1), (f"b{i}", d2)):
-            with h5py.File(os.path.join(base, "depths", f"{nm}.h5"),
+            with hdf5.File(os.path.join(base, "depths", f"{nm}.h5"),
                            "w") as fh:
                 fh.create_dataset("/depth", data=dm.astype(np.float32))
         pose2 = np.eye(4)

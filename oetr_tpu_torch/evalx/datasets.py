@@ -4,13 +4,15 @@ generators and loaders do them:
   * IMC pair lists from the calibration h5 files and covisibility keys;
   * HPatches pair lists ('1.ppm' against '2..6.ppm' of each sequence) and
     result iteration with the H_1_x ground truth.
-h5py is imported where a file is opened.
+The h5 files are read with the port's own HDF5 subset (``utils/hdf5.py``).
 """
 from __future__ import annotations
 
 import os
 
 import numpy as np
+
+from ..utils import hdf5
 
 
 def calib_to_matrix(calib) -> np.ndarray:
@@ -26,7 +28,6 @@ def generate_imc_pairs(scenes_path: str, datasets: str, output_path: str,
                        overlap_ratio: float = 0.1) -> int:
     """IMC pair txt from covisibility keys and per-image calibration.
     Returns the pair count."""
-    import h5py
     n = 0
     with open(scenes_path) as f:
         scenes_info = [ln.strip().split(" ") for ln in f if ln.strip()]
@@ -37,10 +38,10 @@ def generate_imc_pairs(scenes_path: str, datasets: str, output_path: str,
                 f"keys-th-{overlap_ratio}.npy"))
             for key in keys:
                 name0, name1 = key.split("-")
-                with h5py.File(os.path.join(
+                with hdf5.File(os.path.join(
                         datasets, scene, "set_100/calibration",
                         f"calibration_{name0}.h5"), "r") as c0, \
-                     h5py.File(os.path.join(
+                     hdf5.File(os.path.join(
                         datasets, scene, "set_100/calibration",
                         f"calibration_{name1}.h5"), "r") as c1:
                     K0 = " ".join(map(str, np.asarray(c0["K"]).reshape(-1)))
@@ -73,7 +74,6 @@ def iter_hpatches_results(pairs_file: str, dataset_path: str,
     """Yield {'seq_name', 'H_gt', 'kpts0', 'kpts1', 'matches' [M,2]}
     records for evalx.hpatches.benchmark_results (keys are the image
     digit stems)."""
-    import h5py
     with open(pairs_file) as f:
         pairs = [ln.split() for ln in f if ln.strip()]
     cache: dict[str, tuple] = {}
@@ -83,9 +83,9 @@ def iter_hpatches_results(pairs_file: str, dataset_path: str,
         idx1 = os.path.basename(img1).split(".")[0]
         if seq not in cache:
             cache[seq] = (
-                h5py.File(os.path.join(results_path, seq, "keypoints.h5"),
+                hdf5.File(os.path.join(results_path, seq, "keypoints.h5"),
                           "r"),
-                h5py.File(os.path.join(results_path, seq, "matches.h5"),
+                hdf5.File(os.path.join(results_path, seq, "matches.h5"),
                           "r"))
         kf, mf = cache[seq]
         if pairwise:

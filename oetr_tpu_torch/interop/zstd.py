@@ -11,10 +11,6 @@ back to another decoder.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shlex
-import subprocess
 import time
 from pathlib import Path
 
@@ -29,28 +25,13 @@ _record: dict = {}
 
 def library_path() -> Path:
     """Where the library of this source and these flags lives."""
-    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    h.update(SRC.read_bytes())
-    return _build.BUILD_DIR / f"liboetr_zstd_{h.hexdigest()[:16]}.so"
+    return _build.host_library_path(SRC, "oetr_zstd", CXX_FLAGS)
 
 
 def build_decoder() -> Path:
     """Compile the decoder (once). Returns the library's path; raises
     RuntimeError with the compiler's message where it cannot be built."""
-    lib = library_path()
-    cxx = shlex.split(os.environ.get("CXX", "g++"))
-
-    def build(work: Path) -> None:
-        cmd = [*cxx, *CXX_FLAGS, str(SRC), "-o", str(work / lib.name)]
-        try:
-            p = subprocess.run(cmd, capture_output=True, text=True)
-        except OSError as e:
-            raise RuntimeError(f"{cmd[0]}: {e}") from e
-        if p.returncode != 0:
-            raise RuntimeError(f"{' '.join(cmd)} failed:\n{p.stderr}")
-
-    _build.build_once([lib], build)
-    return lib
+    return _build.build_host_library(SRC, "oetr_zstd", CXX_FLAGS)
 
 
 def load_decoder():

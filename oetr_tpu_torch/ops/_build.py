@@ -25,6 +25,7 @@ import hashlib
 import json
 import os
 import re
+import shlex
 import shutil
 import subprocess
 import tempfile
@@ -196,6 +197,34 @@ def build_once(products: list[Path], build: Callable[[Path], object]):
         finally:
             shutil.rmtree(work, ignore_errors=True)
         return result
+
+
+def host_library_path(src: Path, stem: str, flags: list[str]) -> Path:
+    """Where g++ puts the library of ``src`` built with ``flags``: named by
+    a hash of both, in ``BUILD_DIR``."""
+    h = hashlib.sha256(" ".join(flags).encode())
+    h.update(src.read_bytes())
+    return BUILD_DIR / f"lib{stem}_{h.hexdigest()[:16]}.so"
+
+
+def build_host_library(src: Path, stem: str, flags: list[str]) -> Path:
+    """Compile a host C++ source into a shared library with g++ (``$CXX``)
+    through ``build_once``. Returns its path; raises RuntimeError with the
+    compiler's message where it cannot be built."""
+    lib = host_library_path(src, stem, flags)
+    cxx = shlex.split(os.environ.get("CXX", "g++"))
+
+    def build(work: Path) -> None:
+        cmd = [*cxx, *flags, str(src), "-o", str(work / lib.name)]
+        try:
+            p = subprocess.run(cmd, capture_output=True, text=True)
+        except OSError as e:
+            raise RuntimeError(f"{cmd[0]}: {e}") from e
+        if p.returncode != 0:
+            raise RuntimeError(f"{' '.join(cmd)} failed:\n{p.stderr}")
+
+    build_once([lib], build)
+    return lib
 
 
 def _run_parallel(cmds: list[list[str]]) -> tuple[list[str], list[float]]:

@@ -6,7 +6,8 @@ image pair by path (numpy out, in original pixels) and ``get_pose``
 fits a homography or a similarity to the matches. The batched pipelines
 (``pipelines/matching.py``) do the work; this is the single-pair layer.
 The networks run on ``device`` ("cuda" unless the caller asks for the
-CPU); reading images needs cv2 (``data/images.py::read_image``).
+CPU); images are read with the port's own decoders
+(``data/images.py::read_image``, ``data/jpeg.py``).
 
 ``build_model`` assembles what JAX's assembles: a learned extractor with
 SuperGlue, ``NN`` or ``disk``, and ``loftr`` (dense). JAX's cannot run the

@@ -8,7 +8,8 @@ Loads an OETR train state, ``{checkpoint}/step_{step}`` in JAX's orbax
 layout as JAX's trainer or the port's writes it
 (``training/train.py::load_checkpoint``), predicts the overlap boxes of
 each pair and draws them (and the ground truth, when the pair line has
-it) side by side. Reading and drawing need cv2.
+it) side by side. Drawing needs cv2; the images are read with the port's
+own decoders.
 """
 from __future__ import annotations
 

@@ -19,13 +19,16 @@ asked), and prints the JSON line the JAX script prints:
                            pose A/B
   ``sweep_decode``         the heat-map decode's (q, pad) grid by pose AUC
   ``export_params``        a full train state's params-only store
+  ``evaluate``             the MegaDepth-1500, IMC and HPatches harnesses
+                           on files (``scripts/evaluate_*.sh``): no cv2
 
 Their phases are functions that take their weights and their items, so a
 caller can feed other weights or the on-device generator's pairs; ``main``
 only wires them together. Checkpoints (``--ckpt_dir``, ``step_N``) are
 JAX's orbax directories, read and written by the port's own code, so the
-port and the JAX scripts resume each other's runs. cv2 is needed for the
-host scene writer, the dataset reads, the host texture pairs and every
-SIFT row, as in JAX; where a chosen flag needs it and it is missing,
-``main`` stops before any training with an ImportError naming cv2.
+port and the JAX scripts resume each other's runs. The scene writer and
+the dataset reads use the port's own JPEG and HDF5 code; each demo keeps
+JAX's cv2 check (the host texture pairs, cv2's warps and every SIFT row
+need cv2), and where a chosen flag needs it and it is missing, ``main``
+stops before any training with an ImportError naming cv2.
 """

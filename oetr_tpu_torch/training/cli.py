@@ -7,8 +7,8 @@
 
 The model is the flagship (``oetr_r50_kernels_config('float32')``: K2 and
 K3 on the card, their plain versions on the CPU) on the card, or on the
-CPU with ``--device cpu``; the MegaDepth pairs are read on the host (cv2
-and h5py). Checkpoints hold the full state; ``--resume`` continues from
+CPU with ``--device cpu``; the MegaDepth pairs are read on the host with
+the port's own JPEG, PNG and HDF5 readers. Checkpoints hold the full state; ``--resume`` continues from
 the latest, and ``--max_steps_per_segment N`` checkpoints after N steps
 and re-executes the process with ``--resume``. The dropout masks of step
 N are drawn from a generator seeded ``seed + 1 + N``, so a resumed run

@@ -7,14 +7,16 @@
   <results>/<scene>/inparams.h5    optional [6] (sx, sy, tx, ty, rx, ry)
   <results>/<scene>/scales.h5      optional scalar overlap scale
 
-h5py is imported where a file is opened, not with the module, so the
-package imports where h5py is not installed.
+The files are read and written with the port's own HDF5 subset
+(``utils/hdf5.py``); h5py reads what it writes, and it reads h5py's.
 """
 from __future__ import annotations
 
 import os
 
 import numpy as np
+
+from . import hdf5
 
 
 def stem(name: str) -> str:
@@ -31,15 +33,13 @@ def save_scene_results(results_dir: str, scene: str, keypoints: dict,
                        matches: dict, inparams: dict | None = None,
                        scales: dict | None = None) -> None:
     """Write one scene's result files (overwrites)."""
-    import h5py
-
     out = os.path.join(results_dir, scene)
     os.makedirs(out, exist_ok=True)
     files = [("keypoints.h5", keypoints), ("matches.h5", matches),
              ("inparams.h5", inparams), ("scales.h5", scales)]
     for name, entries in files:
         if name in ("keypoints.h5", "matches.h5") or entries:
-            with h5py.File(os.path.join(out, name), "w") as f:
+            with hdf5.File(os.path.join(out, name), "w") as f:
                 for k, v in entries.items():
                     f.create_dataset(k, data=np.asarray(v))
 
@@ -48,15 +48,13 @@ class SceneResults:
     """Lazy reader of one scene's h5 files."""
 
     def __init__(self, results_dir: str, scene: str, pairwise: bool = False):
-        import h5py
-
         base = os.path.join(results_dir, scene)
-        self.keypoints = h5py.File(os.path.join(base, "keypoints.h5"), "r")
-        self.matches = h5py.File(os.path.join(base, "matches.h5"), "r")
+        self.keypoints = hdf5.File(os.path.join(base, "keypoints.h5"), "r")
+        self.matches = hdf5.File(os.path.join(base, "matches.h5"), "r")
         ip = os.path.join(base, "inparams.h5")
-        self.inparams = h5py.File(ip, "r") if os.path.exists(ip) else None
+        self.inparams = hdf5.File(ip, "r") if os.path.exists(ip) else None
         sc = os.path.join(base, "scales.h5")
-        self.scales = h5py.File(sc, "r") if os.path.exists(sc) else None
+        self.scales = hdf5.File(sc, "r") if os.path.exists(sc) else None
         self.pairwise = pairwise
 
     def pair(self, name0: str, name1: str):

@@ -66,7 +66,9 @@ train_loftr_demo's LoFTR) on the card against the CPU. For the all-trained
 path (the committed OETR, SuperPoint and SuperGlue at 256²): every K2 and
 K3 call of the trained OETR in bf16 against its plain version, the f32
 OETR on the card against the CPU, and stage 5 with every switch on
-against off.
+against off. For the file-based paths: ``scripts/evaluate.py``'s three
+flows on files the port wrote, with the trained stage-5 models at 256²
+(chip_smoke.py's evaluate phase).
 """
 import json
 
@@ -2450,3 +2452,43 @@ def test_trained_stage5_switches_on_vs_off(cuda, monkeypatch):
     print(json.dumps(fields))
     assert not failed, failed
     assert fields["pairs_same_crops"] >= 1
+
+
+# ------------------------------------------------- the file-based paths ----
+
+def test_evaluate_flows_on_card(cuda, monkeypatch, tmp_path):
+    """chip_smoke.py's evaluate phase at 256² on 2 pairs: the three flows
+    of ``scripts/evaluate.py`` with the trained stage-5 models (bf16, K2,
+    K3 and K4 on) on files the port's own writers made and its decoders
+    read back; every K2, K3 and K4 call against its plain version, every
+    eigh call of the pose scoring (one pair a call, 5-point stage on)
+    against LAPACK, the h5 results equal to the pipeline's outputs, the
+    codec's probe digests and one loader batch's GT boxes against the
+    generator's geometry. At 256²
+    the scenes give fewer matches than the phase's 640² (its bound, 64 a
+    pair, is the 640² phase's): 8 a pair here."""
+    import chip_smoke
+
+    for name, value in (("CANVAS_HW", 256), ("IMAGE_HW", 256),
+                        ("EVAL_HW", 256), ("EVAL_PAIRS", 2),
+                        ("EVAL_MATCHES_MIN", 8)):
+        monkeypatch.setattr(chip_smoke, name, value)
+    models = chip_smoke.stage5_models(torch, port, _trained_trees(),
+                                      "bfloat16", device=cuda)
+    written = chip_smoke.write_eval_data(str(tmp_path), n_pairs=2, hw=256)
+    fields, launches = chip_smoke.run_evaluate(torch, port, ops, models,
+                                               written)
+    print(json.dumps({k: v for k, v in fields.items() if k != "printed"}))
+    assert not fields["failures"], fields["failures"]
+    assert fields["loader"]["boxes_equal"]
+    assert launches["linear_encoder_attention"] == 32
+    assert launches["groupnorm_relu_maxpool"] == 2
+    assert launches["log_sinkhorn_cuda"] >= 3
+    flows = fields["flows"]
+    assert flows["hpatches"]["eigh_vs_lapack"] is None
+    for name in ("megadepth", "imc"):
+        check = flows[name]["eigh_vs_lapack"]
+        assert check["calls"] == flows[name]["kernel_calls"]["eigh"] > 0
+        assert max(check["max_rel_err"].values()) <= chip_smoke.EIGH_TOL
+    assert launches["eigh"] == sum(flows[n]["eigh_vs_lapack"]["calls"]
+                                   for n in ("megadepth", "imc"))

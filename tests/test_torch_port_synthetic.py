@@ -6,8 +6,10 @@ The port's renderers are numpy alone: ``_gaussian_blur`` stands for
 ``cv2.GaussianBlur(x, (0, 0), 1.2)`` on float32 and ``_remap_linear`` for
 ``cv2.remap(..., INTER_LINEAR, BORDER_REPLICATE)`` on uint8, so they run
 where cv2 is missing. Each is held to cv2 here, then the renderers to
-JAX's on the same ``numpy.random.Generator`` seeds, then the writers (which
-still use cv2 and h5py, as JAX's do) to JAX's files.
+JAX's on the same ``numpy.random.Generator`` seeds, then the writers (the
+port's own JPEG encoder and HDF5 writer, JAX's cv2 and h5py) to JAX's
+files; ``tests/test_torch_port_evaluate.py`` holds the files themselves
+byte for byte where both render the same pixels.
 
 Bounds:
   _gaussian_blur       cv2's taps (read off an impulse) equal; values
@@ -16,7 +18,8 @@ Bounds:
   _texture, images     within one 8-bit level on <= 0.1% of pixels
   depth maps           equal
   pair lines           equal (text)
-  the writers' images  as _texture's, before the jpg encoder
+  the writers' images  as _texture's, before the jpg encoder (JAX's
+                       cv2.imwrite, the port's imwrite_jpeg)
 """
 import importlib
 import os
@@ -154,16 +157,23 @@ def _tree(base, pairs_path):
 
 def _same_tree(tmp_path, monkeypatch, gen_j, gen_p, **kw):
     """Both generators' pair lines and depth maps equal, and the images
-    each hands to ``cv2.imwrite`` within one level on <= 0.1% of pixels
-    (compared before the jpg encoder)."""
+    each hands to its JPEG writer (JAX's ``cv2.imwrite`` in BGR, the
+    port's ``imwrite_jpeg`` in RGB) within one level on <= 0.1% of pixels
+    (compared before the encoder)."""
     written = {}
     real = cv2.imwrite
+    real_port = psyn.imwrite_jpeg
 
     def imwrite(path, img):
-        written[path] = img.copy()
+        written[path] = img[..., ::-1].copy()
         return real(path, img)
 
+    def imwrite_port(path, img):
+        written[path] = img.copy()
+        return real_port(path, img)
+
     monkeypatch.setattr(cv2, "imwrite", imwrite)
+    monkeypatch.setattr(psyn, "imwrite_jpeg", imwrite_port)
     lj, dj = _tree(tmp_path / "j", gen_j(str(tmp_path / "j"), **kw))
     lp, dp = _tree(tmp_path / "p", gen_p(str(tmp_path / "p"), **kw))
     assert lp == lj and len(lp) == kw["n_pairs"]
